@@ -1,0 +1,327 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (`tpustereo_torch`) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Runs the port's main path, the KITTI 8-path SGM preset with speckle and
+the median switched off (`PRESETS["kitti_sgm8"]` with
+`speckle_window_size=0, median_filter=False`), at full KITTI size
+(375 x 1242, D = 128, 8 frames, 4 per set of kernel launches):
+
+1. builds the four CUDA kernels from `tpustereo_torch/csrc/` with nvcc;
+2. runs each kernel and its plain PyTorch version on the card at the main
+   path's shapes and requires integer outputs to be equal and the float
+   disparity to agree within 1e-6;
+3. drives `api.match_batch` on 8 synthetic pairs with every launch counter
+   set to 0 just before, requires every kernel to have launched, and holds
+   the output against the plain PyTorch pipeline (the JAX package's jnp
+   formulation, ported) run on the card;
+4. times each kernel, its plain version and the whole path with CUDA
+   events, and prints them beside the card's name and power limit.
+
+Prints a `{"kernels": [...]}` line, then `{"ok": true, "device": ...}` as
+the last line. Exits non-zero, with no result, on any failure or when CUDA
+is absent. Needs no network; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+
+import numpy as np
+
+SHAPE = (375, 1242)
+BATCH = 8
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (data sheet)
+SCALAR_OPS_PER_S = 67e12    # H100 SXM rate outside the tensor cores
+DISP_TOL = 1e-6
+
+KERNELS = {
+    "census_cost_volume": ("tpustereo_torch/csrc/census_cost.cu",
+                           "tpustereo/kernels/cost_pallas.py:164"),
+    "sgm_sweep": ("tpustereo_torch/csrc/sgm_sweep.cu",
+                  "tpustereo/kernels/sgm_pallas.py:664"),
+    "sweep_bwd_wta": ("tpustereo_torch/csrc/bwd_wta.cu",
+                      "tpustereo/kernels/sgm_pallas.py:1225"),
+    "dr_consistency": ("tpustereo_torch/csrc/lr_check.cu",
+                       "tpustereo/kernels/lr_pallas.py:83"),
+}
+
+
+def card_line() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds of fn() on the card, by CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_busy(fn) -> str:
+    """Device time by kernel and the device's busy share over one call of
+    fn(), from `torch.profiler` (the span runs from the first kernel's start
+    to the last one's end)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        return "not measured (the profiler recorded no device events)"
+    span_us = (max(e.time_range.end for e in evs)
+               - min(e.time_range.start for e in evs))
+    busy_us = sum(e.time_range.elapsed_us() for e in evs)
+    by_name: dict = {}
+    for e in evs:
+        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return (f"span {span_us / 1e3:.3f} ms, kernels {busy_us / 1e3:.3f} ms, "
+            f"busy {busy_us / span_us:.4f}; top: "
+            + "; ".join(f"{n[:60]} {us / 1e3:.3f} ms" for n, us in top))
+
+
+def bound(nbytes: float, ops: float):
+    """(least ms for the work, which of bytes / operations binds)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke FAILED: {what}")
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    card = card_line()
+    print(card, flush=True)
+
+    from tpustereo_torch import PRESETS, api, kernels
+    from tpustereo_torch.data import synthetic_pair
+    from tpustereo_torch.kernels import _build
+    from tpustereo_torch.kernels.cost import census_cost_volume_plain
+    from tpustereo_torch.kernels.lr import dr_consistency_plain
+    from tpustereo_torch.kernels.sgm import (sgm_sweep_plain,
+                                             sweep_bwd_wta_plain)
+    from tpustereo_torch.ops import aggregate, lr_check, wta
+    from tpustereo_torch.ops.sgm import DIRS_8
+    from tpustereo_torch.pipeline import sgbm_batched
+
+    secs = _build.build()
+    print(f"build: {secs:.1f} s for {len(_build.NAMES)} libraries", flush=True)
+    for name in _build.NAMES:
+        with open(_build.log_path(name)) as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {name}: {line.strip()}")
+
+    cfg = PRESETS["kitti_sgm8"].replace(speckle_window_size=0,
+                                        median_filter=False)
+    D, F = cfg.num_disparities, cfg.frames_per_step
+    d0, p1, p2 = cfg.min_disparity, cfg.p1, cfg.p2
+    pairs = [synthetic_pair(SHAPE, disparity=40.0, seed=s)
+             for s in range(BATCH)]
+    lefts = np.stack([p[0] for p in pairs])
+    rights = np.stack([p[1] for p in pairs])
+    gts = np.stack([np.where(p[3], p[2], -1.0) for p in pairs])
+    dev = torch.device("cuda")
+    L = torch.from_numpy(lefts).to(dev)
+    R = torch.from_numpy(rights).to(dev)
+    Lf, Rf = L[:F].contiguous(), R[:F].contiguous()
+    H, W = SHAPE
+    n_pix = F * H * W
+    n_cost = n_pix * D
+    err = {}
+
+    # --- 1. each kernel against its plain version, at the main path's shapes
+    C = kernels.census_cost_volume(Lf, Rf, D, cfg.max_census_cost,
+                                   cfg.census_window, d0)
+    C_p = census_cost_volume_plain(Lf, Rf, D, cfg.max_census_cost,
+                                   cfg.census_window, d0)
+    torch.cuda.synchronize()
+    require(torch.equal(C, C_p), "census_cost_volume differs from plain")
+    err["census_cost_volume"] = (C.int() - C_p.int()).abs().max().item()
+    del C_p
+
+    S7 = torch.zeros(C.shape, dtype=torch.int16, device=dev)
+    sweep_err = 0
+    for dy, dx in DIRS_8:
+        if (dy, dx) == (0, -1):
+            continue
+        S_k = torch.zeros_like(S7)
+        S_p = torch.zeros_like(S7)
+        kernels.sgm_sweep(C, S_k, dy, dx, p1, p2)
+        sgm_sweep_plain(C, S_p, dy, dx, p1, p2)
+        torch.cuda.synchronize()
+        require(torch.equal(S_k, S_p), f"sgm_sweep {(dy, dx)} differs")
+        sweep_err = max(sweep_err,
+                        (S_k.int() - S_p.int()).abs().max().item())
+        S7 += S_k
+        del S_k, S_p
+    err["sgm_sweep"] = sweep_err
+
+    disp, valid, d_r = kernels.sweep_bwd_wta(C, S7, cfg)
+    disp_p, valid_p, d_r_p = sweep_bwd_wta_plain(C, S7, cfg)
+    torch.cuda.synchronize()
+    require(torch.equal(valid, valid_p), "sweep_bwd_wta valid differs")
+    require(torch.equal(d_r, d_r_p), "sweep_bwd_wta d_r differs")
+    err["sweep_bwd_wta"] = (disp - disp_p).abs().max().item()
+    require(err["sweep_bwd_wta"] <= DISP_TOL, "sweep_bwd_wta disp differs")
+    del disp_p, valid_p, d_r_p
+
+    ok = kernels.dr_consistency(d_r, disp, D, cfg.disp12_max_diff, d0)
+    ok_p = dr_consistency_plain(d_r, disp, D, cfg.disp12_max_diff, d0)
+    torch.cuda.synchronize()
+    require(torch.equal(ok, ok_p), "dr_consistency differs from plain")
+    err["dr_consistency"] = (ok.int() - ok_p.int()).abs().max().item()
+    for name, e in err.items():
+        print(f"check {name}: max abs diff to plain = {e}", flush=True)
+
+    # --- 2. the main path, through the user's entry point
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = api.match_batch(lefts, rights, cfg)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    # the path's own peak, above what the checks above keep allocated
+    peak_gib = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    print(f"main path launches: {launches}", flush=True)
+    for name, n in launches.items():
+        require(n > 0, f"{name} was not launched on the main path")
+    require(out.shape == (BATCH, H, W) and np.isfinite(out).all(),
+            "match_batch output has the wrong shape or non-finite values")
+
+    refs = []
+    for i in range(0, BATCH, F):
+        Cr = census_cost_volume_plain(L[i:i + F], R[i:i + F], D,
+                                      cfg.max_census_cost, cfg.census_window,
+                                      d0)
+        S = aggregate(Cr, cfg)
+        dref, _, vref = wta(S, cfg)
+        vref &= lr_check(S, dref, cfg)
+        refs.append(torch.where(vref, dref, -1.0).cpu().numpy())
+        del Cr, S
+    ref = np.concatenate(refs)
+    require(np.array_equal(out == -1.0, ref == -1.0),
+            "invalid pattern differs from the plain pipeline")
+    path_err = float(np.abs(out - ref).max())
+    require(path_err <= DISP_TOL, "disparity differs from the plain pipeline")
+    m = gts > 0
+    bad2 = float(((np.abs(out - gts) > 2.0) | (out < 0))[m].mean())
+    vfrac = float((out >= 0).mean())
+    print(f"main path vs plain pipeline: max abs diff {path_err}; valid "
+          f"fraction {vfrac:.4f}; bad-2.0 vs ground truth {bad2:.4f}",
+          flush=True)
+    # the bar the JAX package's drive recipe sets on synthetic pairs
+    require(vfrac > 0.9 and bad2 < 0.05,
+            "main path output is not a good disparity map")
+
+    # --- 3. timing, at the main path's shapes (sweeps accumulate into a
+    # scratch S, so S7 stays as checked)
+    dirs7 = [r for r in DIRS_8 if r != (0, -1)]
+    S_tmp = torch.zeros_like(S7)
+
+    def sweeps():
+        for dy, dx in dirs7:
+            kernels.sgm_sweep(C, S_tmp, dy, dx, p1, p2)
+
+    ms = {
+        "census_cost_volume": cuda_ms(lambda: kernels.census_cost_volume(
+            Lf, Rf, D, cfg.max_census_cost, cfg.census_window, d0), 20),
+        "sgm_sweep": cuda_ms(sweeps, 3) / len(dirs7),
+        "sweep_bwd_wta": cuda_ms(lambda: kernels.sweep_bwd_wta(C, S7, cfg),
+                                 10),
+        "dr_consistency": cuda_ms(lambda: kernels.dr_consistency(
+            d_r, disp, D, cfg.disp12_max_diff, d0), 50),
+    }
+    per_dir = {f"{dy},{dx}": cuda_ms(
+        lambda dy=dy, dx=dx: kernels.sgm_sweep(C, S_tmp, dy, dx, p1, p2), 3)
+        for dy, dx in dirs7}
+    print(f"sgm_sweep ms per direction: {per_dir}", flush=True)
+    plain_ms = {
+        "census_cost_volume": cuda_ms(lambda: census_cost_volume_plain(
+            Lf, Rf, D, cfg.max_census_cost, cfg.census_window, d0), 2),
+        "sgm_sweep": sum(cuda_ms(
+            lambda dy=dy, dx=dx: sgm_sweep_plain(C, S_tmp, dy, dx, p1, p2),
+            1, warmup=0) for dy, dx in dirs7) / len(dirs7),
+        "sweep_bwd_wta": cuda_ms(lambda: sweep_bwd_wta_plain(C, S7, cfg), 1),
+        "dr_consistency": cuda_ms(lambda: dr_consistency_plain(
+            d_r, disp, D, cfg.disp12_max_diff, d0), 10),
+    }
+    del S_tmp
+    bounds = {
+        # inputs read once, output written once; ops: xor, popcount,
+        # compare, select per cost
+        "census_cost_volume": bound(2 * n_pix + n_cost, 4 * n_cost),
+        # C read, S read and written; ~9 integer ops per cost
+        "sgm_sweep": bound(5 * n_cost, 9 * n_cost),
+        # C and S7 read, disp + valid + d_r written; ~17 ops per cost
+        "sweep_bwd_wta": bound(3 * n_cost + 9 * n_pix, 17 * n_cost),
+        # d_r and disp read, ok written; ~8 ops per pixel
+        "dr_consistency": bound(9 * n_pix, 8 * n_pix),
+    }
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 5
+    for _ in range(reps):
+        api.match_batch(lefts, rights, cfg)
+    torch.cuda.synchronize()
+    api_fps = BATCH * reps / (time.perf_counter() - t0)
+    dev_ms = cuda_ms(lambda: sgbm_batched(L, R, cfg), reps)
+    print(f"[{card}] whole path: {BATCH * 1e3 / dev_ms:.2f} frames/s on "
+          f"device tensors ({dev_ms:.3f} ms per batch of {BATCH}); "
+          f"{api_fps:.2f} frames/s through match_batch (numpy in/out); "
+          f"peak memory {peak_gib:.2f} GiB", flush=True)
+    in_kernels = {n: launches[n] * ms[n] for n in KERNELS}
+    print(f"[{card}] batch of {BATCH}, ms in each kernel (launches x "
+          f"ms/launch): {in_kernels}; outside the four kernels: "
+          f"{dev_ms - sum(in_kernels.values()):.3f} ms", flush=True)
+    busy = device_busy(lambda: sgbm_batched(L, R, cfg))
+    print(f"[{card}] profiler, one batch: {busy}", flush=True)
+
+    rows = []
+    for name, (src, replaces) in KERNELS.items():
+        b_ms, b_by = bounds[name]
+        print(f"[{card}] {name}: {ms[name]:.4f} ms/launch, "
+              f"{launches[name]} launches per batch of {BATCH}, "
+              f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms[name]:.3f} ms",
+              flush=True)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": err[name], "ms": ms[name],
+                     "plain_ms": plain_ms[name], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None})
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

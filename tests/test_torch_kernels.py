@@ -1,0 +1,149 @@
+"""The port's kernel modules on the CPU: each wrapper's plain path against
+the JAX Pallas kernel in interpret mode, the wrappers' dispatch and checks,
+and the package's config, import and entry-point contracts.
+
+Tolerance: integer outputs bit-exact; float disparity within atol 1e-6.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tpustereo_torch
+from tpustereo.config import PRESETS as JPRESETS
+from tpustereo.config import Config as JConfig
+from tpustereo.kernels import census_cost_volume_pallas, dr_consistency_pallas
+from tpustereo_torch import PRESETS, Config, api, kernels
+from tpustereo_torch.convert import config_from_jax
+from tpustereo_torch.pipeline import sgbm, sgbm_batched
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SLICE = Config(num_disparities=32, speckle_window_size=0, median_filter=False)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("D,d_start", [(32, 0), (32, 3), (64, 0)])
+def test_cost_plain_matches_pallas_interpret(small_pair, D, d_start):
+    L, R, _, _ = small_pair
+    ref = census_cost_volume_pallas(jnp.asarray(L), jnp.asarray(R), D, 24,
+                                    interpret=True, d_start=d_start)
+    got = kernels.census_cost_volume(_t(L)[None], _t(R)[None], D, 24,
+                                     (5, 5), d_start)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("shape", [(40, 72, 32), (6, 20, 32)],
+                         ids=["W>D", "W<D"])
+@pytest.mark.parametrize("d_start", [0, 3])
+def test_lr_plain_matches_pallas_interpret(rng, shape, d_start):
+    H, W, D = shape
+    d_r = rng.integers(0, D, (H, W), dtype=np.int32)
+    disp = rng.uniform(d_start - 0.5, d_start + D - 0.5,
+                       (H, W)).astype(np.float32)
+    for max_diff in (0, 1, 2):
+        ref = dr_consistency_pallas(jnp.asarray(d_r), jnp.asarray(disp), D,
+                                    max_diff, interpret=True, d_start=d_start)
+        got = kernels.dr_consistency(_t(d_r), _t(disp), D, max_diff, d_start)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref),
+                                      err_msg=f"max_diff={max_diff}")
+
+
+def test_cpu_tensors_take_the_plain_path(small_pair):
+    kernels.reset_launch_counts()
+    L, R, _, _ = small_pair
+    out = sgbm(_t(L), _t(R), SLICE)
+    assert out.shape == L.shape and out.dtype == torch.float32
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_wrappers_refuse_bad_inputs():
+    img = torch.zeros((1, 8, 16), dtype=torch.uint8)
+    with pytest.raises(TypeError):
+        kernels.census_cost_volume(img.float(), img, 16, 24)
+    with pytest.raises(ValueError):
+        kernels.census_cost_volume(img[0], img[0], 16, 24)
+    C = torch.zeros((1, 8, 16, 16), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        kernels.sgm_sweep(C, torch.zeros(C.shape, dtype=torch.int32), 1, 0,
+                          10, 120)
+    with pytest.raises(ValueError):
+        kernels.sgm_sweep(C, torch.zeros(C.shape, dtype=torch.int16), 2, 0,
+                          10, 120)
+    with pytest.raises(TypeError):
+        kernels.dr_consistency(torch.zeros((4, 8), dtype=torch.int64),
+                               torch.zeros((4, 8)), 16, 1)
+
+
+@pytest.mark.parametrize("name", sorted(JPRESETS))
+def test_config_from_jax_round_trips_presets(name):
+    jcfg = JPRESETS[name]
+    cfg = config_from_jax(dataclasses.asdict(jcfg))
+    assert cfg == PRESETS[name]
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+
+
+def test_config_fields_match_jax():
+    assert ([f.name for f in dataclasses.fields(Config)]
+            == [f.name for f in dataclasses.fields(JConfig)])
+    toml = os.path.join(ROOT, "configs", "kitti_sgm8.toml")
+    if os.path.exists(toml):
+        assert Config.from_toml(toml) == config_from_jax(
+            dataclasses.asdict(JConfig.from_toml(toml)))
+
+
+def test_import_loads_neither_jax_nor_tpustereo():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import tpustereo_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    tpustereo_torch.__path__, 'tpustereo_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'tpustereo')]\n"
+        "print(' '.join(names))\n"
+        "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    names = set(res.stdout.split())   # the walk reached every module
+    assert {"tpustereo_torch.api", "tpustereo_torch.kernels.sgm",
+            "tpustereo_torch.ops.census",
+            "tpustereo_torch.pipeline.sgbm"} <= names
+
+
+def test_entry_points_need_cuda_unless_told_cpu(small_pair, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    L, R, _, _ = small_pair
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.match_pair(L, R, SLICE)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.match_batch(L[None], R[None], SLICE)
+    out = api.match_pair(L, R, SLICE, device="cpu")
+    assert out.shape == L.shape and out.dtype == np.float32
+
+
+@pytest.mark.parametrize("change", [
+    dict(mode="sad"), dict(mode="census_wta"),
+    dict(speckle_window_size=100), dict(median_filter=True),
+    dict(fill_mode="background"), dict(fill_mode="hirschmuller"),
+    dict(adaptive_p2=True), dict(num_disparities=640),
+    dict(p2=600)], ids=lambda c: ",".join(f"{k}={v}" for k, v in c.items()))
+def test_out_of_slice_configs_raise(change):
+    img = torch.zeros((1, 8, 16), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sgbm_batched(img, img, SLICE.replace(**change))
+
+
+def test_package_reexports_config():
+    assert tpustereo_torch.Config is Config
+    assert set(tpustereo_torch.PRESETS) == set(JPRESETS)

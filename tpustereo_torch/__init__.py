@@ -1,0 +1,12 @@
+"""tpustereo_torch — the PyTorch/CUDA port of tpustereo.
+
+Semi-global stereo matching (census cost, 4/8-path SGM, WTA with uniqueness
+and subpixel, left-right check) for an NVIDIA H100, with hand-written CUDA
+kernels for Hopper on the hot path and a plain PyTorch version of each
+kernel beside it. The JAX package `tpustereo` is the reference the port is
+tested against; this package imports nothing of it.
+"""
+
+from tpustereo_torch.config import Config, PRESETS  # noqa: F401
+
+__version__ = "0.1.0"

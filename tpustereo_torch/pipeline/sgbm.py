@@ -1,0 +1,80 @@
+"""End-to-end SGM pipeline (the slice of the JAX `pipeline/sgbm.py` the
+port runs so far): cost -> sweeps -> backward sweep + WTA -> LR check.
+
+Mirrors the JAX fused SGM branch (`sgbm` and `sgbm_frames`): the census
+cost volume, the directional sweeps accumulated into one int16 S7, the
+backward sweep fused with WTA / uniqueness / subpixel / d_R, then
+`valid &= dr_consistency` and `where(valid, disp, -1.0)`. Frames are a
+batch dimension written out, so `frames_per_step` changes nothing
+numerically. Everything runs on the device of the input tensors: CUDA
+tensors through the kernels, CPU tensors through their plain versions.
+
+Out of this slice (each raises `NotImplementedError` naming its ROADMAP
+item): modes other than 'sgm', speckle, the median, gap fills, adaptive P2,
+and configurations outside the kernel gates of the JAX fused path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpustereo_torch.config import Config
+from tpustereo_torch.kernels import (census_cost_volume, dr_consistency,
+                                     sgm_select)
+
+INVALID = -1.0
+
+
+def check_slice(cfg: Config) -> None:
+    """Raise `NotImplementedError` for a configuration the port cannot run
+    yet (ROADMAP.md, "Modules still to port"). Census windows over 64 bits
+    need no check here: `Config` refuses them."""
+    todo = []
+    if cfg.mode != "sgm":
+        todo.append(f"mode={cfg.mode!r} (ROADMAP: SAD and census_wta modes)")
+    if cfg.speckle_window_size > 0:
+        todo.append("speckle_window_size > 0 (ROADMAP: next slice, CC "
+                    "labels + speckle)")
+    if cfg.median_filter:
+        todo.append("median_filter (ROADMAP: next slice, median3)")
+    if cfg.fill_mode != "off":
+        todo.append(f"fill_mode={cfg.fill_mode!r} (ROADMAP: gap fills)")
+    if cfg.adaptive_p2:
+        todo.append("adaptive_p2 (ROADMAP: adaptive P2 maps)")
+    if cfg.num_disparities > 512:
+        todo.append("num_disparities > 512 (ROADMAP: wide configs)")
+    if cfg.paths * (cfg.max_census_cost + cfg.p2) >= 4096:
+        todo.append("paths * (census_bits + p2) >= 4096 (ROADMAP: wide "
+                    "configs)")
+    if todo:
+        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+
+
+def sgbm_frames(left: torch.Tensor, right: torch.Tensor,
+                cfg: Config) -> torch.Tensor:
+    """(F, H, W) uint8 x2 -> (F, H, W) float32 disparity, invalid = -1."""
+    check_slice(cfg)
+    D = cfg.num_disparities
+    C = census_cost_volume(left, right, D, cfg.max_census_cost,
+                           cfg.census_window, cfg.min_disparity)
+    disp, valid, d_r = sgm_select(C, cfg)
+    del C
+    if cfg.disp12_max_diff >= 0:
+        valid &= dr_consistency(d_r, disp, D, cfg.disp12_max_diff,
+                                cfg.min_disparity)
+    return torch.where(valid, disp, INVALID)
+
+
+def sgbm(left: torch.Tensor, right: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """Single pair: (H, W) uint8 x2 -> (H, W) float32."""
+    return sgbm_frames(left[None], right[None], cfg)[0]
+
+
+def sgbm_batched(left: torch.Tensor, right: torch.Tensor,
+                 cfg: Config) -> torch.Tensor:
+    """(B, H, W) uint8 x2 -> (B, H, W) float32, `cfg.frames_per_step`
+    frames per set of kernel launches when that divides B, else one."""
+    B = left.shape[0]
+    F = cfg.frames_per_step if B % cfg.frames_per_step == 0 else 1
+    return torch.cat([sgbm_frames(left[i:i + F], right[i:i + F], cfg)
+                      for i in range(0, B, F)])
