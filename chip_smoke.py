@@ -3,21 +3,23 @@
 
     python3 chip_smoke.py
 
-Runs the port's main path, the KITTI 8-path SGM preset with speckle and
-the median switched off (`PRESETS["kitti_sgm8"]` with
-`speckle_window_size=0, median_filter=False`), at full KITTI size
-(375 x 1242, D = 128, 8 frames, 4 per set of kernel launches):
+Runs the port's main path, the KITTI 8-path SGM preset as it stands
+(`PRESETS["kitti_sgm8"]`: speckle window 100, range 2, the 3x3 median), at
+full KITTI size (375 x 1242, D = 128, 8 frames, 4 per set of kernel
+launches):
 
-1. builds the four CUDA kernels from `tpustereo_torch/csrc/` with nvcc;
+1. builds the six CUDA kernels from `tpustereo_torch/csrc/` with nvcc;
 2. runs each kernel and its plain PyTorch version on the card at the main
-   path's shapes and requires integer outputs to be equal and the float
-   disparity to agree within 1e-6;
+   path's shapes (the speckle and median kernels on the main path's own
+   disparity maps) and requires integer and bool outputs and the median to
+   be equal and the float disparity to agree within 1e-6;
 3. drives `api.match_batch` on 8 synthetic pairs with every launch counter
    set to 0 just before, requires every kernel to have launched, and holds
    the output against the plain PyTorch pipeline (the JAX package's jnp
    formulation, ported) run on the card;
-4. times each kernel, its plain version and the whole path with CUDA
-   events, and prints them beside the card's name and power limit.
+4. times each kernel, its plain version, `component_big`, the whole path,
+   and the whole path with speckle and the median off, with CUDA events,
+   and prints them beside the card's name and power limit.
 
 Prints a `{"kernels": [...]}` line, then `{"ok": true, "device": ...}` as
 the last line. Exits non-zero, with no result, on any failure or when CUDA
@@ -47,6 +49,10 @@ KERNELS = {
                       "tpustereo/kernels/sgm_pallas.py:1225"),
     "dr_consistency": ("tpustereo_torch/csrc/lr_check.cu",
                        "tpustereo/kernels/lr_pallas.py:83"),
+    "connected_component_labels": ("tpustereo_torch/csrc/cc_labels.cu",
+                                   "tpustereo/kernels/cc_pallas.py:148"),
+    "median3": ("tpustereo_torch/csrc/median3.cu",
+                "tpustereo/kernels/median_pallas.py:41"),
 }
 
 
@@ -127,7 +133,10 @@ def main() -> None:
     from tpustereo_torch.kernels.lr import dr_consistency_plain
     from tpustereo_torch.kernels.sgm import (sgm_sweep_plain,
                                              sweep_bwd_wta_plain)
-    from tpustereo_torch.ops import aggregate, lr_check, wta
+    from tpustereo_torch.ops import (aggregate, component_big,
+                                     connected_component_labels, lr_check,
+                                     median3, speckle_frames, wta)
+    from tpustereo_torch.ops.postproc import speckle_conn
     from tpustereo_torch.ops.sgm import DIRS_8
     from tpustereo_torch.pipeline import sgbm_batched
 
@@ -139,8 +148,8 @@ def main() -> None:
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}")
 
-    cfg = PRESETS["kitti_sgm8"].replace(speckle_window_size=0,
-                                        median_filter=False)
+    cfg = PRESETS["kitti_sgm8"]
+    cfg_off = cfg.replace(speckle_window_size=0, median_filter=False)
     D, F = cfg.num_disparities, cfg.frames_per_step
     d0, p1, p2 = cfg.min_disparity, cfg.p1, cfg.p2
     pairs = [synthetic_pair(SHAPE, disparity=40.0, seed=s)
@@ -198,6 +207,35 @@ def main() -> None:
     torch.cuda.synchronize()
     require(torch.equal(ok, ok_p), "dr_consistency differs from plain")
     err["dr_consistency"] = (ok.int() - ok_p.int()).abs().max().item()
+    del ok_p
+
+    # speckle labels and the median on the main path's own maps: the edge
+    # masks of the WTA disparity over the LR-checked valid pixels
+    valid_lr = valid & ok
+    conn_h, conn_v = speckle_conn(disp, valid_lr, cfg)
+    lab = kernels.connected_component_labels(conn_h, conn_v)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lab_p = connected_component_labels(conn_h, conn_v)
+    torch.cuda.synchronize()
+    cc_plain_s = time.perf_counter() - t0
+    require(torch.equal(lab, lab_p), "connected_component_labels differs")
+    err["connected_component_labels"] = (lab - lab_p).abs().max().item()
+    del lab_p
+    # frame-offset labels, as speckle_frames hands them to component_big
+    lab_off = lab + torch.arange(0, n_pix, H * W, dtype=torch.int32,
+                                 device=dev).reshape(F, 1, 1)
+    print(f"plain connected_component_labels at (F, H, W) = {(F, H, W)}: "
+          f"{cc_plain_s:.3f} s; {torch.unique(lab_off).numel()} components "
+          f"in the {F} frames", flush=True)
+    med_in = torch.where(valid_lr & component_big(
+        lab_off, cfg.speckle_window_size), disp, -1.0)
+    med = kernels.median3(med_in)
+    med_p = median3(med_in)
+    torch.cuda.synchronize()
+    require(torch.equal(med, med_p), "median3 differs from plain")
+    err["median3"] = (med - med_p).abs().max().item()
+    del med_p
     for name, e in err.items():
         print(f"check {name}: max abs diff to plain = {e}", flush=True)
 
@@ -224,8 +262,9 @@ def main() -> None:
         S = aggregate(Cr, cfg)
         dref, _, vref = wta(S, cfg)
         vref &= lr_check(S, dref, cfg)
-        refs.append(torch.where(vref, dref, -1.0).cpu().numpy())
         del Cr, S
+        vref = speckle_frames(dref, vref, cfg)
+        refs.append(median3(torch.where(vref, dref, -1.0)).cpu().numpy())
     ref = np.concatenate(refs)
     require(np.array_equal(out == -1.0, ref == -1.0),
             "invalid pattern differs from the plain pipeline")
@@ -258,6 +297,9 @@ def main() -> None:
                                  10),
         "dr_consistency": cuda_ms(lambda: kernels.dr_consistency(
             d_r, disp, D, cfg.disp12_max_diff, d0), 50),
+        "connected_component_labels": cuda_ms(
+            lambda: kernels.connected_component_labels(conn_h, conn_v), 20),
+        "median3": cuda_ms(lambda: kernels.median3(med_in), 50),
     }
     per_dir = {f"{dy},{dx}": cuda_ms(
         lambda dy=dy, dx=dx: kernels.sgm_sweep(C, S_tmp, dy, dx, p1, p2), 3)
@@ -272,8 +314,29 @@ def main() -> None:
         "sweep_bwd_wta": cuda_ms(lambda: sweep_bwd_wta_plain(C, S7, cfg), 1),
         "dr_consistency": cuda_ms(lambda: dr_consistency_plain(
             d_r, disp, D, cfg.disp12_max_diff, d0), 10),
+        "connected_component_labels": cuda_ms(
+            lambda: connected_component_labels(conn_h, conn_v), 2),
+        "median3": cuda_ms(lambda: median3(med_in), 10),
     }
     del S_tmp
+
+    def median_library():
+        # replicate-pad, 3x3 patches, torch.median: the PyTorch route to
+        # the same function (no single call computes it)
+        p = torch.nn.functional.pad(med_in[:, None], (1, 1, 1, 1),
+                                    mode="replicate")
+        return torch.nn.functional.unfold(p, 3).median(1).values.reshape(
+            med_in.shape)
+
+    require(torch.equal(median_library(), med),
+            "the library median route differs from median3")
+    library_ms = {n: None for n in KERNELS}
+    library_ms["median3"] = cuda_ms(median_library, 10)
+    # component_big (sort + two binary searches) runs outside the kernels
+    big_ms = cuda_ms(lambda: component_big(lab_off, cfg.speckle_window_size),
+                     20)
+    print(f"[{card}] component_big (sort + searchsorted, outside "
+          f"the kernels): {big_ms:.4f} ms per set of {F} frames", flush=True)
     bounds = {
         # inputs read once, output written once; ops: xor, popcount,
         # compare, select per cost
@@ -284,6 +347,12 @@ def main() -> None:
         "sweep_bwd_wta": bound(3 * n_cost + 9 * n_pix, 17 * n_cost),
         # d_r and disp read, ok written; ~8 ops per pixel
         "dr_consistency": bound(9 * n_pix, 8 * n_pix),
+        # conn_h + conn_v read, labels written; ~16 integer ops per pixel
+        # (init, two unions, flatten)
+        "connected_component_labels": bound(
+            conn_h.numel() + conn_v.numel() + 4 * n_pix, 16 * n_pix),
+        # disp read, median written; 38 min/max per pixel
+        "median3": bound(8 * n_pix, 38 * n_pix),
     }
 
     torch.cuda.synchronize()
@@ -294,13 +363,20 @@ def main() -> None:
     torch.cuda.synchronize()
     api_fps = BATCH * reps / (time.perf_counter() - t0)
     dev_ms = cuda_ms(lambda: sgbm_batched(L, R, cfg), reps)
-    print(f"[{card}] whole path: {BATCH * 1e3 / dev_ms:.2f} frames/s on "
-          f"device tensors ({dev_ms:.3f} ms per batch of {BATCH}); "
-          f"{api_fps:.2f} frames/s through match_batch (numpy in/out); "
-          f"peak memory {peak_gib:.2f} GiB", flush=True)
+    off_ms = cuda_ms(lambda: sgbm_batched(L, R, cfg_off), reps)
+    print(f"[{card}] whole path, full preset: {BATCH * 1e3 / dev_ms:.2f} "
+          f"frames/s on device tensors ({dev_ms:.3f} ms per batch of "
+          f"{BATCH}); {api_fps:.2f} frames/s through match_batch (numpy "
+          f"in/out); peak memory {peak_gib:.2f} GiB", flush=True)
+    print(f"[{card}] whole path, speckle and median off: "
+          f"{BATCH * 1e3 / off_ms:.2f} frames/s on device tensors "
+          f"({off_ms:.3f} ms per batch of {BATCH}); the two stages cost "
+          f"{dev_ms - off_ms:.3f} ms per batch", flush=True)
     in_kernels = {n: launches[n] * ms[n] for n in KERNELS}
     print(f"[{card}] batch of {BATCH}, ms in each kernel (launches x "
-          f"ms/launch): {in_kernels}; outside the four kernels: "
+          f"ms/launch): {in_kernels}; component_big "
+          f"{BATCH // F * big_ms:.3f} ms; outside the six kernels "
+          f"(component_big included): "
           f"{dev_ms - sum(in_kernels.values()):.3f} ms", flush=True)
     busy = device_busy(lambda: sgbm_batched(L, R, cfg))
     print(f"[{card}] profiler, one batch: {busy}", flush=True)
@@ -310,13 +386,13 @@ def main() -> None:
         b_ms, b_by = bounds[name]
         print(f"[{card}] {name}: {ms[name]:.4f} ms/launch, "
               f"{launches[name]} launches per batch of {BATCH}, "
-              f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms[name]:.3f} ms",
-              flush=True)
+              f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms[name]:.3f} ms, "
+              f"library {library_ms[name]}", flush=True)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err[name], "ms": ms[name],
                      "plain_ms": plain_ms[name], "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None})
+                     "bound_by": b_by, "library_ms": library_ms[name]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,17 @@
 """Card tests of the port: each CUDA kernel against its plain PyTorch
-version on the card. They need a CUDA card and skip without one.
+version on the card, and the pipeline on the card against the CPU. They
+need a CUDA card and skip without one.
 
 Run them on a machine with a card (no JAX needed there):
 
     python -m pytest -p no:cacheprovider --noconftest -o addopts="" \
         -m gpu tests/test_torch_gpu.py
 
-Tolerance: integer outputs bit-exact; float disparity within 1e-6.
+Tolerance: integer outputs and the median bit-exact; float disparity
+within 1e-6.
+
+The mask helpers here import no JAX, so the CPU tests of the plain
+versions (`test_torch_postproc.py`) use the same masks.
 """
 
 import numpy as np
@@ -15,8 +20,10 @@ import torch
 
 from tpustereo_torch import Config, kernels
 from tpustereo_torch.data import synthetic_pair
+from tpustereo_torch.kernels.cc import connected_component_labels_plain
 from tpustereo_torch.kernels.cost import census_cost_volume_plain
 from tpustereo_torch.kernels.lr import dr_consistency_plain
+from tpustereo_torch.kernels.median import median3_plain
 from tpustereo_torch.kernels.sgm import sgm_sweep_plain, sweep_bwd_wta_plain
 from tpustereo_torch.ops.sgm import DIRS_8
 from tpustereo_torch.pipeline import sgbm_batched
@@ -36,6 +43,69 @@ def _pairs(B, shape, seed=0):
                          seed=seed + b)[:2] for b in range(B)]
     return (torch.from_numpy(np.stack([p[0] for p in ps])),
             torch.from_numpy(np.stack([p[1] for p in ps])))
+
+
+def _hilbert_mask(order: int) -> np.ndarray:
+    """One-pixel-wide path along the order-n Hilbert curve, drawn at 2x
+    scale: (2*2^n, 2*2^n) bool, one component with O(4^n) bends (the curve
+    of `tests/conftest.py:hilbert_path_mask`, which imports JAX)."""
+    n = 1 << order
+    cells = []
+    for d in range(n * n):
+        x = y = 0
+        t, s = d, 1
+        while s < n:
+            rx = 1 & (t // 2)
+            ry = 1 & (t ^ rx)
+            if ry == 0:
+                if rx == 1:
+                    x, y = s - 1 - x, s - 1 - y
+                x, y = y, x
+            x += s * rx
+            y += s * ry
+            t //= 4
+            s *= 2
+        cells.append((y, x))
+    mask = np.zeros((2 * n, 2 * n), bool)
+    for (y0, x0), (y1, x1) in zip(cells, cells[1:]):
+        mask[2 * y0, 2 * x0] = True
+        mask[y0 + y1, x0 + x1] = True
+    mask[2 * cells[-1][0], 2 * cells[-1][1]] = True
+    return mask
+
+
+def _serpentine_mask(H: int = 64, W: int = 32) -> np.ndarray:
+    """One serpentine component: rungs every 8 rows joined at alternating
+    sides (the mask of the banded serpentine test in `test_pallas.py`)."""
+    v = np.zeros((H, W), bool)
+    for k in range(H // 8):
+        v[k * 8, :] = True
+        col = W - 1 if k % 2 == 0 else 0
+        v[k * 8:min(H, (k + 1) * 8) + 1, col] = True
+    v[-1, :] = True
+    return v
+
+
+def _cc_masks(name: str) -> np.ndarray:
+    """A named (H, W) or (F, H, W) valid mask for the labelling tests."""
+    rng = np.random.default_rng(5)
+    if name.startswith("p"):
+        return rng.random((48, 64)) < float(name[1:])
+    return {"hilbert": lambda: _hilbert_mask(4),
+            "serpentine": _serpentine_mask,
+            "h1": lambda: rng.random((1, 40)) < 0.7,
+            "w1": lambda: rng.random((40, 1)) < 0.7,
+            "frames3": lambda: rng.random((3, 37, 53)) < 0.6}[name]()
+
+
+CC_MASKS = ["p0.3", "p0.55", "p0.7", "hilbert", "serpentine", "h1", "w1",
+            "frames3"]
+
+
+def _conn(v: np.ndarray):
+    """Edge masks joining neighbouring set pixels of v (..., H, W)."""
+    return (torch.from_numpy(v[..., :, :-1] & v[..., :, 1:]),
+            torch.from_numpy(v[..., :-1, :] & v[..., 1:, :]))
 
 
 def _volume(cuda, B, H, W, D, seed=0):
@@ -102,12 +172,52 @@ def test_lr_kernel_matches_plain(cuda, H, W, D, d0, max_diff):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("name", CC_MASKS)
+def test_cc_kernel_matches_plain(cuda, name):
+    conn_h, conn_v = _conn(_cc_masks(name))
+    got = kernels.connected_component_labels(conn_h.to(cuda),
+                                             conn_v.to(cuda))
+    torch.cuda.synchronize()
+    ref = connected_component_labels_plain(conn_h, conn_v)
+    assert torch.equal(got.cpu(), ref)
+    if name in ("hilbert", "serpentine"):
+        v = torch.from_numpy(_cc_masks(name))
+        assert got.cpu()[v].unique().numel() == 1
+
+
+def test_cc_kernel_full_middlebury_frame(cuda):
+    # 1988 x 2964, the size at which the TPU kernel had to go banded
+    rng = np.random.default_rng(6)
+    v = rng.random((1988, 2964)) < 0.62
+    v[:, 7] = True                  # one component spanning every row
+    conn_h, conn_v = (c.to(cuda) for c in _conn(v))
+    got = kernels.connected_component_labels(conn_h, conn_v)
+    ref = connected_component_labels_plain(conn_h, conn_v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shape", [(40, 72), (1, 17), (2, 9), (13, 1),
+                                   (11, 2), (3, 21, 37), (2, 1, 1),
+                                   (4, 375, 1242)])
+def test_median_kernel_matches_plain(cuda, shape):
+    rng = np.random.default_rng(7)
+    d = rng.uniform(0, 60, shape).astype(np.float32)
+    d[rng.random(shape) < 0.3] = -1.0
+    x = torch.from_numpy(d).to(cuda)
+    got = kernels.median3(x)
+    ref = median3_plain(x)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape
+    assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("paths,d0", [(8, 0), (4, 0), (8, 4)])
 def test_pipeline_cuda_matches_cpu(cuda, paths, d0):
     L, R = _pairs(4, (33, 49), seed=10)
     cfg = Config(num_disparities=32, paths=paths, min_disparity=d0,
-                 speckle_window_size=0, median_filter=False,
-                 frames_per_step=2)
+                 speckle_window_size=100, speckle_range=2,
+                 median_filter=True, frames_per_step=2)
     kernels.reset_launch_counts()
     got = sgbm_batched(L.to(cuda), R.to(cuda), cfg).cpu()
     counts = kernels.launch_counts()
@@ -116,7 +226,8 @@ def test_pipeline_cuda_matches_cpu(cuda, paths, d0):
     assert (got - ref).abs().max().item() <= 1e-6
     assert counts == {"census_cost_volume": 2,
                       "sgm_sweep": 2 * (paths - 1),
-                      "sweep_bwd_wta": 2, "dr_consistency": 2}
+                      "sweep_bwd_wta": 2, "dr_consistency": 2,
+                      "connected_component_labels": 2, "median3": 2}
 
 
 def test_wrappers_refuse_bad_cuda_inputs(cuda):

@@ -134,7 +134,6 @@ def test_entry_points_need_cuda_unless_told_cpu(small_pair, monkeypatch):
 
 @pytest.mark.parametrize("change", [
     dict(mode="sad"), dict(mode="census_wta"),
-    dict(speckle_window_size=100), dict(median_filter=True),
     dict(fill_mode="background"), dict(fill_mode="hirschmuller"),
     dict(adaptive_p2=True), dict(num_disparities=640),
     dict(p2=600)], ids=lambda c: ",".join(f"{k}={v}" for k, v in c.items()))

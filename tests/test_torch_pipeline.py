@@ -1,6 +1,6 @@
-"""The port's slice pipeline (`tpustereo_torch.pipeline`) against the JAX
-`pipeline` with `backend="jnp"`, on the CPU: the KITTI SGM preset's slice
-(speckle and median off) at a small size.
+"""The port's pipeline (`tpustereo_torch.pipeline`) against the JAX
+`pipeline` with `backend="jnp"`, on the CPU, at a small size: the KITTI SGM
+preset without speckle and the median, and the full preset with both.
 
 Tolerance: the pattern of -1.0 invalids bit-exact; disparity within
 atol 1e-6.
@@ -27,6 +27,13 @@ def _slice(**kw):
     return JPRESETS["kitti_sgm8"].replace(
         speckle_window_size=0, median_filter=False, num_disparities=32,
         frames_per_step=2, **kw)
+
+
+def _full(**kw):
+    """The full kitti_sgm8 preset (speckle window 100, range 2, the 3x3
+    median), at D=32."""
+    return JPRESETS["kitti_sgm8"].replace(num_disparities=32,
+                                          frames_per_step=2, **kw)
 
 
 def _batch(B=4, shape=(33, 49)):
@@ -77,6 +84,54 @@ def test_match_pair_cpu_matches_jax(small_pair):
 def test_sgbm_batched_matches_jax_pallas_interpret():
     L, R = _batch(B=2, shape=(24, 40))
     jcfg = _slice(backend="pallas")
+    ref = np.asarray(j_sgbm_batched(jnp.asarray(L), jnp.asarray(R), jcfg))
+    got = api.match_batch(L, R, config_from_jax(dataclasses.asdict(jcfg)),
+                          device="cpu")
+    _same(got, ref)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(speckle_window_size=20),
+                                dict(paths=4, min_disparity=3)],
+                         ids=["preset", "window20", "paths4_min_disp3"])
+def test_full_preset_matches_jax_jnp(kw):
+    L, R = _batch()
+    jcfg = _full(backend="jnp", **kw)
+    ref = np.asarray(j_sgbm_batched(jnp.asarray(L), jnp.asarray(R), jcfg))
+    cfg = config_from_jax(dataclasses.asdict(jcfg))
+    L, R = torch.from_numpy(L), torch.from_numpy(R)
+    got = sgbm_batched(L, R, cfg)
+    assert (ref >= 0).mean() > 0.5
+    _same(got.numpy(), ref)
+    # both new stages change the output, so the comparison exercises them
+    off = sgbm_batched(L, R, cfg.replace(speckle_window_size=0,
+                                         median_filter=False))
+    speckled = sgbm_batched(L, R, cfg.replace(median_filter=False))
+    assert not torch.equal(speckled == -1.0, off == -1.0)
+    assert not torch.equal(got, speckled)
+
+
+def test_full_preset_frames_per_step_changes_nothing():
+    L, R = (torch.from_numpy(a) for a in _batch())
+    cfg = config_from_jax(dataclasses.asdict(_full()))
+    a = sgbm_batched(L, R, cfg)
+    for F in (1, 4):
+        assert torch.equal(a, sgbm_batched(L, R,
+                                           cfg.replace(frames_per_step=F)))
+
+
+def test_match_pair_full_preset_matches_jax(small_pair):
+    L, R, _, _ = small_pair
+    jcfg = _full(backend="jnp")
+    ref = np.asarray(j_sgbm(jnp.asarray(L), jnp.asarray(R), jcfg))
+    got = api.match_pair(L, R, config_from_jax(dataclasses.asdict(jcfg)),
+                         device="cpu")
+    _same(got, ref)
+
+
+@pytest.mark.slow
+def test_full_preset_matches_jax_pallas_interpret():
+    L, R = _batch(B=2, shape=(24, 40))
+    jcfg = _full(backend="pallas")
     ref = np.asarray(j_sgbm_batched(jnp.asarray(L), jnp.asarray(R), jcfg))
     got = api.match_batch(L, R, config_from_jax(dataclasses.asdict(jcfg)),
                           device="cpu")

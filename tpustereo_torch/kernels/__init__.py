@@ -8,12 +8,15 @@ that it went through the kernels. Importing this package builds nothing:
 `_build` compiles `csrc/*.cu` at first use.
 """
 
+from tpustereo_torch.kernels.cc import connected_component_labels  # noqa: F401
 from tpustereo_torch.kernels.cost import census_cost_volume  # noqa: F401
 from tpustereo_torch.kernels.lr import dr_consistency  # noqa: F401
+from tpustereo_torch.kernels.median import median3  # noqa: F401
 from tpustereo_torch.kernels.sgm import (  # noqa: F401
     sgm_select, sgm_sweep, sweep_bwd_wta)
 
-WRAPPERS = (census_cost_volume, sgm_sweep, sweep_bwd_wta, dr_consistency)
+WRAPPERS = (census_cost_volume, sgm_sweep, sweep_bwd_wta, dr_consistency,
+            connected_component_labels, median3)
 
 
 def launch_counts() -> dict:

@@ -20,7 +20,8 @@ import time
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "build")
-NAMES = ("census_cost", "sgm_sweep", "bwd_wta", "lr_check")
+NAMES = ("census_cost", "sgm_sweep", "bwd_wta", "lr_check", "cc_labels",
+         "median3")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

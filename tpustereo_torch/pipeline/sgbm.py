@@ -1,17 +1,20 @@
 """End-to-end SGM pipeline (the slice of the JAX `pipeline/sgbm.py` the
-port runs so far): cost -> sweeps -> backward sweep + WTA -> LR check.
+port runs so far): cost -> sweeps -> backward sweep + WTA -> LR check ->
+speckle -> 3x3 median.
 
-Mirrors the JAX fused SGM branch (`sgbm` and `sgbm_frames`): the census
-cost volume, the directional sweeps accumulated into one int16 S7, the
-backward sweep fused with WTA / uniqueness / subpixel / d_R, then
-`valid &= dr_consistency` and `where(valid, disp, -1.0)`. Frames are a
+Mirrors the JAX fused SGM branch (`sgbm` and `sgbm_frames`, then
+`_postproc_frames`): the census cost volume, the directional sweeps
+accumulated into one int16 S7, the backward sweep fused with WTA /
+uniqueness / subpixel / d_R, then `valid &= dr_consistency`, speckle over
+the stacked frames (`ops.speckle_frames` with the CUDA labelling kernel),
+`where(valid, disp, -1.0)` and the median over the stack. Frames are a
 batch dimension written out, so `frames_per_step` changes nothing
 numerically. Everything runs on the device of the input tensors: CUDA
 tensors through the kernels, CPU tensors through their plain versions.
 
 Out of this slice (each raises `NotImplementedError` naming its ROADMAP
-item): modes other than 'sgm', speckle, the median, gap fills, adaptive P2,
-and configurations outside the kernel gates of the JAX fused path.
+item): modes other than 'sgm', gap fills, adaptive P2, and configurations
+outside the kernel gates of the JAX fused path.
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ from __future__ import annotations
 import torch
 
 from tpustereo_torch.config import Config
-from tpustereo_torch.kernels import (census_cost_volume, dr_consistency,
-                                     sgm_select)
+from tpustereo_torch.kernels import (census_cost_volume,
+                                     connected_component_labels,
+                                     dr_consistency, median3, sgm_select)
+from tpustereo_torch.ops.postproc import speckle_frames
 
 INVALID = -1.0
 
@@ -32,11 +37,6 @@ def check_slice(cfg: Config) -> None:
     todo = []
     if cfg.mode != "sgm":
         todo.append(f"mode={cfg.mode!r} (ROADMAP: SAD and census_wta modes)")
-    if cfg.speckle_window_size > 0:
-        todo.append("speckle_window_size > 0 (ROADMAP: next slice, CC "
-                    "labels + speckle)")
-    if cfg.median_filter:
-        todo.append("median_filter (ROADMAP: next slice, median3)")
     if cfg.fill_mode != "off":
         todo.append(f"fill_mode={cfg.fill_mode!r} (ROADMAP: gap fills)")
     if cfg.adaptive_p2:
@@ -62,7 +62,11 @@ def sgbm_frames(left: torch.Tensor, right: torch.Tensor,
     if cfg.disp12_max_diff >= 0:
         valid &= dr_consistency(d_r, disp, D, cfg.disp12_max_diff,
                                 cfg.min_disparity)
-    return torch.where(valid, disp, INVALID)
+    valid = speckle_frames(disp, valid, cfg, cc=connected_component_labels)
+    out = torch.where(valid, disp, INVALID)
+    if cfg.median_filter:
+        out = median3(out)
+    return out
 
 
 def sgbm(left: torch.Tensor, right: torch.Tensor, cfg: Config) -> torch.Tensor:
