@@ -24,7 +24,9 @@ from tpustereo_torch.kernels.cc import connected_component_labels_plain
 from tpustereo_torch.kernels.cost import census_cost_volume_plain
 from tpustereo_torch.kernels.lr import dr_consistency_plain
 from tpustereo_torch.kernels.median import median3_plain
+from tpustereo_torch.kernels.sad import sad_wta_plain
 from tpustereo_torch.kernels.sgm import sgm_sweep_plain, sweep_bwd_wta_plain
+from tpustereo_torch.kernels.wta import wta_lr_plain
 from tpustereo_torch.ops.sgm import DIRS_8
 from tpustereo_torch.pipeline import sgbm_batched
 
@@ -212,11 +214,61 @@ def test_median_kernel_matches_plain(cuda, shape):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("paths,d0", [(8, 0), (4, 0), (8, 4)])
-def test_pipeline_cuda_matches_cpu(cuda, paths, d0):
+# (d0, uniqueness, subpixel, disp12_max_diff): min_disparity 0/3,
+# uniqueness 0/10, subpixel on/off, LR off/on at max_diff 0, 1, 2
+SELECT_KNOBS = [(0, 10, True, 1), (3, 0, False, -1), (3, 10, True, 0),
+                (0, 0, True, 2), (3, 10, False, 1)]
+
+
+@pytest.mark.parametrize("H,W,D", [(17, 41, 16), (1, 45, 32), (9, 20, 40),
+                                   (5, 37, 512), (6, 200, 128)])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16])
+@pytest.mark.parametrize("knobs", SELECT_KNOBS)
+def test_wta_lr_kernel_matches_plain(cuda, H, W, D, dtype, knobs):
+    d0, uniq, subpixel, d12 = knobs
+    rng = np.random.default_rng(3)
+    top = 25 if dtype == torch.uint8 else 1000     # census-like ties / S
+    S = torch.from_numpy(rng.integers(0, top, (2, H, W, D))).to(dtype)
+    S = S.to(cuda)
+    cfg = Config(num_disparities=D, min_disparity=d0, uniqueness_ratio=uniq,
+                 subpixel=subpixel, disp12_max_diff=d12)
+    disp, valid = kernels.wta_lr(S, cfg)
+    disp_p, valid_p = wta_lr_plain(S, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(valid, valid_p)
+    assert (disp - disp_p).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("shape,D", [((23, 57), 16), ((1, 45), 32),
+                                     ((9, 20), 40), ((12, 70), 512),
+                                     ((30, 100), 64)])
+@pytest.mark.parametrize("block", [5, 9, 13, 8])
+@pytest.mark.parametrize("knobs", SELECT_KNOBS)
+def test_sad_wta_kernel_matches_plain(cuda, shape, D, block, knobs):
+    d0, uniq, subpixel, d12 = knobs
+    L, R = _pairs(2, shape, seed=4)
+    L, R = L.to(cuda), R.to(cuda)
+    cfg = Config(mode="sad", num_disparities=D, sad_block=block,
+                 min_disparity=d0, uniqueness_ratio=uniq, subpixel=subpixel,
+                 disp12_max_diff=d12)
+    disp, valid, d_r = kernels.sad_wta(L, R, cfg)
+    disp_p, valid_p, d_r_p = sad_wta_plain(L, R, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(valid, valid_p)
+    assert (disp - disp_p).abs().max().item() <= 1e-6
+    if d12 < 0:
+        assert d_r is None and d_r_p is None
+    else:
+        assert torch.equal(d_r, d_r_p)
+
+
+@pytest.mark.parametrize("mode,paths,d0", [
+    ("sgm", 8, 0), ("sgm", 4, 0), ("sgm", 8, 4), ("census_wta", 8, 0),
+    ("census_wta", 8, 3), ("sad", 8, 0), ("sad", 8, 3)])
+def test_pipeline_cuda_matches_cpu(cuda, mode, paths, d0):
     L, R = _pairs(4, (33, 49), seed=10)
-    cfg = Config(num_disparities=32, paths=paths, min_disparity=d0,
-                 speckle_window_size=100, speckle_range=2,
+    cfg = Config(mode=mode, num_disparities=32, paths=paths,
+                 min_disparity=d0, speckle_window_size=100, speckle_range=2,
                  median_filter=True, frames_per_step=2)
     kernels.reset_launch_counts()
     got = sgbm_batched(L.to(cuda), R.to(cuda), cfg).cpu()
@@ -224,10 +276,16 @@ def test_pipeline_cuda_matches_cpu(cuda, paths, d0):
     ref = sgbm_batched(L, R, cfg)
     assert torch.equal(got == -1.0, ref == -1.0)
     assert (got - ref).abs().max().item() <= 1e-6
-    assert counts == {"census_cost_volume": 2,
-                      "sgm_sweep": 2 * (paths - 1),
-                      "sweep_bwd_wta": 2, "dr_consistency": 2,
-                      "connected_component_labels": 2, "median3": 2}
+    expected = dict.fromkeys(counts, 0)
+    expected.update(connected_component_labels=2, median3=2)
+    if mode == "sgm":
+        expected.update(census_cost_volume=2, sgm_sweep=2 * (paths - 1),
+                        sweep_bwd_wta=2, dr_consistency=2)
+    elif mode == "census_wta":
+        expected.update(census_cost_volume=2, wta_lr=2)
+    else:
+        expected.update(sad_wta=2, dr_consistency=2)
+    assert counts == expected
 
 
 def test_wrappers_refuse_bad_cuda_inputs(cuda):
@@ -239,3 +297,15 @@ def test_wrappers_refuse_bad_cuda_inputs(cuda):
     with pytest.raises(ValueError):
         kernels.sgm_sweep(C.transpose(1, 2), S16.transpose(1, 2), 1, 0, 10,
                           120)
+    with pytest.raises(ValueError):
+        kernels.wta_lr(C.transpose(1, 2), Config(num_disparities=16))
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.wta_lr(torch.zeros((1, 1, 30000, 4), dtype=torch.uint8,
+                                   device=cuda), Config(num_disparities=4))
+    img = torch.zeros((1, 8, 16), dtype=torch.uint8, device=cuda)
+    cfg = Config(mode="sad", num_disparities=16)
+    with pytest.raises(ValueError):
+        kernels.sad_wta(img.transpose(1, 2), img.transpose(1, 2), cfg)
+    wide = torch.zeros((1, 2, 5000), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="4096"):
+        kernels.sad_wta(wide, wide, cfg)

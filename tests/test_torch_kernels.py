@@ -117,7 +117,8 @@ def test_import_loads_neither_jax_nor_tpustereo():
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())   # the walk reached every module
     assert {"tpustereo_torch.api", "tpustereo_torch.kernels.sgm",
-            "tpustereo_torch.ops.census",
+            "tpustereo_torch.kernels.sad", "tpustereo_torch.kernels.wta",
+            "tpustereo_torch.ops.census", "tpustereo_torch.ops.sad",
             "tpustereo_torch.pipeline.sgbm"} <= names
 
 
@@ -133,7 +134,8 @@ def test_entry_points_need_cuda_unless_told_cpu(small_pair, monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(mode="sad"), dict(mode="census_wta"),
+    dict(mode="sad", fill_mode="background"),
+    dict(mode="census_wta", num_disparities=640),
     dict(fill_mode="background"), dict(fill_mode="hirschmuller"),
     dict(adaptive_p2=True), dict(num_disparities=640),
     dict(p2=600)], ids=lambda c: ",".join(f"{k}={v}" for k, v in c.items()))

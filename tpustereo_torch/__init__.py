@@ -1,7 +1,8 @@
 """tpustereo_torch — the PyTorch/CUDA port of tpustereo.
 
-Semi-global stereo matching (census cost, 4/8-path SGM, WTA with uniqueness
-and subpixel, left-right check) for an NVIDIA H100, with hand-written CUDA
+Stereo matching (semi-global matching with census cost and 4/8 paths, SAD
+block matching, census + WTA; WTA with uniqueness and subpixel, left-right
+check, speckle, median) for an NVIDIA H100, with hand-written CUDA
 kernels for Hopper on the hot path and a plain PyTorch version of each
 kernel beside it. The JAX package `tpustereo` is the reference the port is
 tested against; this package imports nothing of it.

@@ -33,14 +33,6 @@
 #include "common.cuh"
 
 template <int K>
-__device__ __forceinline__ int pick(const int (&v)[K], int k) {
-  int r = v[0];
-#pragma unroll
-  for (int i = 1; i < K; ++i) r = i == k ? v[i] : r;
-  return r;
-}
-
-template <int K>
 __global__ void bwd_wta_kernel(const uint8_t* __restrict__ C,
                                const int16_t* __restrict__ S7,
                                float* __restrict__ disp,
@@ -79,36 +71,9 @@ __global__ void bwd_wta_kernel(const uint8_t* __restrict__ C,
       St[k] = d < D ? sv[k] + L[k] : SGM_BIG;
       packed[k] = d < D ? St[k] * (1 << ps) + d : big_pack;
     }
-    const int m = __reduce_min_sync(FULL_MASK, lane_min<K>(packed));
-    const int best = m >> ps, j = m & mask;
-
-    bool ok = true;
-    if (uniq > 0) {
-      int sec = SGM_BIG;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int d = lane * K + k;
-        if (d < D && abs(d - j) > 1) sec = min(sec, St[k]);
-      }
-      sec = __reduce_min_sync(FULL_MASK, sec);
-      ok = !(sec * 100 < best * (100 + uniq));
-    }
-
-    float dv = (float)(j + d_start);
-    if (subpixel) {
-      const int dm = max(j - 1, 0), dp = min(j + 1, D - 1);
-      const int sm = __shfl_sync(FULL_MASK, pick<K>(St, dm % K), dm / K);
-      const int sp = __shfl_sync(FULL_MASK, pick<K>(St, dp % K), dp / K);
-      const float smf = (float)sm, spf = (float)sp, s0 = (float)best;
-      const float denom =
-          __fadd_rn(__fsub_rn(smf, __fmul_rn(2.0f, s0)), spf);
-      float offs = 0.0f;
-      if (denom > 0.0f)
-        offs = __fdiv_rn(__fsub_rn(smf, spf),
-                         fmaxf(__fmul_rn(2.0f, denom), 1e-9f));
-      offs = fminf(fmaxf(offs, -0.5f), 0.5f);
-      if (j > 0 && j < D - 1) dv = __fadd_rn(dv, offs);
-    }
+    float dv;
+    bool ok;
+    warp_wta<K>(St, packed, lane, D, ps, uniq, subpixel, d_start, dv, ok);
 
     // rolling right-view min: slot i <- min(slot i, packed[i]); slot 0 is
     // column x's finished diagonal; then every slot moves down by one

@@ -12,11 +12,13 @@ from tpustereo_torch.kernels.cc import connected_component_labels  # noqa: F401
 from tpustereo_torch.kernels.cost import census_cost_volume  # noqa: F401
 from tpustereo_torch.kernels.lr import dr_consistency  # noqa: F401
 from tpustereo_torch.kernels.median import median3  # noqa: F401
+from tpustereo_torch.kernels.sad import sad_wta  # noqa: F401
 from tpustereo_torch.kernels.sgm import (  # noqa: F401
     sgm_select, sgm_sweep, sweep_bwd_wta)
+from tpustereo_torch.kernels.wta import wta_lr  # noqa: F401
 
 WRAPPERS = (census_cost_volume, sgm_sweep, sweep_bwd_wta, dr_consistency,
-            connected_component_labels, median3)
+            connected_component_labels, median3, wta_lr, sad_wta)
 
 
 def launch_counts() -> dict:

@@ -21,7 +21,9 @@ PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "build")
 NAMES = ("census_cost", "sgm_sweep", "bwd_wta", "lr_check", "cc_labels",
-         "median3")
+         "median3", "wta_lr", "sad_wta")
+
+SMEM_MAX = 232448  # bytes of shared memory one block may use on Hopper
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -15,7 +15,6 @@ import torch
 from tpustereo_torch.kernels import _build
 from tpustereo_torch.ops.census import census, cost_volume
 
-_SMEM_MAX = 232448  # bytes of shared memory one block may use on Hopper
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
     "census_cost_smem_bytes": ([_I, _I], ctypes.c_size_t),
@@ -62,7 +61,7 @@ def census_cost_volume(left: torch.Tensor, right: torch.Tensor,
         raise ValueError("images must be contiguous")
     B, H, W = left.shape
     lib = _build.load("census_cost", _SIGS)
-    if lib.census_cost_smem_bytes(W, ch) > _SMEM_MAX:
+    if lib.census_cost_smem_bytes(W, ch) > _build.SMEM_MAX:
         raise ValueError(f"image width {W} exceeds the kernel's shared "
                          f"memory")
     out = torch.empty((B, H, W, num_disp), dtype=torch.uint8,
