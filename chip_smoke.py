@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the eight CUDA kernels from `tpustereo_torch/csrc/` with nvcc, then
-runs the port's paths.
+Builds the eleven CUDA kernels (ten libraries) from `tpustereo_torch/csrc/`
+with nvcc, then runs the port's paths.
 
 The KITTI 8-path SGM preset as it stands (`PRESETS["kitti_sgm8"]`: speckle
 window 100, range 2, the 3x3 median), at full KITTI size (375 x 1242,
@@ -30,23 +30,57 @@ D = 128), on 8 synthetic pairs each:
 
 5. holds `sad_wta` and `wta_lr` against their plain versions at those
    geometries, with the presets' LR check off and with it on
-   (disp12_max_diff = 1), on 8 frames in one launch and on one;
+   (disp12_max_diff = 1), on 8 frames in one launch and on one, and
+   `wta_lr` also on the int32 SAD volume of block 13 at Tsukuba's;
 6. drives `api.match_batch` on each preset, and on tsukuba_sad with the LR
    check on, with the launch counters set to 0 just before each; requires
    `sad_wta` (and `dr_consistency` with the LR check), `census_cost_volume`
    and `wta_lr` to have launched; holds each output against the plain
    pipeline on the card; and requires a valid fraction and bad-2.0 against
    the synthetic ground truth within bars set below the plain pipeline's
-   own figures (`MODES`);
+   own figures (`MODES`); then drives tsukuba_sad at block 13 with the LR
+   check through `sgbm_volume` + `select_and_refine` (an int32 volume),
+   requires `wta_lr` to have launched and the plain pipeline's output;
 7. times both kernels per launch, their plain versions and bounds, each
    path at one frame per launch (the presets) and at 8, through
    `match_batch`, and the profiler's busy share.
 
-Prints a `{"kernels": [...]}` line with all eight kernels (the launches of
+The SGM volume route and the relayout kernels:
+
+8. holds `transpose_hw` against its plain version on the volume route's
+   full shapes (4 frames of 1988 x 2964, D = 128: the uint8 C and the int16
+   S after the vertical sweeps), and `transpose_sum_hw` and
+   `sgm_sweep_bidir` (column shifts (0, 1, -1) and (0,)) at the KITTI
+   path's (4 frames of 375 x 1242), all `torch.equal`;
+9. drives `pipeline.sgbm_volume` + `select_and_refine` on 8 synthetic
+   1988 x 2964 pairs under the unmodified `PRESETS["middlebury_sgm4"]`
+   (4 paths, D = 128, speckle, median, 4 frames per set of launches) with
+   the launch counters set to 0 just before; requires the census, sweep,
+   transpose, `wta_lr`, labelling and median kernels to have launched and
+   `sweep_bwd_wta` not; holds the output against the port's fused route on
+   the same frames and against the plain pipeline on 2 frames (one at a
+   time); requires a valid fraction and bad-2.0 within bars (`MIDDLEBURY`);
+   prints both routes' ms per batch, the profiler's kernel times and the
+   route's peak memory;
+10. drives `kitti_sgm8` through `api.match_batch` with
+   `kernels.sgm.BIDIR_VERT = True`, requires `sgm_sweep_bidir`,
+   `transpose_sum_hw` and `transpose_hw` to have launched and the output to
+   equal the default route's (step 3), and times both routes;
+11. drives `middlebury_sgm4` with P2 = 1000 (past the fused bound:
+   paths * (census_bits + P2) >= 4096) at KITTI size through
+   `api.match_batch`, requires the volume route (`transpose_hw` launched,
+   `sweep_bwd_wta` not) and the plain pipeline's output; runs the same
+   frames through the fused route, requires the same output (the bound is
+   the JAX package's, not a limit of the port's fused route) and times
+   both routes.
+
+Prints a `{"kernels": [...]}` line with all eleven kernels (the launches of
 the KITTI six from step 3, those of `sad_wta` and `wta_lr` from their
-presets' runs in step 6), then `{"ok": true, "device": ...}` as the last
-line. Exits non-zero, with no result, on any failure or when CUDA is
-absent. Needs no network; imports nothing of JAX.
+presets' runs in step 6, `transpose_hw`'s from step 9, and
+`transpose_sum_hw`'s and `sgm_sweep_bidir`'s from step 10), then
+`{"ok": true, "device": ...}` as the last line. Exits non-zero, with no
+result, on any failure or when CUDA is absent. Needs no network; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -54,6 +88,7 @@ from __future__ import annotations
 import json
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -94,6 +129,19 @@ MODES = {
     "tsukuba_sad": ((288, 384), 20.0, 0.9, 0.05),
     "middlebury_census_wta": ((375, 621), 40.0, 0.9, 0.15),
 }
+# the volume route's kernels that no earlier path launches
+VOLUME_KERNELS = {
+    "transpose_hw": ("tpustereo_torch/csrc/transpose.cu",
+                     "tpustereo/kernels/transpose_pallas.py:61"),
+    "transpose_sum_hw": ("tpustereo_torch/csrc/transpose.cu",
+                         "tpustereo/kernels/transpose_pallas.py:33"),
+    "sgm_sweep_bidir": ("tpustereo_torch/csrc/sgm_bidir.cu",
+                        "tpustereo/kernels/sgm_pallas.py:955"),
+}
+# middlebury_sgm4 at full size: (frame shape, synthetic disparity,
+# valid-fraction floor, bad-2.0 ceiling), the bar the KITTI path keeps,
+# below the plain pipeline's valid 0.980, bad-2.0 0.0023 on these pairs
+MIDDLEBURY = ((1988, 2964), 60.0, 0.9, 0.05)
 
 
 def card_line() -> str:
@@ -159,6 +207,32 @@ def require(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {what}")
 
 
+def int_err(a, b) -> int:
+    """max |a - b| of two integer volumes, one frame at a time (int32 copies
+    of a whole full-size volume would take tens of GB)."""
+    return max(int((a[f].int() - b[f].int()).abs().max().item())
+               for f in range(a.shape[0]))
+
+
+def quality(out: np.ndarray, gts: np.ndarray):
+    """(valid fraction, bad-2.0 over the ground truth's valid pixels)."""
+    m = gts > 0
+    bad2 = float(((np.abs(out - gts) > 2.0) | (out < 0))[m].mean())
+    return float((out >= 0).mean()), bad2
+
+
+def synthetic_pairs(shape, disparity: float, n: int):
+    """n synthetic pairs of seeds 0..n-1 as (lefts, rights, gts) arrays,
+    gts -1 where the truth is undefined; made in threads (a full-size
+    Middlebury pair takes seconds of numpy)."""
+    from tpustereo_torch.data import synthetic_pair
+    with ThreadPoolExecutor(8) as ex:
+        ps = list(ex.map(lambda s: synthetic_pair(shape, disparity=disparity,
+                                                  seed=s), range(n)))
+    return (np.stack([p[0] for p in ps]), np.stack([p[1] for p in ps]),
+            np.stack([np.where(p[3], p[2], -1.0) for p in ps]))
+
+
 def plain_pipeline(L, R, cfg):
     """(F, H, W) frames through the JAX package's jnp formulation, ported:
     the mode's full cost volume (SGM: aggregated), `ops.wta`,
@@ -191,20 +265,17 @@ def modes_path(card: str) -> list:
     kernels' rows of the `kernels` line."""
     import torch
     from tpustereo_torch import PRESETS, api, kernels
-    from tpustereo_torch.data import synthetic_pair
     from tpustereo_torch.kernels.sad import sad_wta_plain
     from tpustereo_torch.kernels.wta import wta_lr_plain
     from tpustereo_torch.kernels.cost import census_cost_volume_plain
-    from tpustereo_torch.pipeline import sgbm_batched
+    from tpustereo_torch.ops import sad_volume
+    from tpustereo_torch.pipeline import (select_and_refine, sgbm_batched,
+                                          sgbm_volume)
 
     dev = torch.device("cuda")
     data = {}
     for name, (shape, d_true, _, _) in MODES.items():
-        pairs = [synthetic_pair(shape, disparity=d_true, seed=s)
-                 for s in range(BATCH)]
-        lefts = np.stack([p[0] for p in pairs])
-        rights = np.stack([p[1] for p in pairs])
-        gts = np.stack([np.where(p[3], p[2], -1.0) for p in pairs])
+        lefts, rights, gts = synthetic_pairs(shape, d_true, BATCH)
         data[name] = (lefts, rights, gts, torch.from_numpy(lefts).to(dev),
                       torch.from_numpy(rights).to(dev))
     sad_cfg = PRESETS["tsukuba_sad"]
@@ -246,10 +317,25 @@ def modes_path(card: str) -> list:
             e = (disp - disp_p).abs().max().item()
             require(e <= DISP_TOL, f"{what} disp differs by {e}")
             err["wta_lr"] = max(err["wta_lr"], e)
-    del disp_p, valid_p
+    # the int32 SAD volume of block 13 (costs up to 255 * 169), the volume
+    # route's input in the sad mode
+    sad13 = sad_cfg.replace(sad_block=13)
+    L, R = data["tsukuba_sad"][3:]
+    S32 = sad_volume(L, R, sad13.num_disparities, 13, sad13.min_disparity)
+    for cfg in (sad13, sad13.replace(**lr_on)):
+        disp, valid = kernels.wta_lr(S32, cfg)
+        disp_p, valid_p = wta_lr_plain(S32, cfg)
+        torch.cuda.synchronize()
+        what = f"wta_lr (int32, max_diff {cfg.disp12_max_diff})"
+        require(torch.equal(valid, valid_p), f"{what} valid differs")
+        e = (disp - disp_p).abs().max().item()
+        require(e <= DISP_TOL, f"{what} disp differs by {e}")
+        err["wta_lr"] = max(err["wta_lr"], e)
+    del disp_p, valid_p, S32
     for name, e in err.items():
+        also = "; also on an int32 volume" if name == "wta_lr" else ""
         print(f"check {name}: max abs diff to plain = {e} (LR off and on, "
-              f"{BATCH} frames and 1)", flush=True)
+              f"{BATCH} frames and 1{also})", flush=True)
 
     # --- 6. each path through the user's entry point
     runs = [("tsukuba_sad", sad_cfg, ("sad_wta",)),
@@ -281,15 +367,33 @@ def modes_path(card: str) -> list:
         path_err = float(np.abs(out - ref).max())
         require(path_err <= DISP_TOL,
                 f"{label} disparity differs from the plain pipeline")
-        m = gts > 0
-        bad2 = float(((np.abs(out - gts) > 2.0) | (out < 0))[m].mean())
-        vfrac = float((out >= 0).mean())
+        vfrac, bad2 = quality(out, gts)
         print(f"{label} vs plain pipeline: max abs diff {path_err}; valid "
               f"fraction {vfrac:.4f}; bad-2.0 vs ground truth {bad2:.4f}",
               flush=True)
         _, _, v_min, bad_max = MODES[name]
         require(vfrac > v_min and bad2 < bad_max,
                 f"{label} output is not a good disparity map")
+
+    # the SAD volume route: block 13's int32 volume through wta_lr
+    vcfg = sad13.replace(**lr_on)
+    lefts, rights, gts, L, R = data["tsukuba_sad"]
+    kernels.reset_launch_counts()
+    out = select_and_refine(sgbm_volume(L, R, vcfg), vcfg)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"tsukuba_sad block 13 volume route launches: {counts}", flush=True)
+    require(counts["wta_lr"] > 0 and counts["sad_wta"] == 0,
+            "the SAD volume route did not run wta_lr")
+    ref = plain_pipeline(L, R, vcfg)
+    require(torch.equal(out == -1.0, ref == -1.0),
+            "SAD volume route invalid pattern differs from the plain pipeline")
+    path_err = (out - ref).abs().max().item()
+    require(path_err <= DISP_TOL, "SAD volume route disparity differs from "
+            "the plain pipeline")
+    print(f"tsukuba_sad block 13 volume route vs plain pipeline: max abs "
+          f"diff {path_err}; valid fraction, bad-2.0: "
+          f"{quality(out.cpu().numpy(), gts)}", flush=True)
 
     # --- 7. timing: each kernel per launch at the path's shape (one frame,
     # the presets' frames_per_step) and with all 8 frames in one launch
@@ -360,6 +464,275 @@ def modes_path(card: str) -> list:
     return rows
 
 
+def volume_path(card: str, kitti: dict) -> list:
+    """Steps 8-11: the relayout kernels against their plain versions, the
+    SGM volume route at full Middlebury size, the `BIDIR_VERT` route and
+    the dispatch past the fused bound. `kitti` holds the KITTI path's
+    frames, ground truth and output (step 3). Returns the three new
+    kernels' rows of the `kernels` line."""
+    import importlib
+
+    import torch
+    from tpustereo_torch import PRESETS, api, kernels
+    from tpustereo_torch.kernels.sgm import sgm_sweep_bidir_plain
+    from tpustereo_torch.kernels.transpose import (transpose_hw_plain,
+                                                   transpose_sum_hw_plain)
+    from tpustereo_torch.pipeline import (select_and_refine, sgbm_batched,
+                                          sgbm_volume)
+    ksgm = importlib.import_module("tpustereo_torch.kernels.sgm")
+    psgbm = importlib.import_module("tpustereo_torch.pipeline.sgbm")
+
+    dev = torch.device("cuda")
+    cfg = PRESETS["middlebury_sgm4"]
+    kcfg = PRESETS["kitti_sgm8"]
+    D, F, d0 = cfg.num_disparities, cfg.frames_per_step, cfg.min_disparity
+    (H, W), d_true, v_min, bad_max = MIDDLEBURY
+    t0 = time.perf_counter()
+    lefts, rights, gts = synthetic_pairs((H, W), d_true, BATCH)
+    print(f"{BATCH} synthetic {H}x{W} pairs made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    L = torch.from_numpy(lefts).to(dev)
+    R = torch.from_numpy(rights).to(dev)
+    n = F * H * W * D
+    err = dict.fromkeys(VOLUME_KERNELS, 0)
+    ms, plain_ms, library_ms, bounds = {}, {}, {}, {}
+
+    # --- 8. transpose_hw at the volume route's full shapes: the uint8 C and
+    # the int16 S after the vertical sweeps
+    C = kernels.census_cost_volume(L[:F], R[:F], D, cfg.max_census_cost,
+                                   cfg.census_window, d0)
+    S = torch.zeros(C.shape, dtype=torch.int16, device=dev)
+    for dy in (1, -1):
+        kernels.sgm_sweep(C, S, dy, 0, cfg.p1, cfg.p2)
+    tr = {}
+    for name, x in (("C", C), ("S", S)):
+        got, ref = kernels.transpose_hw(x), transpose_hw_plain(x)
+        torch.cuda.synchronize()
+        require(torch.equal(got, ref), f"transpose_hw differs from plain "
+                f"on {name} {x.dtype} {tuple(x.shape)}")
+        err["transpose_hw"] = max(err["transpose_hw"], int_err(got, ref))
+        del got, ref
+        tr[name] = (cuda_ms(lambda: kernels.transpose_hw(x), 5),
+                    cuda_ms(lambda: transpose_hw_plain(x), 3),
+                    cuda_ms(lambda: x.transpose(1, 2).contiguous(), 3),
+                    bound(2 * x.numel() * x.element_size(), 0)[0])
+    del C, S
+    print(f"[{card}] transpose_hw at (F, H, W, D) = {(F, H, W, D)}, ms "
+          f"(kernel, plain, .contiguous(), bound): uint8 C {tr['C']}; "
+          f"int16 S {tr['S']}", flush=True)
+    # the route's three launches per set of frames: C once, S twice
+    ms["transpose_hw"], plain_ms["transpose_hw"], \
+        library_ms["transpose_hw"], _ = (
+            (c + 2 * s) / 3 for c, s in zip(tr["C"], tr["S"]))
+    bounds["transpose_hw"] = bound((2 * n + 2 * 4 * n) / 3, 0)
+
+    # transpose_sum_hw and sgm_sweep_bidir at the KITTI path's shapes
+    p1, p2 = kcfg.p1, kcfg.p2
+    Ck = kernels.census_cost_volume(kitti["L"][:F], kitti["R"][:F], D,
+                                    kcfg.max_census_cost,
+                                    kcfg.census_window, kcfg.min_disparity)
+    nk = Ck.numel()
+    dxs8 = (0, 1, -1)
+    for dxs in ((0,), dxs8):   # the 8-path pair stays for transpose_sum_hw
+        Sd, Su = kernels.sgm_sweep_bidir(Ck, dxs, p1, p2)
+        Sd_p, Su_p = sgm_sweep_bidir_plain(Ck, dxs, p1, p2)
+        torch.cuda.synchronize()
+        require(torch.equal(Sd, Sd_p) and torch.equal(Su, Su_p),
+                f"sgm_sweep_bidir {dxs} differs from plain")
+        err["sgm_sweep_bidir"] = max(err["sgm_sweep_bidir"],
+                                     int_err(Sd, Sd_p), int_err(Su, Su_p))
+        del Sd_p, Su_p
+    St = kernels.transpose_sum_hw(Sd, Su)
+    St_p = transpose_sum_hw_plain(Sd, Su)
+    torch.cuda.synchronize()
+    require(torch.equal(St, St_p), "transpose_sum_hw differs from plain")
+    err["transpose_sum_hw"] = int_err(St, St_p)
+    del St_p
+    for name, e in err.items():
+        print(f"check {name}: max abs diff to plain = {e}", flush=True)
+
+    # one PyTorch call computing transpose_sum_hw: an add of the two
+    # transposed views into a contiguous output
+    St_lib = torch.empty_like(St)
+    ms["transpose_sum_hw"] = cuda_ms(
+        lambda: kernels.transpose_sum_hw(Sd, Su), 10)
+    plain_ms["transpose_sum_hw"] = cuda_ms(
+        lambda: transpose_sum_hw_plain(Sd, Su), 5)
+    library_ms["transpose_sum_hw"] = cuda_ms(
+        lambda: torch.add(Sd.transpose(1, 2), Su.transpose(1, 2),
+                          out=St_lib), 5)
+    require(torch.equal(St_lib, St), "the library route of transpose_sum_hw "
+            "differs")
+    del St, St_lib
+    # per launch: a call of three launches reads C once and writes Sd and
+    # Su once (5 bytes per cost); ~9 integer ops per cost and chain
+    ms["sgm_sweep_bidir"] = cuda_ms(
+        lambda: kernels.sgm_sweep_bidir(Ck, dxs8, p1, p2), 5) / len(dxs8)
+    plain_ms["sgm_sweep_bidir"] = cuda_ms(
+        lambda: sgm_sweep_bidir_plain(Ck, dxs8, p1, p2), 1,
+        warmup=0) / len(dxs8)
+    library_ms["sgm_sweep_bidir"] = None
+    del Ck, Sd, Su
+    # two int16 volumes read, one written; one add per cost
+    bounds["transpose_sum_hw"] = bound(6 * nk, nk)
+    bounds["sgm_sweep_bidir"] = bound(5 * nk / len(dxs8), 2 * 9 * nk)
+
+    # --- 9. the volume route at full width, through the user's entry points
+    def volume_route():
+        return torch.cat([select_and_refine(
+            sgbm_volume(L[i:i + F], R[i:i + F], cfg), cfg)
+            for i in range(0, BATCH, F)])
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = volume_route()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak_gib = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    print(f"middlebury_sgm4 volume route launches: {launches}", flush=True)
+    for k in ("census_cost_volume", "sgm_sweep", "transpose_hw", "wta_lr",
+              "connected_component_labels", "median3"):
+        require(launches[k] > 0, f"{k} was not launched on the volume route")
+    require(launches["sweep_bwd_wta"] == 0,
+            "the volume route ran the fused backward sweep")
+    out = out.cpu().numpy()
+    require(out.shape == (BATCH, H, W) and np.isfinite(out).all(),
+            "volume route output has the wrong shape or non-finite values")
+    torch.cuda.reset_peak_memory_stats()
+    fused = sgbm_batched(L, R, cfg).cpu().numpy()
+    fused_peak_gib = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    require(np.array_equal(out == -1.0, fused == -1.0),
+            "volume route invalid pattern differs from the fused route")
+    fused_err = float(np.abs(out - fused).max())
+    require(fused_err <= DISP_TOL, "volume route disparity differs from "
+            "the fused route")
+    del fused
+    t0 = time.perf_counter()
+    ref = np.concatenate([plain_pipeline(L[i:i + 1], R[i:i + 1], cfg)
+                          .cpu().numpy() for i in range(2)])
+    plain_s = time.perf_counter() - t0
+    require(np.array_equal(out[:2] == -1.0, ref == -1.0),
+            "volume route invalid pattern differs from the plain pipeline")
+    plain_err = float(np.abs(out[:2] - ref).max())
+    require(plain_err <= DISP_TOL, "volume route disparity differs from the "
+            "plain pipeline")
+    vfrac, bad2 = quality(out, gts)
+    p_vfrac, p_bad2 = quality(ref, gts[:2])
+    print(f"middlebury_sgm4 volume route vs fused route: max abs diff "
+          f"{fused_err}; vs plain pipeline (2 frames, {plain_s:.1f} s): "
+          f"{plain_err}; valid fraction {vfrac:.4f}, bad-2.0 {bad2:.4f} "
+          f"(plain pipeline's 2 frames: {p_vfrac:.4f}, {p_bad2:.4f})",
+          flush=True)
+    require(vfrac > v_min and bad2 < bad_max,
+            "volume route output is not a good disparity map")
+    vol_ms = cuda_ms(volume_route, 3)
+    fused_ms = cuda_ms(lambda: sgbm_batched(L, R, cfg), 3)
+    # bytes per cost each route must move: census 1, the S zero fill 2,
+    # 5 per sweep, then the volume route's three transposes (C 2, S 4 + 4)
+    # and wta_lr's read of S (2), or the fused route's bwd+WTA read of C
+    # and S7 (3)
+    costs = BATCH * H * W * D
+    vol_bound = bound(costs * (1 + 2 + 4 * 5 + 10 + 2), 0)[0]
+    fused_bound = bound(costs * (1 + 2 + 3 * 5 + 3), 0)[0]
+    print(f"[{card}] middlebury_sgm4 {H}x{W}, D={D}, F={F}, batch of "
+          f"{BATCH} on device tensors: volume route {vol_ms:.3f} ms "
+          f"({BATCH * 1e3 / vol_ms:.2f} frames/s; byte bound "
+          f"{vol_bound:.3f}), fused route {fused_ms:.3f} ms "
+          f"({BATCH * 1e3 / fused_ms:.2f} frames/s; byte bound "
+          f"{fused_bound:.3f}), ratio {vol_ms / fused_ms:.3f}; peak memory "
+          f"{peak_gib:.2f} GiB (volume) and {fused_peak_gib:.2f} GiB "
+          f"(fused)", flush=True)
+    print(f"[{card}] volume route profiler, one batch: "
+          f"{device_busy(volume_route)}", flush=True)
+    print(f"[{card}] fused route profiler, one batch: "
+          f"{device_busy(lambda: sgbm_batched(L, R, cfg))}", flush=True)
+    counts = {"transpose_hw": launches["transpose_hw"]}
+    del L, R
+
+    # --- 10. the BIDIR_VERT route of kitti_sgm8 through match_batch
+    Lk, Rk = kitti["L"], kitti["R"]
+    kernels.reset_launch_counts()
+    ksgm.BIDIR_VERT = True
+    try:
+        out_b = api.match_batch(kitti["lefts"], kitti["rights"], kcfg)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        bidir_ms = cuda_ms(lambda: sgbm_batched(Lk, Rk, kcfg), 5)
+    finally:
+        ksgm.BIDIR_VERT = False
+    default_ms = cuda_ms(lambda: sgbm_batched(Lk, Rk, kcfg), 5)
+    print(f"kitti_sgm8 BIDIR_VERT route launches: {launches}", flush=True)
+    for k in ("sgm_sweep_bidir", "transpose_sum_hw", "transpose_hw"):
+        require(launches[k] > 0, f"{k} was not launched on the BIDIR_VERT "
+                f"route")
+    require(np.array_equal(out_b, kitti["out"]),
+            "the BIDIR_VERT route's output differs from the default route's")
+    print(f"[{card}] kitti_sgm8 batch of {BATCH}: BIDIR_VERT route "
+          f"{bidir_ms:.3f} ms, default route {default_ms:.3f} ms; outputs "
+          f"equal", flush=True)
+    counts.update(sgm_sweep_bidir=launches["sgm_sweep_bidir"],
+                  transpose_sum_hw=launches["transpose_sum_hw"])
+
+    # --- 11. past the fused bound: middlebury_sgm4 with P2 = 1000 at KITTI
+    # size, through match_batch
+    pcfg = cfg.replace(p2=1000)
+    kernels.reset_launch_counts()
+    out_p = api.match_batch(kitti["lefts"], kitti["rights"], pcfg)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"middlebury_sgm4 P2=1000 launches: {launches}", flush=True)
+    require(launches["transpose_hw"] > 0 and launches["sweep_bwd_wta"] == 0,
+            "P2=1000 did not take the volume route")
+    ref = np.concatenate([plain_pipeline(Lk[i:i + F], Rk[i:i + F], pcfg)
+                          .cpu().numpy() for i in range(0, BATCH, F)])
+    require(np.array_equal(out_p == -1.0, ref == -1.0),
+            "P2=1000 invalid pattern differs from the plain pipeline")
+    p_err = float(np.abs(out_p - ref).max())
+    require(p_err <= DISP_TOL, "P2=1000 disparity differs from the plain "
+            "pipeline")
+    print(f"middlebury_sgm4 P2=1000 at KITTI size vs plain pipeline: max abs "
+          f"diff {p_err}; valid fraction, bad-2.0: "
+          f"{quality(out_p, kitti['gts'])}", flush=True)
+
+    # the same frames through the fused route, which the dispatch leaves
+    # only to keep the JAX package's route: same output, and what the
+    # volume route costs here
+    def fused_p():
+        return torch.cat([psgbm._postproc(*psgbm._select(
+            Lk[i:i + F], Rk[i:i + F], pcfg), pcfg)
+            for i in range(0, BATCH, F)])
+
+    kernels.reset_launch_counts()
+    out_f = fused_p().cpu().numpy()
+    launches = kernels.launch_counts()
+    require(launches["sweep_bwd_wta"] > 0 and launches["transpose_hw"] == 0,
+            "P2=1000 forced onto the fused route did not run it")
+    require(np.array_equal(out_f, out_p), "P2=1000 fused route differs from "
+            "the volume route")
+    vol_p_ms = cuda_ms(lambda: sgbm_batched(Lk, Rk, pcfg), 5)
+    fused_p_ms = cuda_ms(fused_p, 5)
+    print(f"[{card}] middlebury_sgm4 P2=1000 at KITTI size, batch of "
+          f"{BATCH}: volume route {vol_p_ms:.3f} ms, fused route "
+          f"{fused_p_ms:.3f} ms (ratio {vol_p_ms / fused_p_ms:.3f}); outputs "
+          f"equal", flush=True)
+
+    rows = []
+    for name, (src, replaces) in VOLUME_KERNELS.items():
+        b_ms, b_by = bounds[name]
+        print(f"[{card}] {name}: {ms[name]:.4f} ms/launch, {counts[name]} "
+              f"launches per batch of {BATCH}, bound {b_ms:.4f} ms ({b_by}), "
+              f"plain {plain_ms[name]:.3f} ms, library {library_ms[name]}",
+              flush=True)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": counts[name],
+                     "max_abs_err": err[name], "ms": ms[name],
+                     "plain_ms": plain_ms[name], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": library_ms[name]})
+    return rows
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -368,7 +741,6 @@ def main() -> None:
     print(card, flush=True)
 
     from tpustereo_torch import PRESETS, api, kernels
-    from tpustereo_torch.data import synthetic_pair
     from tpustereo_torch.kernels import _build
     from tpustereo_torch.kernels.cost import census_cost_volume_plain
     from tpustereo_torch.kernels.lr import dr_consistency_plain
@@ -392,11 +764,7 @@ def main() -> None:
     cfg_off = cfg.replace(speckle_window_size=0, median_filter=False)
     D, F = cfg.num_disparities, cfg.frames_per_step
     d0, p1, p2 = cfg.min_disparity, cfg.p1, cfg.p2
-    pairs = [synthetic_pair(SHAPE, disparity=40.0, seed=s)
-             for s in range(BATCH)]
-    lefts = np.stack([p[0] for p in pairs])
-    rights = np.stack([p[1] for p in pairs])
-    gts = np.stack([np.where(p[3], p[2], -1.0) for p in pairs])
+    lefts, rights, gts = synthetic_pairs(SHAPE, 40.0, BATCH)
     dev = torch.device("cuda")
     L = torch.from_numpy(lefts).to(dev)
     R = torch.from_numpy(rights).to(dev)
@@ -501,9 +869,7 @@ def main() -> None:
             "invalid pattern differs from the plain pipeline")
     path_err = float(np.abs(out - ref).max())
     require(path_err <= DISP_TOL, "disparity differs from the plain pipeline")
-    m = gts > 0
-    bad2 = float(((np.abs(out - gts) > 2.0) | (out < 0))[m].mean())
-    vfrac = float((out >= 0).mean())
+    vfrac, bad2 = quality(out, gts)
     print(f"main path vs plain pipeline: max abs diff {path_err}; valid "
           f"fraction {vfrac:.4f}; bad-2.0 vs ground truth {bad2:.4f}",
           flush=True)
@@ -625,6 +991,8 @@ def main() -> None:
                      "plain_ms": plain_ms[name], "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": library_ms[name]})
     rows += modes_path(card)
+    rows += volume_path(card, dict(lefts=lefts, rights=rights, gts=gts, L=L,
+                                   R=R, out=out))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,8 @@ The mask helpers here import no JAX, so the CPU tests of the plain
 versions (`test_torch_postproc.py`) use the same masks.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -25,10 +27,15 @@ from tpustereo_torch.kernels.cost import census_cost_volume_plain
 from tpustereo_torch.kernels.lr import dr_consistency_plain
 from tpustereo_torch.kernels.median import median3_plain
 from tpustereo_torch.kernels.sad import sad_wta_plain
-from tpustereo_torch.kernels.sgm import sgm_sweep_plain, sweep_bwd_wta_plain
+from tpustereo_torch.kernels.sgm import (sgm_sweep_bidir_plain,
+                                         sgm_sweep_plain, sweep_bwd_wta_plain)
+from tpustereo_torch.kernels.transpose import (transpose_hw_plain,
+                                               transpose_sum_hw_plain)
 from tpustereo_torch.kernels.wta import wta_lr_plain
+from tpustereo_torch.ops import aggregate
 from tpustereo_torch.ops.sgm import DIRS_8
-from tpustereo_torch.pipeline import sgbm_batched
+from tpustereo_torch.pipeline import (select_and_refine, sgbm_batched,
+                                      sgbm_volume)
 
 pytestmark = pytest.mark.gpu
 
@@ -222,12 +229,13 @@ SELECT_KNOBS = [(0, 10, True, 1), (3, 0, False, -1), (3, 10, True, 0),
 
 @pytest.mark.parametrize("H,W,D", [(17, 41, 16), (1, 45, 32), (9, 20, 40),
                                    (5, 37, 512), (6, 200, 128)])
-@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32])
 @pytest.mark.parametrize("knobs", SELECT_KNOBS)
 def test_wta_lr_kernel_matches_plain(cuda, H, W, D, dtype, knobs):
     d0, uniq, subpixel, d12 = knobs
     rng = np.random.default_rng(3)
-    top = 25 if dtype == torch.uint8 else 1000     # census-like ties / S
+    # census-like ties / S / SAD costs up to the int32 limit of 2^20
+    top = {torch.uint8: 25, torch.int16: 1000, torch.int32: 1 << 20}[dtype]
     S = torch.from_numpy(rng.integers(0, top, (2, H, W, D))).to(dtype)
     S = S.to(cuda)
     cfg = Config(num_disparities=D, min_disparity=d0, uniqueness_ratio=uniq,
@@ -262,20 +270,110 @@ def test_sad_wta_kernel_matches_plain(cuda, shape, D, block, knobs):
         assert torch.equal(d_r, d_r_p)
 
 
-@pytest.mark.parametrize("mode,paths,d0", [
-    ("sgm", 8, 0), ("sgm", 4, 0), ("sgm", 8, 4), ("census_wta", 8, 0),
-    ("census_wta", 8, 3), ("sad", 8, 0), ("sad", 8, 3)])
-def test_pipeline_cuda_matches_cpu(cuda, mode, paths, d0):
-    L, R = _pairs(4, (33, 49), seed=10)
-    cfg = Config(mode=mode, num_disparities=32, paths=paths,
-                 min_disparity=d0, speckle_window_size=100, speckle_range=2,
-                 median_filter=True, frames_per_step=2)
+# (D, dtype): uint8 and int16, runs of 16-byte multiples and odd runs
+TRANSPOSE_CASES = [(128, torch.uint8), (37, torch.uint8), (3, torch.uint8),
+                   (128, torch.int16), (64, torch.int16), (37, torch.int16),
+                   (4, torch.int16)]
+
+
+@pytest.mark.parametrize("D,dtype", TRANSPOSE_CASES)
+@pytest.mark.parametrize("B,H,W", [(2, 19, 43), (3, 1, 7), (1, 300, 2)])
+def test_transpose_kernel_matches_plain(cuda, B, H, W, D, dtype):
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.integers(-3000, 3000, (B, H, W, D))).to(dtype)
+    x = x.to(cuda)
+    got = kernels.transpose_hw(x)
+    torch.cuda.synchronize()
+    assert got.is_contiguous()
+    assert torch.equal(got, transpose_hw_plain(x))
+
+
+@pytest.mark.parametrize("D", [128, 64, 37, 4, 1])
+@pytest.mark.parametrize("B,H,W", [(2, 19, 43), (1, 300, 2)])
+def test_transpose_sum_kernel_matches_plain(cuda, B, H, W, D):
+    rng = np.random.default_rng(9)
+    a, b = (torch.from_numpy(rng.integers(-32768, 32767, (B, H, W, D),
+                                          dtype=np.int16)).to(cuda)
+            for _ in range(2))          # some sums wrap
+    got = kernels.transpose_sum_hw(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, transpose_sum_hw_plain(a, b))
+
+
+@pytest.mark.parametrize("D", [16, 40, 128, 200])
+@pytest.mark.parametrize("dxs", [(0, 1, -1), (0,), (1,), (-1, 0)])
+@pytest.mark.parametrize("H,W", [(19, 43), (37, 6), (1, 9)])
+def test_bidir_kernel_matches_plain(cuda, D, dxs, H, W):
+    C = _volume(cuda, 2, H, W, D, seed=11)
+    Sd, Su = kernels.sgm_sweep_bidir(C, dxs, 10, 120)
+    Sd_p, Su_p = sgm_sweep_bidir_plain(C, dxs, 10, 120)
+    torch.cuda.synchronize()
+    assert torch.equal(Sd, Sd_p)
+    assert torch.equal(Su, Su_p)
+
+
+@pytest.mark.parametrize("paths", [4, 8])
+def test_aggregate_volume_cuda_matches_plain(cuda, paths):
+    C = _volume(cuda, 2, 23, 57, 48, seed=12)
+    cfg = Config(num_disparities=48, paths=paths, p1=7, p2=90)
+    got = kernels.aggregate_volume(C, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aggregate(C, cfg))
+
+
+def test_bidir_vert_route_cuda_matches_default(cuda, monkeypatch):
+    L, R = _pairs(4, (33, 49), seed=13)
+    L, R = L.to(cuda), R.to(cuda)
+    cfg = Config(num_disparities=32, speckle_window_size=100,
+                 speckle_range=2, frames_per_step=2)
+    ref = sgbm_batched(L, R, cfg)
+    monkeypatch.setattr(importlib.import_module(
+        "tpustereo_torch.kernels.sgm"), "BIDIR_VERT", True)
     kernels.reset_launch_counts()
-    got = sgbm_batched(L.to(cuda), R.to(cuda), cfg).cpu()
+    got = sgbm_batched(L, R, cfg)
+    counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert counts["sgm_sweep_bidir"] == 2 * 3
+    assert counts["transpose_sum_hw"] == 2
+    assert counts["transpose_hw"] == 2 * 2
+    assert counts["sgm_sweep"] == 2 and counts["sweep_bwd_wta"] == 2
+
+
+def _run_on_both(cfg):
+    """sgbm_batched on the card and on the CPU, held equal: the card's
+    launch counts."""
+    L, R = _pairs(4, (33, 49), seed=10)
+    kernels.reset_launch_counts()
+    got = sgbm_batched(L.to("cuda"), R.to("cuda"), cfg).cpu()
     counts = kernels.launch_counts()
     ref = sgbm_batched(L, R, cfg)
     assert torch.equal(got == -1.0, ref == -1.0)
     assert (got - ref).abs().max().item() <= 1e-6
+    return counts
+
+
+@pytest.mark.parametrize("paths,d0,p2", [(4, 0, 1000), (8, 3, 600)])
+def test_pipeline_past_fused_bound_cuda_matches_cpu(cuda, paths, d0, p2):
+    cfg = Config(num_disparities=32, paths=paths, min_disparity=d0, p2=p2,
+                 speckle_window_size=100, speckle_range=2,
+                 frames_per_step=2)
+    counts = _run_on_both(cfg)
+    expected = dict.fromkeys(counts, 0)
+    expected.update(census_cost_volume=2, sgm_sweep=2 * paths,
+                    transpose_hw=2 * 3, wta_lr=2,
+                    connected_component_labels=2, median3=2)
+    assert counts == expected
+
+
+@pytest.mark.parametrize("mode,paths,d0", [
+    ("sgm", 8, 0), ("sgm", 4, 0), ("sgm", 8, 4), ("census_wta", 8, 0),
+    ("census_wta", 8, 3), ("sad", 8, 0), ("sad", 8, 3)])
+def test_pipeline_cuda_matches_cpu(cuda, mode, paths, d0):
+    cfg = Config(mode=mode, num_disparities=32, paths=paths,
+                 min_disparity=d0, speckle_window_size=100, speckle_range=2,
+                 median_filter=True, frames_per_step=2)
+    counts = _run_on_both(cfg)
     expected = dict.fromkeys(counts, 0)
     expected.update(connected_component_labels=2, median3=2)
     if mode == "sgm":
@@ -286,6 +384,25 @@ def test_pipeline_cuda_matches_cpu(cuda, mode, paths, d0):
     else:
         expected.update(sad_wta=2, dr_consistency=2)
     assert counts == expected
+
+
+@pytest.mark.parametrize("mode,block", [("sgm", 9), ("census_wta", 9),
+                                        ("sad", 9), ("sad", 13)])
+def test_volume_route_cuda_matches_cpu(cuda, mode, block):
+    """Every mode's volume through `wta_lr` on the card; SAD block 13 makes
+    an int32 volume."""
+    L, R = _pairs(2, (33, 49), seed=14)
+    cfg = Config(mode=mode, num_disparities=32, paths=4, sad_block=block,
+                 disp12_max_diff=1, speckle_window_size=100, speckle_range=2)
+    S = sgbm_volume(L.to(cuda), R.to(cuda), cfg)
+    S_cpu = sgbm_volume(L, R, cfg)
+    assert torch.equal(S.cpu(), S_cpu)
+    kernels.reset_launch_counts()
+    got = select_and_refine(S, cfg).cpu()
+    assert kernels.launch_counts()["wta_lr"] == 1
+    ref = select_and_refine(S_cpu, cfg)
+    assert torch.equal(got == -1.0, ref == -1.0)
+    assert (got - ref).abs().max().item() <= 1e-6
 
 
 def test_wrappers_refuse_bad_cuda_inputs(cuda):
@@ -309,3 +426,9 @@ def test_wrappers_refuse_bad_cuda_inputs(cuda):
     wide = torch.zeros((1, 2, 5000), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="4096"):
         kernels.sad_wta(wide, wide, cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.transpose_hw(C.transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.transpose_sum_hw(S16.transpose(1, 2), S16.transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.sgm_sweep_bidir(C.transpose(1, 2), (0,), 10, 120)

@@ -188,7 +188,7 @@ def test_mode_wrappers_refuse_bad_inputs():
         kernels.sad_wta(img, img, cfg.replace(sad_block=65))
     C = torch.zeros((1, 8, 16, 16), dtype=torch.uint8)
     with pytest.raises(TypeError):
-        kernels.wta_lr(C.int(), cfg)
+        kernels.wta_lr(C.long(), cfg)
     with pytest.raises(ValueError):
         kernels.wta_lr(C[0], cfg)
     with pytest.raises(ValueError):

@@ -1,6 +1,6 @@
 // Shared by every kernel library of tpustereo_torch: the export macro, the
 // error-string hook the Python wrappers use to report a failed launch, and
-// the per-warp SGM helpers of the two sweep kernels.
+// the per-warp SGM helpers of the sweep kernels.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,6 +52,17 @@ __device__ __forceinline__ void load_pixel(const uint8_t* c, const int16_t* s,
     const int d = lane * K + k;
     cv[k] = d < D ? c[d] : 0;
     sv[k] = d < D ? s[d] : 0;
+  }
+}
+
+// `load_pixel` without the partial sums.
+template <int K>
+__device__ __forceinline__ void load_cost(const uint8_t* c, int lane, int D,
+                                          int (&cv)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int d = lane * K + k;
+    cv[k] = d < D ? c[d] : 0;
   }
 }
 

@@ -8,8 +8,9 @@
 //   L_r(p) = C(p) + min(Lp, Lp(d-1) + P1, Lp(d+1) + P1, minLp + P2) - minLp
 // over the predecessor p - r, and L_r(p) = C(p) where p - r lies outside
 // the image (the JAX `has_prev` restart rule). C is (B, H, W, D) uint8 and
-// S (B, H, W, D) int16; S stays exact because every 8-path sum is below
-// 4096 (the pipeline refuses configurations where it is not).
+// S (B, H, W, D) int16; S stays exact because every sum of path costs is
+// below paths * (census_bits + P2) < 2^15 (the pipeline refuses
+// configurations where it is not).
 //
 // Bound on this card: bytes. Each launch reads C once and reads and writes
 // S once, 5 bytes per cost, against about 8 integer operations per cost.

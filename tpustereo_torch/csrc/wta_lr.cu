@@ -3,7 +3,10 @@
 // Replaces: tpustereo/kernels/wta_pallas.py, wta_lr_pallas (kernel body
 // `_kernel`).
 //
-// For each pixel of S (B, H, W, D), uint8 or int16, it computes `ops.wta`:
+// For each pixel of S (B, H, W, D), uint8, int16 or int32 (the SAD volume
+// of a block over 11; its costs, at most 255 * block^2, must stay below
+// 2^20 so that the packed min fits in an int and the right map's fill of
+// 1 << 20 exceeds every real cost), it computes `ops.wta`:
 //   * d* by one packed min (S * next_pow2(D) + d), ties to the lowest d;
 //   * valid = !(second * 100 < best * (100 + ratio)), second the min over
 //     |d - d*| > 1 (when the ratio is > 0);
@@ -17,7 +20,7 @@
 // rint(disp) (half to even); lookups left of column 0 and dl outside
 // [d_start, d_start + D) fail. Outputs disp f32 and valid bool, (B, H, W).
 //
-// Bound on this card: bytes. It reads S once (1 or 2 bytes per cost) and
+// Bound on this card: bytes. It reads S once (1, 2 or 4 bytes per cost) and
 // writes 5 bytes per pixel, against about 4 integer operations per cost
 // (pack, min, second min; the LR check adds a shared-memory atomicMin).
 //
@@ -136,16 +139,24 @@ static int launch_k(const void* S, float* disp, uint8_t* valid, int rows,
   return 0;
 }
 
-// S is (rows, W, D), uint8 when int16 == 0 and int16 otherwise.
+// S is (rows, W, D) of elt-byte costs: uint8 (1), int16 (2) or int32 (4).
 TPS_EXPORT int wta_lr_launch(const void* S, float* disp, uint8_t* valid,
-                             int rows, int W, int D, int int16, int uniq,
+                             int rows, int W, int D, int elt, int uniq,
                              int subpixel, int d_start, int max_diff,
                              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = int16 ? launch_k<int16_t>(S, disp, valid, rows, W, D, uniq,
-                                           subpixel, d_start, max_diff, s)
-                       : launch_k<uint8_t>(S, disp, valid, rows, W, D, uniq,
-                                           subpixel, d_start, max_diff, s);
+  int rc;
+  if (elt == 1)
+    rc = launch_k<uint8_t>(S, disp, valid, rows, W, D, uniq, subpixel,
+                           d_start, max_diff, s);
+  else if (elt == 2)
+    rc = launch_k<int16_t>(S, disp, valid, rows, W, D, uniq, subpixel,
+                           d_start, max_diff, s);
+  else if (elt == 4)
+    rc = launch_k<int32_t>(S, disp, valid, rows, W, D, uniq, subpixel,
+                           d_start, max_diff, s);
+  else
+    return (int)cudaErrorInvalidValue;
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

@@ -14,11 +14,14 @@ from tpustereo_torch.kernels.lr import dr_consistency  # noqa: F401
 from tpustereo_torch.kernels.median import median3  # noqa: F401
 from tpustereo_torch.kernels.sad import sad_wta  # noqa: F401
 from tpustereo_torch.kernels.sgm import (  # noqa: F401
-    sgm_select, sgm_sweep, sweep_bwd_wta)
+    aggregate_volume, sgm_select, sgm_sweep, sgm_sweep_bidir, sweep_bwd_wta)
+from tpustereo_torch.kernels.transpose import (  # noqa: F401
+    transpose_hw, transpose_sum_hw)
 from tpustereo_torch.kernels.wta import wta_lr  # noqa: F401
 
 WRAPPERS = (census_cost_volume, sgm_sweep, sweep_bwd_wta, dr_consistency,
-            connected_component_labels, median3, wta_lr, sad_wta)
+            connected_component_labels, median3, wta_lr, sad_wta,
+            transpose_hw, transpose_sum_hw, sgm_sweep_bidir)
 
 
 def launch_counts() -> dict:

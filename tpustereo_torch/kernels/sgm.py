@@ -1,11 +1,17 @@
 """SGM sweeps and the fused backward sweep + WTA: CUDA kernel wrappers and
-plain versions.
+plain versions, and the compositions built of them.
 
 Counterparts of the JAX package's `kernels/sgm_pallas.py`: `sgm_sweep`
-(`csrc/sgm_sweep.cu`), `sweep_bwd_wta` (`csrc/bwd_wta.cu`) and
-`sgm_select`, the Python composition that `sgm_select_pallas` is. The
-kernels take the plain (B, H, W, D) layout for every direction; nothing is
-padded or transposed.
+(`csrc/sgm_sweep.cu`), `sgm_sweep_bidir` (`csrc/sgm_bidir.cu`),
+`sweep_bwd_wta` (`csrc/bwd_wta.cu`), and the Python compositions
+`sgm_select` (`sgm_select_pallas`) and `aggregate_volume`
+(`aggregate_pallas`). The kernels take the plain (B, H, W, D) layout for
+every direction; nothing is padded.
+
+The default `sgm_select` needs no transpose: its sweeps read (B, H, W, D)
+directly. `aggregate_volume` and the `BIDIR_VERT` route of `sgm_select`
+keep the JAX package's schedule, horizontal sweeps as column sweeps of the
+transposed pair (`kernels.transpose`), so they run its relayout kernels.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import torch
 
 from tpustereo_torch.config import Config
 from tpustereo_torch.kernels import _build
+from tpustereo_torch.kernels.transpose import transpose_hw, transpose_sum_hw
 from tpustereo_torch.ops.postproc import _right_disparity
 from tpustereo_torch.ops.sgm import DIRS_4, DIRS_8, path_costs
 from tpustereo_torch.ops.wta import wta
@@ -25,6 +32,10 @@ _SWEEP_SIGS = {
     # C, S, B, H, W, D, dy, dx, p1, p2, stream
     "sgm_sweep_launch": ([_P, _P] + [_I] * 8 + [_P], _I),
 }
+_BIDIR_SIGS = {
+    # C, Sd, Su, B, H, W, D, dx, p1, p2, accumulate, stream
+    "sgm_bidir_launch": ([_P] * 3 + [_I] * 8 + [_P], _I),
+}
 _BWD_SIGS = {
     # C, S7, disp, valid, d_r, rows, W, D, p1, p2, uniq, subpixel,
     # d_start, stream
@@ -32,23 +43,35 @@ _BWD_SIGS = {
 }
 MAX_D = 512  # 32 lanes x 16 registers of carry per warp
 
+# The `sgm_select` schedule of the vertical sweeps: False (the default, as
+# in the JAX package) accumulates them into S7 one direction at a time;
+# True runs the down and up sweeps together (`sgm_sweep_bidir`), sums and
+# transposes them in one pass, and adds the E sweep in the transposed
+# layout. The outputs are the same.
+BIDIR_VERT = False
 
-def _check_volume(C: torch.Tensor, S: torch.Tensor, name: str) -> None:
+
+def _check_cost(C: torch.Tensor) -> None:
     if C.dim() != 4 or C.numel() == 0 or C.dtype != torch.uint8:
         raise ValueError(f"C must be a non-empty (B, H, W, D) uint8 volume, "
                          f"got {C.dtype} {tuple(C.shape)}")
+    if C.shape[-1] > MAX_D:
+        raise ValueError(f"D = {C.shape[-1]} > {MAX_D} unsupported")
+    if C.device.type == "cuda" and not C.is_contiguous():
+        raise ValueError("C must be contiguous")
+    if C.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {C.device}")
+
+
+def _check_volume(C: torch.Tensor, S: torch.Tensor, name: str) -> None:
+    _check_cost(C)
     if S.shape != C.shape or S.dtype != torch.int16:
         raise ValueError(f"{name} must be int16 of C's shape "
                          f"{tuple(C.shape)}, got {S.dtype} {tuple(S.shape)}")
     if S.device != C.device:
         raise ValueError(f"C and {name} must be on one device")
-    if C.shape[-1] > MAX_D:
-        raise ValueError(f"D = {C.shape[-1]} > {MAX_D} unsupported")
-    if C.device.type == "cuda" and not (C.is_contiguous()
-                                        and S.is_contiguous()):
-        raise ValueError(f"C and {name} must be contiguous")
-    if C.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {C.device}")
+    if C.device.type == "cuda" and not S.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 # ---------------------------------------------------------------------------
@@ -86,6 +109,52 @@ def sgm_sweep(C: torch.Tensor, S: torch.Tensor, dy: int, dx: int, p1: int,
 
 
 sgm_sweep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# down + up vertical sweeps in one kernel
+# ---------------------------------------------------------------------------
+
+def sgm_sweep_bidir_plain(C: torch.Tensor, dxs, p1: int, p2: int):
+    """The kernel's function in plain PyTorch (`ops.sgm`)."""
+    Sd = torch.zeros(C.shape, dtype=torch.int16, device=C.device)
+    Su = torch.zeros_like(Sd)
+    for dx in dxs:
+        Sd += path_costs(C, 1, dx, p1, p2)
+        Su += path_costs(C, -1, dx, p1, p2)
+    return Sd, Su
+
+
+def sgm_sweep_bidir(C: torch.Tensor, dxs, p1: int, p2: int):
+    """(S_down, S_up): the sums of the path costs of the directions (1, dx)
+    and (-1, dx) over the column shifts `dxs`, each int16 of C's shape.
+
+    C (B, H, W, D) uint8. One launch per dx runs both directions; the first
+    writes S_down and S_up, the later ones add to them. CUDA tensors run
+    the kernel, CPU tensors the plain version."""
+    dxs = tuple(dxs)
+    if not dxs or len(set(dxs)) != len(dxs) or not set(dxs) <= {-1, 0, 1}:
+        raise ValueError(f"dxs must be distinct shifts of -1, 0, 1, got "
+                         f"{dxs}")
+    if not 0 <= p1 <= p2:
+        raise ValueError("need 0 <= p1 <= p2")
+    _check_cost(C)
+    if C.device.type == "cpu":
+        return sgm_sweep_bidir_plain(C, dxs, p1, p2)
+    B, H, W, D = C.shape
+    Sd = torch.empty(C.shape, dtype=torch.int16, device=C.device)
+    Su = torch.empty_like(Sd)
+    lib = _build.load("sgm_bidir", _BIDIR_SIGS)
+    for i, dx in enumerate(dxs):
+        rc = lib.sgm_bidir_launch(_build.ptr(C), _build.ptr(Sd),
+                                  _build.ptr(Su), B, H, W, D, dx, p1, p2,
+                                  int(i > 0), _build.stream_ptr(C))
+        _build.check(lib, rc, "sgm_sweep_bidir")
+        sgm_sweep_bidir.launches += 1
+    return Sd, Su
+
+
+sgm_sweep_bidir.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -138,12 +207,46 @@ sweep_bwd_wta.launches = 0
 def sgm_select(C: torch.Tensor, cfg: Config):
     """Aggregation + WTA + uniqueness + subpixel + right-view disparity.
 
-    The sweeps of every direction but W accumulate into one int16 S7; the
-    backward sweep completes S column by column and selects, so the full S
-    is never stored. C (B, H, W, D) uint8 -> (disp, valid, d_r) as in
-    `sweep_bwd_wta`."""
-    S7 = torch.zeros(C.shape, dtype=torch.int16, device=C.device)
-    for dy, dx in (DIRS_4 if cfg.paths == 4 else DIRS_8):
-        if (dy, dx) != (0, -1):
-            sgm_sweep(C, S7, dy, dx, cfg.p1, cfg.p2)
+    The sweeps of every direction but W make one int16 S7; the backward
+    sweep completes S column by column and selects, so the full S is never
+    stored. C (B, H, W, D) uint8 -> (disp, valid, d_r) as in
+    `sweep_bwd_wta`. `BIDIR_VERT` picks how S7 is made (the JAX
+    `sgm_select_pallas` schedules)."""
+    p1, p2 = cfg.p1, cfg.p2
+    if BIDIR_VERT:
+        dxs = (0, 1, -1) if cfg.paths == 8 else (0,)
+        Sd, Su = sgm_sweep_bidir(C, dxs, p1, p2)
+        St = transpose_sum_hw(Sd, Su)
+        del Sd, Su
+        sgm_sweep(transpose_hw(C), St, 1, 0, p1, p2)   # E
+        S7 = transpose_hw(St)
+        del St
+    else:
+        S7 = torch.zeros(C.shape, dtype=torch.int16, device=C.device)
+        for dy, dx in (DIRS_4 if cfg.paths == 4 else DIRS_8):
+            if (dy, dx) != (0, -1):
+                sgm_sweep(C, S7, dy, dx, p1, p2)
     return sweep_bwd_wta(C, S7, cfg)
+
+
+def aggregate_volume(C: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """S = the sum of the 4 or 8 path costs: (B, H, W, D) uint8 -> int16,
+    equal to `ops.aggregate`.
+
+    The JAX `aggregate_pallas` schedule: the vertical and diagonal sweeps
+    into S, then S and C transposed so that E and W run as column sweeps of
+    the pair, then S transposed back. Each intermediate is freed once the
+    next step has what it needs, so besides C at most two int16 volumes,
+    or one and the transposed C, are alive at a time."""
+    p1, p2 = cfg.p1, cfg.p2
+    S = torch.zeros(C.shape, dtype=torch.int16, device=C.device)
+    for dy, dx in (DIRS_4 if cfg.paths == 4 else DIRS_8):
+        if dy != 0:
+            sgm_sweep(C, S, dy, dx, p1, p2)
+    St = transpose_hw(S)
+    del S
+    Ct = transpose_hw(C)
+    sgm_sweep(Ct, St, 1, 0, p1, p2)    # E
+    sgm_sweep(Ct, St, -1, 0, p1, p2)   # W
+    del Ct
+    return transpose_hw(St)

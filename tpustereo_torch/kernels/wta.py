@@ -3,7 +3,8 @@ wrapper and plain version.
 
 Counterpart of the JAX package's `kernels/wta_pallas.py` (`wta_lr_pallas`).
 The kernel is `csrc/wta_lr.cu`; it reads the plain (B, H, W, D) volume,
-uint8 (the census cost of the census_wta mode) or int16, with no padding.
+uint8 (the census cost of the census_wta mode), int16 (the aggregated SGM
+volume) or int32 (the SAD volume), with no padding.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ from tpustereo_torch.ops.wta import wta
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
     "wta_lr_smem_bytes": ([_I], ctypes.c_size_t),
-    # S, disp, valid, rows, W, D, int16, uniq, subpixel, d_start, max_diff,
-    # stream
+    # S, disp, valid, rows, W, D, element bytes, uniq, subpixel, d_start,
+    # max_diff, stream
     "wta_lr_launch": ([_P] * 3 + [_I] * 8 + [_P], _I),
 }
 
@@ -35,8 +36,11 @@ def wta_lr_plain(S: torch.Tensor, cfg: Config):
 
 
 def wta_lr(S: torch.Tensor, cfg: Config):
-    """(B, H, W, D) uint8 or int16 volume -> (disp float32, valid bool),
-    each (B, H, W).
+    """(B, H, W, D) uint8, int16 or int32 volume -> (disp float32, valid
+    bool), each (B, H, W). int32 costs must lie below 2^20, as every SAD
+    volume of block <= 64 does (255 * block^2): the kernel packs cost and
+    index into one int, and the LR check fills columns past the image with
+    2^20 in both versions.
 
     disp is in true units (`cfg.min_disparity` added, subpixel applied);
     valid is the uniqueness test and, when `cfg.disp12_max_diff >= 0`, the
@@ -45,8 +49,8 @@ def wta_lr(S: torch.Tensor, cfg: Config):
     if S.dim() != 4 or S.numel() == 0:
         raise ValueError(f"S must be a non-empty (B, H, W, D) volume, got "
                          f"{tuple(S.shape)}")
-    if S.dtype not in (torch.uint8, torch.int16):
-        raise TypeError(f"S must be uint8 or int16, got {S.dtype}")
+    if S.dtype not in (torch.uint8, torch.int16, torch.int32):
+        raise TypeError(f"S must be uint8, int16 or int32, got {S.dtype}")
     if S.shape[-1] > MAX_D:
         raise ValueError(f"D = {S.shape[-1]} > {MAX_D} unsupported")
     if S.device.type == "cpu":
@@ -64,7 +68,7 @@ def wta_lr(S: torch.Tensor, cfg: Config):
     valid = torch.empty((B, H, W), dtype=torch.bool, device=S.device)
     rc = lib.wta_lr_launch(
         _build.ptr(S), _build.ptr(disp), _build.ptr(valid), B * H, W, D,
-        int(S.dtype == torch.int16), cfg.uniqueness_ratio, int(cfg.subpixel),
+        S.element_size(), cfg.uniqueness_ratio, int(cfg.subpixel),
         cfg.min_disparity, cfg.disp12_max_diff, _build.stream_ptr(S))
     _build.check(lib, rc, "wta_lr")
     wta_lr.launches += 1

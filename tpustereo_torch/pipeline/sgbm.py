@@ -20,9 +20,22 @@ over the stack. Frames are a batch dimension written out, so
 device of the input tensors: CUDA tensors through the kernels, CPU tensors
 through their plain versions.
 
+The volume route, the JAX `sgbm_volume` then `_select_and_refine`, is
+public here too: `sgbm_volume` makes the mode's whole volume S
+(`kernels.aggregate_volume` for SGM: sweeps, then the horizontal sweeps
+in the transposed layout) and `select_and_refine` runs `wta_lr` over it,
+for every mode and dtype, then speckle and the median. SGM configurations
+past the JAX fused bound, paths * (census_bits + P2) >= 4096, take it, as
+in the JAX `sgbm`. The JAX package also sends configurations there that fail its TPU memory gate
+(`_bwd_feasible`, e.g. `middlebury_sgm4` at 1988 x 2964); that gate is not
+ported, because the port's fused route is exact at every height, so here
+such a configuration keeps the fused route and reaches the volume route
+only through `sgbm_volume` + `select_and_refine`.
+
 Out of this slice (each raises `NotImplementedError` naming its ROADMAP
 item): gap fills, adaptive P2, and configurations outside the kernels'
-limits (D > 512; for SGM, paths * (census_bits + P2) >= 4096).
+limits (D > 512; for SGM, paths * (census_bits + P2) >= 2^15, which int16
+S cannot hold).
 """
 
 from __future__ import annotations
@@ -30,13 +43,24 @@ from __future__ import annotations
 import torch
 
 from tpustereo_torch.config import Config
-from tpustereo_torch.kernels import (census_cost_volume,
+from tpustereo_torch.kernels import (aggregate_volume, census_cost_volume,
                                      connected_component_labels,
                                      dr_consistency, median3, sad_wta,
                                      sgm_select, wta_lr)
+from tpustereo_torch.ops import sad_volume
 from tpustereo_torch.ops.postproc import speckle_frames
 
 INVALID = -1.0
+# paths * (census_bits + P2) from which the JAX `sgbm` leaves its fused
+# route (a limit of its TPU bwd kernel's packing, not of the port's fused
+# route, which is exact up to S16_BOUND); kept so that both packages run
+# the same route
+FUSED_BOUND = 4096
+S16_BOUND = 1 << 15  # ... that int16 S holds
+
+
+def _sgm_bound(cfg: Config) -> int:
+    return cfg.paths * (cfg.max_census_cost + cfg.p2)
 
 
 def check_slice(cfg: Config) -> None:
@@ -50,12 +74,17 @@ def check_slice(cfg: Config) -> None:
         todo.append("adaptive_p2 (ROADMAP: adaptive P2 maps)")
     if cfg.num_disparities > 512:
         todo.append("num_disparities > 512 (ROADMAP: wide configs)")
-    if (cfg.mode == "sgm"
-            and cfg.paths * (cfg.max_census_cost + cfg.p2) >= 4096):
-        todo.append("paths * (census_bits + p2) >= 4096 (ROADMAP: wide "
+    if cfg.mode == "sgm" and _sgm_bound(cfg) >= S16_BOUND:
+        todo.append("paths * (census_bits + p2) >= 2^15 (ROADMAP: wide "
                     "configs)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
+
+
+def _census(left: torch.Tensor, right: torch.Tensor, cfg: Config):
+    return census_cost_volume(left, right, cfg.num_disparities,
+                              cfg.max_census_cost, cfg.census_window,
+                              cfg.min_disparity)
 
 
 def _select(left: torch.Tensor, right: torch.Tensor, cfg: Config):
@@ -65,8 +94,7 @@ def _select(left: torch.Tensor, right: torch.Tensor, cfg: Config):
     if cfg.mode == "sad":
         disp, valid, d_r = sad_wta(left, right, cfg)
     else:
-        C = census_cost_volume(left, right, D, cfg.max_census_cost,
-                               cfg.census_window, d0)
+        C = _census(left, right, cfg)
         if cfg.mode == "census_wta":
             return wta_lr(C, cfg)
         disp, valid, d_r = sgm_select(C, cfg)
@@ -75,16 +103,54 @@ def _select(left: torch.Tensor, right: torch.Tensor, cfg: Config):
     return disp, valid
 
 
-def sgbm_frames(left: torch.Tensor, right: torch.Tensor,
-                cfg: Config) -> torch.Tensor:
-    """(F, H, W) uint8 x2 -> (F, H, W) float32 disparity, invalid = -1."""
-    check_slice(cfg)
-    disp, valid = _select(left, right, cfg)
+def _postproc(disp: torch.Tensor, valid: torch.Tensor,
+              cfg: Config) -> torch.Tensor:
+    """Speckle over the stacked frames, -1.0 at invalid pixels, median."""
     valid = speckle_frames(disp, valid, cfg, cc=connected_component_labels)
     out = torch.where(valid, disp, INVALID)
     if cfg.median_filter:
         out = median3(out)
     return out
+
+
+def sgbm_volume(left: torch.Tensor, right: torch.Tensor,
+                cfg: Config) -> torch.Tensor:
+    """The mode's whole cost volume S: (F, H, W) uint8 x2 -> (F, H, W, D),
+    aggregated for SGM (int16), the census cost as int16 for census_wta,
+    and the SAD volume (int32) for sad, as the JAX `sgbm_volume`."""
+    check_slice(cfg)
+    if cfg.mode == "sad":
+        return sad_volume(left, right, cfg.num_disparities, cfg.sad_block,
+                          cfg.min_disparity)
+    if cfg.mode == "census_wta":
+        return _census(left, right, cfg).to(torch.int16)
+    return aggregate_volume(_census(left, right, cfg), cfg)
+
+
+def select_and_refine(S: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """WTA + uniqueness + subpixel + LR check over the volume S of
+    `sgbm_volume` in one `wta_lr` launch, then speckle and the median:
+    (F, H, W, D) -> (F, H, W) float32, invalid = -1.
+
+    Every mode's volume goes through the kernel: the SAD volume as int32,
+    exact while its costs (255 * block^2) stay below 2^20, so for
+    block <= 64 as in `sad_wta`. The JAX `_select_and_refine` runs its
+    kernel only on int16 (block <= 11, a TPU limit) and a larger block
+    through `ops.wta` + `ops.lr_check`; the outputs are the same."""
+    check_slice(cfg)
+    if cfg.mode == "sad" and 255 * cfg.sad_block ** 2 >= 1 << 20:
+        raise ValueError(f"sad_block {cfg.sad_block} out of [1, 64]: "
+                         f"wta_lr needs every cost below 2^20")
+    return _postproc(*wta_lr(S, cfg), cfg)
+
+
+def sgbm_frames(left: torch.Tensor, right: torch.Tensor,
+                cfg: Config) -> torch.Tensor:
+    """(F, H, W) uint8 x2 -> (F, H, W) float32 disparity, invalid = -1."""
+    check_slice(cfg)
+    if cfg.mode == "sgm" and _sgm_bound(cfg) >= FUSED_BOUND:
+        return select_and_refine(sgbm_volume(left, right, cfg), cfg)
+    return _postproc(*_select(left, right, cfg), cfg)
 
 
 def sgbm(left: torch.Tensor, right: torch.Tensor, cfg: Config) -> torch.Tensor:
