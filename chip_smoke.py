@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the eleven CUDA kernels (ten libraries) from `tpustereo_torch/csrc/`
-with nvcc, then runs the port's paths.
+Builds the thirteen CUDA kernels (eleven libraries) from
+`tpustereo_torch/csrc/` with nvcc, then runs the port's paths.
 
 The KITTI 8-path SGM preset as it stands (`PRESETS["kitti_sgm8"]`: speckle
 window 100, range 2, the 3x3 median), at full KITTI size (375 x 1242,
@@ -74,13 +74,40 @@ The SGM volume route and the relayout kernels:
    the JAX package's, not a limit of the port's fused route) and times
    both routes.
 
-Prints a `{"kernels": [...]}` line with all eleven kernels (the launches of
-the KITTI six from step 3, those of `sad_wta` and `wta_lr` from their
-presets' runs in step 6, `transpose_hw`'s from step 9, and
-`transpose_sum_hw`'s and `sgm_sweep_bidir`'s from step 10), then
-`{"ok": true, "device": ...}` as the last line. Exits non-zero, with no
-result, on any failure or when CUDA is absent. Needs no network; imports
-nothing of JAX.
+The gap fills and the bitonic speckle sort:
+
+12. holds `dr_consistency_hits` (the LR check with the Hirschmueller fill's
+   hits map) against its plain version on step 1's d_r and disparity (4
+   frames of 375 x 1242, D = 128), and `bitonic_sort` on step 1's speckle
+   labels of those frames (4 rows of 465,750, padded to 2^19): the pair
+   sort (labels, pixel index) and the keys-only sort of index * 2 + bit,
+   all `torch.equal`;
+13. drives `kitti_sgm8` with `fill_mode="hirschmuller"` and with
+   `"background"` through `api.match_batch` on step 3's 8 pairs, with the
+   launch counters set to 0 just before each; requires
+   `dr_consistency_hits` (for "hirschmuller") to have launched, the plain
+   pipeline's output (one volume per set of frames for both fills) and an
+   invalid fraction below the unfilled run's; times both beside the
+   unfilled path and each fill alone, and prints the fill's share of the
+   batch;
+14. drives `tsukuba_sad` with `disp12_max_diff=1, fill_mode="hirschmuller"`
+   (its 8 pairs of step 6's size) and `middlebury_sgm4` with P2 = 1000 and
+   "hirschmuller" at KITTI size through `api.match_batch`: both take the
+   volume route; requires `wta_lr` and the hits kernel to have launched
+   and `sad_wta` / `sweep_bwd_wta` not, and the plain pipeline's output;
+15. drives `kitti_sgm8` through `api.match_batch` with
+   `ops.postproc.BITONIC_SPECKLE = True`, requires `bitonic_sort` to have
+   launched and the output to equal the default route's (step 3), and
+   times both routes, the two sorts and `torch.sort` of the same keys.
+
+Prints a `{"kernels": [...]}` line with all thirteen kernels (the launches
+of the KITTI six from step 3, those of `sad_wta` and `wta_lr` from their
+presets' runs in step 6, `transpose_hw`'s from step 9,
+`transpose_sum_hw`'s and `sgm_sweep_bidir`'s from step 10,
+`dr_consistency_hits`'s from step 13 and `bitonic_sort`'s from step 15),
+then `{"ok": true, "device": ...}` as the last line. Exits non-zero, with
+no result, on any failure or when CUDA is absent. Needs no network;
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -137,6 +164,13 @@ VOLUME_KERNELS = {
                          "tpustereo/kernels/transpose_pallas.py:33"),
     "sgm_sweep_bidir": ("tpustereo_torch/csrc/sgm_bidir.cu",
                         "tpustereo/kernels/sgm_pallas.py:955"),
+}
+# the kernels of the fill and bitonic speckle paths
+FILL_KERNELS = {
+    "dr_consistency_hits": ("tpustereo_torch/csrc/lr_check.cu",
+                            "tpustereo/kernels/lr_pallas.py:60"),
+    "bitonic_sort": ("tpustereo_torch/csrc/bitonic.cu",
+                     "tpustereo/kernels/bitonic_pallas.py:218"),
 }
 # middlebury_sgm4 at full size: (frame shape, synthetic disparity,
 # valid-fraction floor, bad-2.0 ceiling), the bar the KITTI path keeps,
@@ -233,14 +267,18 @@ def synthetic_pairs(shape, disparity: float, n: int):
             np.stack([np.where(p[3], p[2], -1.0) for p in ps]))
 
 
-def plain_pipeline(L, R, cfg):
+def plain_pipeline(L, R, cfg, fills=None):
     """(F, H, W) frames through the JAX package's jnp formulation, ported:
     the mode's full cost volume (SGM: aggregated), `ops.wta`,
-    `ops.lr_check` (true-unit d_R of the volume), plain speckle and median.
-    No kernel runs."""
+    `ops.lr_check` (true-unit d_R of the volume), plain speckle, the fill
+    (hits by `ops.lr_hits_from_volume`) and the median. No kernel runs.
+    With `fills`, a tuple of fill modes, returns {fill: output} for each,
+    from one volume."""
     import torch
     from tpustereo_torch.kernels.cost import census_cost_volume_plain
-    from tpustereo_torch.ops import (aggregate, lr_check, median3,
+    from tpustereo_torch.ops import (aggregate, fill_background,
+                                     fill_hirschmuller, lr_check,
+                                     lr_hits_from_volume, median3,
                                      sad_volume, speckle_frames, wta)
     D, d0 = cfg.num_disparities, cfg.min_disparity
     if cfg.mode == "sad":
@@ -252,9 +290,20 @@ def plain_pipeline(L, R, cfg):
             S = aggregate(S, cfg)
     disp, _, valid = wta(S, cfg)
     valid &= lr_check(S, disp, cfg)
+    modes = (cfg.fill_mode,) if fills is None else fills
+    hits = (lr_hits_from_volume(S, cfg) if "hirschmuller" in modes
+            else None)
     del S
-    out = torch.where(speckle_frames(disp, valid, cfg), disp, -1.0)
-    return median3(out) if cfg.median_filter else out
+    gaps = torch.where(speckle_frames(disp, valid, cfg), disp, -1.0)
+    outs = {}
+    for fill in modes:
+        out = gaps
+        if fill == "background":
+            out = fill_background(gaps)
+        elif fill == "hirschmuller":
+            out = fill_hirschmuller(gaps, hits)
+        outs[fill] = median3(out) if cfg.median_filter else out
+    return outs[cfg.fill_mode] if fills is None else outs
 
 
 def modes_path(card: str) -> list:
@@ -733,6 +782,250 @@ def volume_path(card: str, kitti: dict) -> list:
     return rows
 
 
+def fills_path(card: str, kitti: dict) -> list:
+    """Steps 12-15: the hits kernel and the bitonic sort against their
+    plain versions, `kitti_sgm8` with each fill, the volume route with the
+    Hirschmueller fill, and `BITONIC_SPECKLE`. `kitti` holds the KITTI
+    path's frames, ground truth and output (step 3), step 1's d_r,
+    disparity, speckle labels and speckled map of the first set of frames,
+    and the default route's ms per batch. Returns the two new kernels'
+    rows of the `kernels` line."""
+    import importlib
+
+    import torch
+    from tpustereo_torch import PRESETS, api, kernels
+    from tpustereo_torch.kernels.bitonic import (bitonic_sort_plain,
+                                                 padded_log2)
+    from tpustereo_torch.kernels.lr import dr_consistency_hits_plain
+    from tpustereo_torch.ops import (component_big, component_big_sorted,
+                                     fill_background, fill_hirschmuller)
+    from tpustereo_torch.pipeline import sgbm_batched
+    post = importlib.import_module("tpustereo_torch.ops.postproc")
+
+    t_steps = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = PRESETS["kitti_sgm8"]
+    D, F, d0 = cfg.num_disparities, cfg.frames_per_step, cfg.min_disparity
+    md = cfg.disp12_max_diff
+    H, W = SHAPE
+    n_pix = F * H * W
+    L, R = kitti["L"], kitti["R"]
+    d_r, disp = kitti["d_r"], kitti["disp"]
+    err = dict.fromkeys(FILL_KERNELS, 0)
+
+    # --- 12. the hits kernel and the bitonic sort against their plain
+    # versions at the KITTI path's shapes
+    ok, hits = kernels.dr_consistency_hits(d_r, disp, D, md, d0)
+    ok_p, hits_p = dr_consistency_hits_plain(d_r, disp, D, md, d0)
+    torch.cuda.synchronize()
+    require(torch.equal(ok, ok_p) and torch.equal(hits, hits_p),
+            "dr_consistency_hits differs from plain")
+    require(torch.equal(ok, kernels.dr_consistency(d_r, disp, D, md, d0)),
+            "dr_consistency_hits' ok differs from dr_consistency")
+    err["dr_consistency_hits"] = max(
+        (ok.int() - ok_p.int()).abs().max().item(),
+        (hits.int() - hits_p.int()).abs().max().item())
+    n = H * W
+    keys = kitti["lab"].reshape(F, n)
+    idx = torch.arange(n, dtype=torch.int32, device=dev).expand(F, n)
+    sk, sp = kernels.bitonic_sort(keys, idx)
+    sk_p, sp_p = bitonic_sort_plain(keys, idx)
+    torch.cuda.synchronize()
+    require(torch.equal(sk, sk_p) and torch.equal(sp, sp_p),
+            "bitonic_sort (pair) differs from plain")
+    require(torch.equal(sk, keys.sort(dim=1).values),
+            "bitonic_sort keys are not sorted")
+    packed = sp * 2 + (sk & 1)     # distinct keys, as component_big makes
+    out_k = kernels.bitonic_sort(packed)
+    out_kp = bitonic_sort_plain(packed)
+    torch.cuda.synchronize()
+    require(torch.equal(out_k, out_kp), "bitonic_sort (keys) differs from "
+            "plain")
+    err["bitonic_sort"] = max(int((sp - sp_p).abs().max().item()),
+                              int((out_k - out_kp).abs().max().item()))
+    del sk_p, sp_p, out_kp
+    for name, e in err.items():
+        print(f"check {name}: max abs diff to plain = {e}", flush=True)
+
+    ms = {"dr_consistency_hits": cuda_ms(
+        lambda: kernels.dr_consistency_hits(d_r, disp, D, md, d0), 50)}
+    plain_ms = {"dr_consistency_hits": cuda_ms(
+        lambda: dr_consistency_hits_plain(d_r, disp, D, md, d0), 5)}
+    library_ms = {"dr_consistency_hits": None}
+    sort_ms = {
+        "pair": (cuda_ms(lambda: kernels.bitonic_sort(keys, idx), 20),
+                 cuda_ms(lambda: bitonic_sort_plain(keys, idx), 2),
+                 cuda_ms(lambda: keys.sort(dim=1), 20)),
+        "keys": (cuda_ms(lambda: kernels.bitonic_sort(packed), 20),
+                 cuda_ms(lambda: bitonic_sort_plain(packed), 2),
+                 cuda_ms(lambda: packed.sort(dim=1).values, 20))}
+    # component_big_sorted makes one call of each: the row is their mean
+    ms["bitonic_sort"], plain_ms["bitonic_sort"], \
+        library_ms["bitonic_sort"] = (
+            (a + b) / 2 for a, b in zip(sort_ms["pair"], sort_ms["keys"]))
+    print(f"[{card}] bitonic_sort of ({F}, {n}) int32 keys, padded to "
+          f"2^{padded_log2(n)}, ms (kernel, plain, torch.sort): pair "
+          f"{sort_ms['pair']}; keys only {sort_ms['keys']}", flush=True)
+    # what any sort of these rows needs, not the network's n2/2 * L(L+1)/2
+    # exchanges (the mask `component_big_sorted` builds does not depend on
+    # the network's tie order): each array read and written once, against
+    # n * log2(n) compares a row, each a compare and a select per array;
+    # the row is the mean of the pair sort (16 bytes, 5 ops) and the
+    # keys-only sort (8 bytes, 3 ops)
+    cmp = F * n * float(np.log2(n))
+    bounds = {
+        # d_r and disp read, ok and hits written; ~8 ops for the check and
+        # 2 * max_diff + 1 flag stores per pixel
+        "dr_consistency_hits": bound(10 * n_pix, (9 + 2 * md) * n_pix),
+        "bitonic_sort": bound(12 * F * n, 4 * cmp),
+    }
+    lab = kitti["lab"]
+    big_ms = cuda_ms(lambda: component_big(
+        lab + torch.arange(0, n_pix, n, dtype=torch.int32,
+                           device=dev).reshape(F, 1, 1),
+        cfg.speckle_window_size), 20)
+    def big_bitonic():
+        return component_big_sorted(lab, cfg.speckle_window_size,
+                                    kernels.bitonic_sort)
+
+    big_bitonic_ms = cuda_ms(big_bitonic, 10)
+    big_torch_ms = cuda_ms(lambda: component_big_sorted(
+        lab, cfg.speckle_window_size), 10)
+    print(f"[{card}] component_big per set of {F} frames: default (one "
+          f"sort + searchsorted) {big_ms:.4f} ms; the sort formulation "
+          f"with bitonic_sort {big_bitonic_ms:.4f} ms, with torch.sort "
+          f"{big_torch_ms:.4f} ms", flush=True)
+    print(f"[{card}] the sort formulation with bitonic_sort, profiler: "
+          f"{device_busy(big_bitonic)}", flush=True)
+
+    # --- 13. kitti_sgm8 with each fill, through the user's entry point
+    t0 = time.perf_counter()
+    refs = [plain_pipeline(L[i:i + F], R[i:i + F], cfg,
+                           fills=("hirschmuller", "background"))
+            for i in range(0, BATCH, F)]
+    plain_s = time.perf_counter() - t0
+    base_inv = float((kitti["out"] == -1.0).mean())
+    base_ms = cuda_ms(lambda: sgbm_batched(L, R, cfg), 5)
+    counts = {}
+    for fill in ("hirschmuller", "background"):
+        fcfg = cfg.replace(fill_mode=fill)
+        kernels.reset_launch_counts()
+        out = api.match_batch(kitti["lefts"], kitti["rights"], fcfg)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        print(f"kitti_sgm8 {fill} fill launches: {launches}", flush=True)
+        lr_name = ("dr_consistency_hits" if fill == "hirschmuller"
+                   else "dr_consistency")
+        for k in (*KERNELS.keys() - {"dr_consistency"}, lr_name):
+            require(launches[k] > 0, f"{k} was not launched on the kitti_sgm8 "
+                    f"{fill} path")
+        if fill == "hirschmuller":
+            require(launches["dr_consistency"] == 0, "the hirschmuller path "
+                    "ran the plain LR kernel")
+            counts["dr_consistency_hits"] = launches["dr_consistency_hits"]
+        require(out.shape == (BATCH, H, W) and np.isfinite(out).all(),
+                f"{fill} output has the wrong shape or non-finite values")
+        ref = np.concatenate([r[fill].cpu().numpy() for r in refs])
+        require(np.array_equal(out == -1.0, ref == -1.0),
+                f"{fill} invalid pattern differs from the plain pipeline")
+        f_err = float(np.abs(out - ref).max())
+        require(f_err <= DISP_TOL, f"{fill} disparity differs from the plain "
+                f"pipeline")
+        inv = float((out == -1.0).mean())
+        require(inv < base_inv, f"the {fill} fill left no fewer invalid "
+                f"pixels ({inv} against {base_inv})")
+        f_ms = cuda_ms(lambda: sgbm_batched(L, R, fcfg), 5)
+        print(f"[{card}] kitti_sgm8 {fill} fill vs plain pipeline: max abs "
+              f"diff {f_err}; invalid fraction {inv:.5f} (unfilled "
+              f"{base_inv:.5f}); valid fraction, bad-2.0: "
+              f"{quality(out, kitti['gts'])}; {f_ms:.3f} ms per batch of "
+              f"{BATCH} against {base_ms:.3f} unfilled: the fill stage's "
+              f"share {(f_ms - base_ms) / f_ms:.4f}", flush=True)
+    gaps = kitti["gaps"]
+    fill_ms = {"hirschmuller": cuda_ms(lambda: fill_hirschmuller(gaps, hits),
+                                       10),
+               "background": cuda_ms(lambda: fill_background(gaps), 10)}
+    print(f"[{card}] the fills alone per set of {F} frames: {fill_ms} ms; "
+          f"plain pipeline for both fills: {plain_s:.1f} s", flush=True)
+    print(f"[{card}] fill_hirschmuller profiler, one set of {F} frames: "
+          f"{device_busy(lambda: fill_hirschmuller(gaps, hits))}", flush=True)
+    hcfg = cfg.replace(fill_mode="hirschmuller")
+    print(f"[{card}] kitti_sgm8 hirschmuller profiler, one batch: "
+          f"{device_busy(lambda: sgbm_batched(L, R, hcfg))}", flush=True)
+
+    # --- 14. the volume route with the Hirschmueller fill: tsukuba_sad with
+    # the LR check, middlebury_sgm4 past the fused bound at KITTI size
+    (Hs, Ws), d_sad = MODES["tsukuba_sad"][:2]
+    lefts_s, rights_s, gts_s = synthetic_pairs((Hs, Ws), d_sad, BATCH)
+    runs = [("tsukuba_sad", PRESETS["tsukuba_sad"], lefts_s, rights_s,
+             gts_s, "sad_wta"),
+            ("middlebury_sgm4 P2=1000", PRESETS["middlebury_sgm4"].replace(
+                p2=1000), kitti["lefts"], kitti["rights"], kitti["gts"],
+             "sweep_bwd_wta")]
+    for label, vcfg, lefts, rights, gts, fused in runs:
+        vcfg = vcfg.replace(disp12_max_diff=1, fill_mode="hirschmuller")
+        kernels.reset_launch_counts()
+        out = api.match_batch(lefts, rights, vcfg)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        print(f"{label} hirschmuller launches: {launches}", flush=True)
+        require(launches["wta_lr"] > 0 and launches["dr_consistency_hits"] > 0
+                and launches[fused] == 0, f"{label} hirschmuller did not "
+                f"take the volume route")
+        Lv = torch.from_numpy(lefts).to(dev)
+        Rv = torch.from_numpy(rights).to(dev)
+        step = vcfg.frames_per_step
+        ref = np.concatenate([plain_pipeline(Lv[i:i + step], Rv[i:i + step],
+                                             vcfg).cpu().numpy()
+                              for i in range(0, BATCH, step)])
+        require(np.array_equal(out == -1.0, ref == -1.0),
+                f"{label} hirschmuller invalid pattern differs from the "
+                f"plain pipeline")
+        v_err = float(np.abs(out - ref).max())
+        require(v_err <= DISP_TOL, f"{label} hirschmuller disparity differs "
+                f"from the plain pipeline")
+        print(f"{label} hirschmuller (volume route) vs plain pipeline: max "
+              f"abs diff {v_err}; valid fraction, bad-2.0: "
+              f"{quality(out, gts)}", flush=True)
+        del Lv, Rv
+
+    # --- 15. speckle through the bitonic sort
+    kernels.reset_launch_counts()
+    post.BITONIC_SPECKLE = True
+    try:
+        out_b = api.match_batch(kitti["lefts"], kitti["rights"], cfg)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        bitonic_ms = cuda_ms(lambda: sgbm_batched(L, R, cfg), 5)
+    finally:
+        post.BITONIC_SPECKLE = False
+    default_ms = cuda_ms(lambda: sgbm_batched(L, R, cfg), 5)
+    print(f"kitti_sgm8 BITONIC_SPECKLE launches: {launches}", flush=True)
+    require(launches["bitonic_sort"] > 0, "bitonic_sort was not launched "
+            "under BITONIC_SPECKLE")
+    require(np.array_equal(out_b, kitti["out"]), "the BITONIC_SPECKLE "
+            "route's output differs from the default route's")
+    counts["bitonic_sort"] = launches["bitonic_sort"]
+    print(f"[{card}] kitti_sgm8 batch of {BATCH}: BITONIC_SPECKLE "
+          f"{bitonic_ms:.3f} ms, default route {default_ms:.3f} ms; outputs "
+          f"equal", flush=True)
+
+    rows = []
+    for name, (src, replaces) in FILL_KERNELS.items():
+        b_ms, b_by = bounds[name]
+        print(f"[{card}] {name}: {ms[name]:.4f} ms/launch, {counts[name]} "
+              f"launches per batch of {BATCH}, bound {b_ms:.4f} ms ({b_by}), "
+              f"plain {plain_ms[name]:.3f} ms, library {library_ms[name]}",
+              flush=True)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": counts[name],
+                     "max_abs_err": err[name], "ms": ms[name],
+                     "plain_ms": plain_ms[name], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": library_ms[name]})
+    print(f"steps 12-15: {time.perf_counter() - t_steps:.1f} s", flush=True)
+    return rows
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -991,8 +1284,10 @@ def main() -> None:
                      "plain_ms": plain_ms[name], "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": library_ms[name]})
     rows += modes_path(card)
-    rows += volume_path(card, dict(lefts=lefts, rights=rights, gts=gts, L=L,
-                                   R=R, out=out))
+    kitti = dict(lefts=lefts, rights=rights, gts=gts, L=L, R=R, out=out)
+    rows += volume_path(card, kitti)
+    rows += fills_path(card, dict(kitti, d_r=d_r, disp=disp, lab=lab,
+                                  gaps=med_in))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

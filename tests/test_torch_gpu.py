@@ -22,9 +22,11 @@ import torch
 
 from tpustereo_torch import Config, kernels
 from tpustereo_torch.data import synthetic_pair
+from tpustereo_torch.kernels.bitonic import bitonic_sort_plain
 from tpustereo_torch.kernels.cc import connected_component_labels_plain
 from tpustereo_torch.kernels.cost import census_cost_volume_plain
-from tpustereo_torch.kernels.lr import dr_consistency_plain
+from tpustereo_torch.kernels.lr import (dr_consistency_hits_plain,
+                                        dr_consistency_plain)
 from tpustereo_torch.kernels.median import median3_plain
 from tpustereo_torch.kernels.sad import sad_wta_plain
 from tpustereo_torch.kernels.sgm import (sgm_sweep_bidir_plain,
@@ -33,6 +35,7 @@ from tpustereo_torch.kernels.transpose import (transpose_hw_plain,
                                                transpose_sum_hw_plain)
 from tpustereo_torch.kernels.wta import wta_lr_plain
 from tpustereo_torch.ops import aggregate
+from tpustereo_torch.ops.postproc import _right_disparity
 from tpustereo_torch.ops.sgm import DIRS_8
 from tpustereo_torch.pipeline import (select_and_refine, sgbm_batched,
                                       sgbm_volume)
@@ -179,6 +182,73 @@ def test_lr_kernel_matches_plain(cuda, H, W, D, d0, max_diff):
     ref = dr_consistency_plain(d_r, disp, D, max_diff, d0)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("B,H,W,D", [(2, 40, 72, 32), (2, 6, 20, 32),
+                                     (1, 1, 1, 8), (4, 375, 1242, 128),
+                                     (1, 2, 60000, 16)])
+@pytest.mark.parametrize("d0", [0, 5])
+@pytest.mark.parametrize("max_diff", [0, 1, 2])
+def test_lr_hits_kernel_matches_plain(cuda, B, H, W, D, d0, max_diff):
+    """The hits kernel, d_r values out of range included; W = 60000 needs
+    more than 48 KB of shared memory."""
+    rng = np.random.default_rng(15)
+    d_r = torch.from_numpy(rng.integers(-3, D + 3, (B, H, W),
+                                        dtype=np.int32)).to(cuda)
+    disp = torch.from_numpy(rng.uniform(d0 - 0.5, d0 + D - 0.5, (B, H, W))
+                            .astype(np.float32)).to(cuda)
+    kernels.reset_launch_counts()
+    ok, hits = kernels.dr_consistency_hits(d_r, disp, D, max_diff, d0)
+    assert kernels.launch_counts()["dr_consistency_hits"] == 1
+    ok_p, hits_p = dr_consistency_hits_plain(d_r, disp, D, max_diff, d0)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, ok_p)
+    assert torch.equal(hits, hits_p)
+    assert torch.equal(ok, kernels.dr_consistency(d_r, disp, D, max_diff,
+                                                  d0))
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1), (1, 100), (1, 256), (3, 5000),
+                                    (1, 4096), (2, 4097), (4, 465750),
+                                    (1, 1 << 19)])
+@pytest.mark.parametrize("payload", [False, True])
+def test_bitonic_kernel_matches_plain(cuda, rows, n, payload):
+    """Keys with heavy duplication (the speckle labels' regime) and the
+    payload order, at the KITTI frame's 465,750 and at a power of two."""
+    rng = np.random.default_rng(16)
+    k = torch.from_numpy(rng.integers(0, max(2, n // 50), (rows, n),
+                                      dtype=np.int32)).to(cuda)
+    p = (torch.arange(n, dtype=torch.int32, device=cuda).expand(rows, n)
+         if payload else None)
+    kernels.reset_launch_counts()
+    got = kernels.bitonic_sort(k, p)
+    assert kernels.launch_counts()["bitonic_sort"] == 1
+    ref = bitonic_sort_plain(k, p)
+    torch.cuda.synchronize()
+    if payload:
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert torch.equal(k.gather(1, got[1].long()), got[0])
+    else:
+        assert torch.equal(got, ref)
+        assert torch.equal(got, k.sort(dim=1).values)
+
+
+@pytest.mark.parametrize("H,W,D", [(17, 41, 16), (1, 45, 32), (6, 200, 128),
+                                   (5, 37, 512)])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32])
+@pytest.mark.parametrize("d0,d12", [(0, 1), (3, -1), (3, 0)])
+def test_wta_lr_right_map_matches_plain(cuda, H, W, D, dtype, d0, d12):
+    rng = np.random.default_rng(17)
+    top = {torch.uint8: 25, torch.int16: 1000, torch.int32: 1 << 20}[dtype]
+    S = torch.from_numpy(rng.integers(0, top, (2, H, W, D))).to(dtype)
+    S = S.to(cuda)
+    cfg = Config(num_disparities=D, min_disparity=d0, disp12_max_diff=d12)
+    disp, valid, d_R = kernels.wta_lr(S, cfg, with_dr=True)
+    disp_p, valid_p = wta_lr_plain(S, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(d_R, _right_disparity(S, d0))
+    assert torch.equal(valid, valid_p)
+    assert (disp - disp_p).abs().max().item() <= 1e-6
 
 
 @pytest.mark.parametrize("name", CC_MASKS)
@@ -432,3 +502,40 @@ def test_wrappers_refuse_bad_cuda_inputs(cuda):
         kernels.transpose_sum_hw(S16.transpose(1, 2), S16.transpose(1, 2))
     with pytest.raises(ValueError, match="contiguous"):
         kernels.sgm_sweep_bidir(C.transpose(1, 2), (0,), 10, 120)
+
+
+@pytest.mark.parametrize("mode,fill,d0,p2", [
+    ("sgm", "hirschmuller", 0, 120), ("sgm", "hirschmuller", 3, 120),
+    ("sgm", "background", 0, 120), ("sgm", "hirschmuller", 0, 1000),
+    ("sad", "hirschmuller", 0, 120), ("sad", "background", 3, 120),
+    ("census_wta", "hirschmuller", 2, 120),
+    ("census_wta", "background", 0, 120)])
+def test_pipeline_fills_cuda_matches_cpu(cuda, mode, fill, d0, p2):
+    cfg = Config(mode=mode, num_disparities=32, min_disparity=d0, p2=p2,
+                 paths=4 if p2 > 120 else 8, disp12_max_diff=1,
+                 fill_mode=fill, speckle_window_size=100, speckle_range=2,
+                 frames_per_step=2)
+    counts = _run_on_both(cfg)
+    volume = p2 > 120 or (mode != "sgm" and fill == "hirschmuller")
+    assert counts["dr_consistency_hits"] == (2 if fill == "hirschmuller"
+                                             else 0)
+    assert counts["wta_lr"] == (2 if volume or mode == "census_wta" else 0)
+    assert counts["sad_wta"] == (2 if mode == "sad" and not volume else 0)
+    assert counts["sweep_bwd_wta"] == (2 if mode == "sgm" and not volume
+                                       else 0)
+
+
+def test_bitonic_speckle_cuda_matches_default(cuda, monkeypatch):
+    L, R = _pairs(4, (33, 49), seed=18)
+    L, R = L.to(cuda), R.to(cuda)
+    cfg = Config(num_disparities=32, speckle_window_size=100,
+                 speckle_range=2, frames_per_step=2)
+    ref = sgbm_batched(L, R, cfg)
+    monkeypatch.setattr(importlib.import_module(
+        "tpustereo_torch.ops.postproc"), "BITONIC_SPECKLE", True)
+    kernels.reset_launch_counts()
+    got = sgbm_batched(L, R, cfg)
+    counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert counts["bitonic_sort"] == 2 * 2     # a pair and a keys sort

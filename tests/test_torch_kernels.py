@@ -19,6 +19,7 @@ import tpustereo_torch
 from tpustereo.config import PRESETS as JPRESETS
 from tpustereo.config import Config as JConfig
 from tpustereo.kernels import census_cost_volume_pallas, dr_consistency_pallas
+from tpustereo.pipeline import sgbm as j_sgbm
 from tpustereo_torch import PRESETS, Config, api, kernels
 from tpustereo_torch.convert import config_from_jax
 from tpustereo_torch.pipeline import sgbm, sgbm_batched
@@ -119,6 +120,7 @@ def test_import_loads_neither_jax_nor_tpustereo():
     assert {"tpustereo_torch.api", "tpustereo_torch.kernels.sgm",
             "tpustereo_torch.kernels.sad", "tpustereo_torch.kernels.wta",
             "tpustereo_torch.kernels.transpose",
+            "tpustereo_torch.kernels.bitonic",
             "tpustereo_torch.ops.census", "tpustereo_torch.ops.sad",
             "tpustereo_torch.pipeline.sgbm"} <= names
 
@@ -135,15 +137,29 @@ def test_entry_points_need_cuda_unless_told_cpu(small_pair, monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(mode="sad", fill_mode="background"),
     dict(mode="census_wta", num_disparities=640),
-    dict(fill_mode="background"), dict(fill_mode="hirschmuller"),
     dict(adaptive_p2=True), dict(num_disparities=640),
     dict(p2=5000)], ids=lambda c: ",".join(f"{k}={v}" for k, v in c.items()))
 def test_out_of_slice_configs_raise(change):
     img = torch.zeros((1, 8, 16), dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sgbm_batched(img, img, SLICE.replace(**change))
+
+
+@pytest.mark.parametrize("change", [
+    dict(mode="sad", fill_mode="background"),
+    dict(fill_mode="background"), dict(fill_mode="hirschmuller")],
+    ids=lambda c: ",".join(f"{k}={v}" for k, v in c.items()))
+def test_out_of_slice_configs_raise_no_more(small_pair, change):
+    """Configurations that earlier slices refused now run, equal to the JAX
+    jnp pipeline."""
+    L, R, _, _ = small_pair
+    jcfg = JConfig(**{**dataclasses.asdict(SLICE), **change,
+                      "backend": "jnp"})
+    ref = np.asarray(j_sgbm(jnp.asarray(L), jnp.asarray(R), jcfg))
+    got = sgbm(_t(L), _t(R), config_from_jax(dataclasses.asdict(jcfg)))
+    np.testing.assert_array_equal(got.numpy() == -1.0, ref == -1.0)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
 
 
 def test_package_reexports_config():

@@ -18,7 +18,9 @@
 // 1 << 20, so a right column no left pixel reaches gets d_start) in true
 // right-column units, then valid &= |dl - d_R[x - dl]| <= max_diff with dl =
 // rint(disp) (half to even); lookups left of column 0 and dl outside
-// [d_start, d_start + D) fail. Outputs disp f32 and valid bool, (B, H, W).
+// [d_start, d_start + D) fail. Outputs disp f32 and valid bool, (B, H, W),
+// and, when asked (dR not null), the right-view map d_R itself as int32
+// (B, H, W), for the hits map of the Hirschmueller fill.
 //
 // Bound on this card: bytes. It reads S once (1, 2 or 4 bytes per cost) and
 // writes 5 bytes per pixel, against about 4 integer operations per cost
@@ -41,7 +43,8 @@
 template <typename T, int K>
 __global__ void wta_lr_kernel(const T* __restrict__ S,
                               float* __restrict__ disp,
-                              uint8_t* __restrict__ valid, int W, int D,
+                              uint8_t* __restrict__ valid,
+                              int32_t* __restrict__ dR, int W, int D,
                               int uniq, int subpixel, int d_start,
                               int max_diff) {
   extern __shared__ int smem[];
@@ -51,11 +54,12 @@ __global__ void wta_lr_kernel(const T* __restrict__ S,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const bool lr = max_diff >= 0;
+  const bool need_map = lr || dR != nullptr;
   int ps = 0;
   while ((1 << ps) < max(D, 2)) ++ps;
   const int mask = (1 << ps) - 1;
 
-  if (lr)
+  if (need_map)
     for (int i = threadIdx.x; i < W; i += blockDim.x) dr[i] = (1 << 20) << ps;
   __syncthreads();
 
@@ -73,7 +77,7 @@ __global__ void wta_lr_kernel(const T* __restrict__ S,
     float dv;
     bool good;
     warp_wta<K>(v, packed, lane, D, ps, uniq, subpixel, d_start, dv, good);
-    if (lr) {
+    if (need_map) {
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const int d = lane * K + k;
@@ -102,6 +106,7 @@ __global__ void wta_lr_kernel(const T* __restrict__ S,
     }
     disp[row * W + x] = dv;
     valid[row * W + x] = good;
+    if (dR != nullptr) dR[row * W + x] = d_start + (dr[x] & mask);
   }
 }
 
@@ -110,24 +115,24 @@ TPS_EXPORT size_t wta_lr_smem_bytes(int W) {
 }
 
 template <typename T, int K>
-static void launch(const void* S, float* disp, uint8_t* valid, int rows,
-                   int W, int D, int uniq, int subpixel, int d_start,
-                   int max_diff, cudaStream_t s) {
+static void launch(const void* S, float* disp, uint8_t* valid, int32_t* dR,
+                   int rows, int W, int D, int uniq, int subpixel,
+                   int d_start, int max_diff, cudaStream_t s) {
   const size_t smem = wta_lr_smem_bytes(W);
   cudaFuncSetAttribute(wta_lr_kernel<T, K>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   wta_lr_kernel<T, K><<<rows, 256, smem, s>>>(
-      static_cast<const T*>(S), disp, valid, W, D, uniq, subpixel, d_start,
-      max_diff);
+      static_cast<const T*>(S), disp, valid, dR, W, D, uniq, subpixel,
+      d_start, max_diff);
 }
 
 template <typename T>
-static int launch_k(const void* S, float* disp, uint8_t* valid, int rows,
-                    int W, int D, int uniq, int subpixel, int d_start,
-                    int max_diff, cudaStream_t s) {
+static int launch_k(const void* S, float* disp, uint8_t* valid, int32_t* dR,
+                    int rows, int W, int D, int uniq, int subpixel,
+                    int d_start, int max_diff, cudaStream_t s) {
 #define TPS_LAUNCH(KK) \
-  launch<T, KK>(S, disp, valid, rows, W, D, uniq, subpixel, d_start, \
+  launch<T, KK>(S, disp, valid, dR, rows, W, D, uniq, subpixel, d_start, \
                 max_diff, s)
   if (D <= 32) TPS_LAUNCH(1);
   else if (D <= 64) TPS_LAUNCH(2);
@@ -139,21 +144,22 @@ static int launch_k(const void* S, float* disp, uint8_t* valid, int rows,
   return 0;
 }
 
-// S is (rows, W, D) of elt-byte costs: uint8 (1), int16 (2) or int32 (4).
+// S is (rows, W, D) of elt-byte costs: uint8 (1), int16 (2) or int32 (4);
+// dR may be null.
 TPS_EXPORT int wta_lr_launch(const void* S, float* disp, uint8_t* valid,
-                             int rows, int W, int D, int elt, int uniq,
-                             int subpixel, int d_start, int max_diff,
-                             void* stream) {
+                             int32_t* dR, int rows, int W, int D, int elt,
+                             int uniq, int subpixel, int d_start,
+                             int max_diff, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (elt == 1)
-    rc = launch_k<uint8_t>(S, disp, valid, rows, W, D, uniq, subpixel,
+    rc = launch_k<uint8_t>(S, disp, valid, dR, rows, W, D, uniq, subpixel,
                            d_start, max_diff, s);
   else if (elt == 2)
-    rc = launch_k<int16_t>(S, disp, valid, rows, W, D, uniq, subpixel,
+    rc = launch_k<int16_t>(S, disp, valid, dR, rows, W, D, uniq, subpixel,
                            d_start, max_diff, s);
   else if (elt == 4)
-    rc = launch_k<int32_t>(S, disp, valid, rows, W, D, uniq, subpixel,
+    rc = launch_k<int32_t>(S, disp, valid, dR, rows, W, D, uniq, subpixel,
                            d_start, max_diff, s);
   else
     return (int)cudaErrorInvalidValue;

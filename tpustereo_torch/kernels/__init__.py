@@ -8,9 +8,11 @@ that it went through the kernels. Importing this package builds nothing:
 `_build` compiles `csrc/*.cu` at first use.
 """
 
+from tpustereo_torch.kernels.bitonic import bitonic_sort  # noqa: F401
 from tpustereo_torch.kernels.cc import connected_component_labels  # noqa: F401
 from tpustereo_torch.kernels.cost import census_cost_volume  # noqa: F401
-from tpustereo_torch.kernels.lr import dr_consistency  # noqa: F401
+from tpustereo_torch.kernels.lr import (  # noqa: F401
+    dr_consistency, dr_consistency_hits)
 from tpustereo_torch.kernels.median import median3  # noqa: F401
 from tpustereo_torch.kernels.sad import sad_wta  # noqa: F401
 from tpustereo_torch.kernels.sgm import (  # noqa: F401
@@ -21,7 +23,8 @@ from tpustereo_torch.kernels.wta import wta_lr  # noqa: F401
 
 WRAPPERS = (census_cost_volume, sgm_sweep, sweep_bwd_wta, dr_consistency,
             connected_component_labels, median3, wta_lr, sad_wta,
-            transpose_hw, transpose_sum_hw, sgm_sweep_bidir)
+            transpose_hw, transpose_sum_hw, sgm_sweep_bidir,
+            dr_consistency_hits, bitonic_sort)
 
 
 def launch_counts() -> dict:

@@ -1,8 +1,9 @@
-"""d_L / d_R consistency check: CUDA kernel wrapper and plain version.
+"""d_L / d_R consistency check, alone or with the epipolar-intersection map
+of the Hirschmueller fill: CUDA kernel wrappers and plain versions.
 
 Counterpart of the JAX package's `kernels/lr_pallas.py`
-(`dr_consistency_pallas`, without `with_hits`). The kernel is
-`csrc/lr_check.cu`. Both take d_r as the fused path's index map in the
+(`dr_consistency_pallas`, `with_hits` False and True). The kernels are in
+`csrc/lr_check.cu`. All take d_r as the fused path's index map in the
 shifted-column convention (see `kernels.sgm.sweep_bwd_wta`) and disp in
 true units.
 """
@@ -20,6 +21,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
     # d_r, disp, ok, n, W, D, max_diff, d_start, stream
     "lr_check_launch": ([_P] * 3 + [ctypes.c_long] + [_I] * 4 + [_P], _I),
+    # d_r, disp, ok, hits, rows, W, D, max_diff, d_start, stream
+    "lr_hits_launch": ([_P] * 4 + [_I] * 5 + [_P], _I),
 }
 
 
@@ -36,13 +39,24 @@ def dr_consistency_plain(d_r: torch.Tensor, disp: torch.Tensor,
     return (dl - res).abs() <= max_diff
 
 
-def dr_consistency(d_r: torch.Tensor, disp: torch.Tensor, num_disp: int,
-                   max_diff: int, d_start: int = 0) -> torch.Tensor:
-    """|d_L(x) - d_r(x - d_L(x))| <= max_diff in disparity-index units,
-    d_L = round(disp) - d_start; (..., W) int32 + float32 -> bool.
+def dr_consistency_hits_plain(d_r: torch.Tensor, disp: torch.Tensor,
+                              num_disp: int, max_diff: int,
+                              d_start: int = 0):
+    """The hits kernel's function in plain PyTorch: `dr_consistency_plain`,
+    and the hits map by one shifted compare per disparity index."""
+    W = d_r.shape[-1]
+    d_r = d_r.to(torch.int32)
+    in_image = torch.arange(W, device=d_r.device) >= d_start
+    hits = torch.zeros(d_r.shape, dtype=torch.bool, device=d_r.device)
+    for j in range(min(num_disp, W)):
+        hits[..., j:] |= (((d_r[..., :W - j] - j).abs() <= max_diff)
+                          & in_image[:W - j])
+    return (dr_consistency_plain(d_r, disp, num_disp, max_diff, d_start),
+            hits)
 
-    Lookups with d_L outside [0, min(D, W)) or at a column < d_start fail.
-    CUDA tensors run the kernel, CPU tensors the plain version."""
+
+def _check(d_r: torch.Tensor, disp: torch.Tensor, num_disp: int,
+           d_start: int) -> None:
     if d_r.shape != disp.shape or d_r.dim() < 1 or d_r.numel() == 0:
         raise ValueError(f"need equal non-empty shapes, got "
                          f"{tuple(d_r.shape)} and {tuple(disp.shape)}")
@@ -52,12 +66,23 @@ def dr_consistency(d_r: torch.Tensor, disp: torch.Tensor, num_disp: int,
         raise ValueError("d_r and disp must be on one device")
     if num_disp <= 0 or d_start < 0:
         raise ValueError("need num_disp > 0 and d_start >= 0")
+    if d_r.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {d_r.device}")
+    if d_r.device.type == "cuda" and not (d_r.is_contiguous()
+                                          and disp.is_contiguous()):
+        raise ValueError("d_r and disp must be contiguous")
+
+
+def dr_consistency(d_r: torch.Tensor, disp: torch.Tensor, num_disp: int,
+                   max_diff: int, d_start: int = 0) -> torch.Tensor:
+    """|d_L(x) - d_r(x - d_L(x))| <= max_diff in disparity-index units,
+    d_L = round(disp) - d_start; (..., W) int32 + float32 -> bool.
+
+    Lookups with d_L outside [0, min(D, W)) or at a column < d_start fail.
+    CUDA tensors run the kernel, CPU tensors the plain version."""
+    _check(d_r, disp, num_disp, d_start)
     if d_r.device.type == "cpu":
         return dr_consistency_plain(d_r, disp, num_disp, max_diff, d_start)
-    if d_r.device.type != "cuda":
-        raise ValueError(f"unsupported device {d_r.device}")
-    if not (d_r.is_contiguous() and disp.is_contiguous()):
-        raise ValueError("d_r and disp must be contiguous")
     ok = torch.empty(d_r.shape, dtype=torch.bool, device=d_r.device)
     lib = _build.load("lr_check", _SIGS)
     rc = lib.lr_check_launch(_build.ptr(d_r), _build.ptr(disp),
@@ -70,3 +95,33 @@ def dr_consistency(d_r: torch.Tensor, disp: torch.Tensor, num_disp: int,
 
 
 dr_consistency.launches = 0
+
+
+def dr_consistency_hits(d_r: torch.Tensor, disp: torch.Tensor,
+                        num_disp: int, max_diff: int, d_start: int = 0):
+    """`dr_consistency` and the epipolar-intersection map in one pass:
+    -> (ok, hits), both bool of d_r's shape, with hits[x] iff some
+    j < min(D, W) has x - j >= d_start and |d_r[x - j] - j| <= max_diff.
+    Rows of W must fit the kernel's shared memory (one byte per column).
+
+    CUDA tensors run the kernel, CPU tensors the plain version."""
+    _check(d_r, disp, num_disp, d_start)
+    if d_r.device.type == "cpu":
+        return dr_consistency_hits_plain(d_r, disp, num_disp, max_diff,
+                                         d_start)
+    W = d_r.shape[-1]
+    if W > _build.SMEM_MAX:
+        raise ValueError(f"row width {W} exceeds the kernel's shared memory "
+                         f"({_build.SMEM_MAX} bytes, one per column)")
+    ok = torch.empty(d_r.shape, dtype=torch.bool, device=d_r.device)
+    hits = torch.empty_like(ok)
+    lib = _build.load("lr_check", _SIGS)
+    rc = lib.lr_hits_launch(_build.ptr(d_r), _build.ptr(disp), _build.ptr(ok),
+                            _build.ptr(hits), d_r.numel() // W, W, num_disp,
+                            max_diff, d_start, _build.stream_ptr(d_r))
+    _build.check(lib, rc, "dr_consistency_hits")
+    dr_consistency_hits.launches += 1
+    return ok, hits
+
+
+dr_consistency_hits.launches = 0

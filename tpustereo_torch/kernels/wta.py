@@ -16,31 +16,40 @@ import torch
 from tpustereo_torch.config import Config
 from tpustereo_torch.kernels import _build
 from tpustereo_torch.kernels.sgm import MAX_D
-from tpustereo_torch.ops.postproc import lr_check
+from tpustereo_torch.ops.postproc import _right_disparity, dr_consistency
 from tpustereo_torch.ops.wta import wta
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
     "wta_lr_smem_bytes": ([_I], ctypes.c_size_t),
-    # S, disp, valid, rows, W, D, element bytes, uniq, subpixel, d_start,
-    # max_diff, stream
-    "wta_lr_launch": ([_P] * 3 + [_I] * 8 + [_P], _I),
+    # S, disp, valid, d_R (or null), rows, W, D, element bytes, uniq,
+    # subpixel, d_start, max_diff, stream
+    "wta_lr_launch": ([_P] * 4 + [_I] * 8 + [_P], _I),
 }
 
 
-def wta_lr_plain(S: torch.Tensor, cfg: Config):
+def wta_lr_plain(S: torch.Tensor, cfg: Config, with_dr: bool = False):
     """The kernel's function in plain PyTorch: `ops.wta`, then
-    `valid &= ops.lr_check`."""
+    `valid &= ops.lr_check` (`dr_consistency` of `_right_disparity`), and
+    that right-view map when asked."""
     disp, _, valid = wta(S, cfg)
-    return disp, valid & lr_check(S, disp, cfg)
+    d_R = None
+    if cfg.disp12_max_diff >= 0 or with_dr:
+        d_R = _right_disparity(S, cfg.min_disparity)
+    if cfg.disp12_max_diff >= 0:
+        valid &= dr_consistency(d_R, disp, S.shape[-1], cfg.disp12_max_diff,
+                                cfg.min_disparity)
+    return (disp, valid, d_R) if with_dr else (disp, valid)
 
 
-def wta_lr(S: torch.Tensor, cfg: Config):
+def wta_lr(S: torch.Tensor, cfg: Config, with_dr: bool = False):
     """(B, H, W, D) uint8, int16 or int32 volume -> (disp float32, valid
-    bool), each (B, H, W). int32 costs must lie below 2^20, as every SAD
-    volume of block <= 64 does (255 * block^2): the kernel packs cost and
-    index into one int, and the LR check fills columns past the image with
-    2^20 in both versions.
+    bool), each (B, H, W), and with `with_dr` also the right-view WTA map
+    d_R int32 (B, H, W) in true units indexed by the right column
+    (`ops.postproc._right_disparity`). int32 costs must lie below 2^20, as
+    every SAD volume of block <= 64 does (255 * block^2): the kernel packs
+    cost and index into one int, and the right-view map fills columns past
+    the image with 2^20 in both versions.
 
     disp is in true units (`cfg.min_disparity` added, subpixel applied);
     valid is the uniqueness test and, when `cfg.disp12_max_diff >= 0`, the
@@ -54,7 +63,7 @@ def wta_lr(S: torch.Tensor, cfg: Config):
     if S.shape[-1] > MAX_D:
         raise ValueError(f"D = {S.shape[-1]} > {MAX_D} unsupported")
     if S.device.type == "cpu":
-        return wta_lr_plain(S, cfg)
+        return wta_lr_plain(S, cfg, with_dr)
     if S.device.type != "cuda":
         raise ValueError(f"unsupported device {S.device}")
     if not S.is_contiguous():
@@ -66,13 +75,16 @@ def wta_lr(S: torch.Tensor, cfg: Config):
                          f"memory ({_build.SMEM_MAX} bytes, 9 per column)")
     disp = torch.empty((B, H, W), dtype=torch.float32, device=S.device)
     valid = torch.empty((B, H, W), dtype=torch.bool, device=S.device)
+    d_R = (torch.empty((B, H, W), dtype=torch.int32, device=S.device)
+           if with_dr else None)
     rc = lib.wta_lr_launch(
-        _build.ptr(S), _build.ptr(disp), _build.ptr(valid), B * H, W, D,
+        _build.ptr(S), _build.ptr(disp), _build.ptr(valid),
+        _build.ptr(d_R) if with_dr else None, B * H, W, D,
         S.element_size(), cfg.uniqueness_ratio, int(cfg.subpixel),
         cfg.min_disparity, cfg.disp12_max_diff, _build.stream_ptr(S))
     _build.check(lib, rc, "wta_lr")
     wta_lr.launches += 1
-    return disp, valid
+    return (disp, valid, d_R) if with_dr else (disp, valid)
 
 
 wta_lr.launches = 0

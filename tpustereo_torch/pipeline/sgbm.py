@@ -1,41 +1,49 @@
 """End-to-end stereo pipeline (the part of the JAX `pipeline/sgbm.py` the
 port runs so far): a cost and selection stage per mode, then the LR check,
-speckle and the 3x3 median.
+speckle, the gap fill and the 3x3 median.
 
 Mirrors the JAX fused branches of `sgbm` and `sgbm_frames`, then
 `_postproc_frames`:
 
 * 'sgm': the census cost volume, the directional sweeps accumulated into
   one int16 S7, the backward sweep fused with WTA / uniqueness / subpixel /
-  d_R, then `valid &= dr_consistency`;
+  d_R, then `valid &= dr_consistency` (with `fill_mode="hirschmuller"`,
+  `dr_consistency_hits`, which also gives the hits map of the fill);
 * 'census_wta': the census cost volume, then WTA / uniqueness / subpixel /
   LR check over it in one kernel (`wta_lr`);
 * 'sad': the SAD plane sweep fused with WTA / uniqueness / subpixel / d_R
   (`sad_wta`, no volume in memory), then `valid &= dr_consistency`;
 
 then, for every mode, speckle over the stacked frames (`ops.speckle_frames`
-with the CUDA labelling kernel), `where(valid, disp, -1.0)` and the median
-over the stack. Frames are a batch dimension written out, so
-`frames_per_step` changes nothing numerically. Everything runs on the
-device of the input tensors: CUDA tensors through the kernels, CPU tensors
-through their plain versions.
+with the CUDA labelling kernel, and the bitonic sort under
+`ops.postproc.BITONIC_SPECKLE`), `where(valid, disp, -1.0)`, the fill
+(`ops.fill_background` or `ops.fill_hirschmuller`) and the median over the
+stack. Frames are a batch dimension written out, so `frames_per_step`
+changes nothing numerically. Everything runs on the device of the input
+tensors: CUDA tensors through the kernels, CPU tensors through their plain
+versions.
 
 The volume route, the JAX `sgbm_volume` then `_select_and_refine`, is
 public here too: `sgbm_volume` makes the mode's whole volume S
 (`kernels.aggregate_volume` for SGM: sweeps, then the horizontal sweeps
 in the transposed layout) and `select_and_refine` runs `wta_lr` over it,
-for every mode and dtype, then speckle and the median. SGM configurations
-past the JAX fused bound, paths * (census_bits + P2) >= 4096, take it, as
-in the JAX `sgbm`. The JAX package also sends configurations there that fail its TPU memory gate
-(`_bwd_feasible`, e.g. `middlebury_sgm4` at 1988 x 2964); that gate is not
-ported, because the port's fused route is exact at every height, so here
-such a configuration keeps the fused route and reaches the volume route
-only through `sgbm_volume` + `select_and_refine`.
+for every mode and dtype, then speckle, the fill and the median; for the
+Hirschmueller fill `wta_lr` also returns its right-view map, and the hits
+kernel reads it in the shifted-column convention. SGM configurations past
+the JAX fused bound, paths * (census_bits + P2) >= 4096, take it, as in
+the JAX `sgbm`, and so do the census_wta and SAD modes with
+`fill_mode="hirschmuller"`, whose fused kernels in the JAX package give no
+right-view map. The JAX package also sends configurations there that fail
+its TPU memory gate (`_bwd_feasible`, e.g. `middlebury_sgm4` at
+1988 x 2964); that gate is not ported, because the port's fused route is
+exact at every height, so here such a configuration keeps the fused route
+and reaches the volume route only through `sgbm_volume` +
+`select_and_refine`.
 
 Out of this slice (each raises `NotImplementedError` naming its ROADMAP
-item): gap fills, adaptive P2, and configurations outside the kernels'
-limits (D > 512; for SGM, paths * (census_bits + P2) >= 2^15, which int16
-S cannot hold).
+item): adaptive P2, and configurations outside the kernels' limits
+(D > 512; for SGM, paths * (census_bits + P2) >= 2^15, which int16 S
+cannot hold).
 """
 
 from __future__ import annotations
@@ -43,11 +51,13 @@ from __future__ import annotations
 import torch
 
 from tpustereo_torch.config import Config
-from tpustereo_torch.kernels import (aggregate_volume, census_cost_volume,
+from tpustereo_torch.kernels import (aggregate_volume, bitonic_sort,
+                                     census_cost_volume,
                                      connected_component_labels,
-                                     dr_consistency, median3, sad_wta,
-                                     sgm_select, wta_lr)
-from tpustereo_torch.ops import sad_volume
+                                     dr_consistency, dr_consistency_hits,
+                                     median3, sad_wta, sgm_select, wta_lr)
+from tpustereo_torch.ops import (fill_background, fill_hirschmuller,
+                                 sad_volume)
 from tpustereo_torch.ops.postproc import speckle_frames
 
 INVALID = -1.0
@@ -68,8 +78,6 @@ def check_slice(cfg: Config) -> None:
     yet (ROADMAP.md, "Modules still to port"). Census windows over 64 bits
     need no check here: `Config` refuses them."""
     todo = []
-    if cfg.fill_mode != "off":
-        todo.append(f"fill_mode={cfg.fill_mode!r} (ROADMAP: gap fills)")
     if cfg.mode == "sgm" and cfg.adaptive_p2:
         todo.append("adaptive_p2 (ROADMAP: adaptive P2 maps)")
     if cfg.num_disparities > 512:
@@ -88,29 +96,56 @@ def _census(left: torch.Tensor, right: torch.Tensor, cfg: Config):
 
 
 def _select(left: torch.Tensor, right: torch.Tensor, cfg: Config):
-    """The mode's cost and selection stages, LR check included:
-    (F, H, W) uint8 x2 -> (disp float32, valid bool)."""
+    """The mode's fused cost and selection stages, LR check included:
+    (F, H, W) uint8 x2 -> (disp float32, valid bool, hits bool or None).
+    hits, the map of the Hirschmueller fill, comes only from SGM (the JAX
+    fused SGM branch); the other modes take the volume route for that
+    fill."""
     D, d0 = cfg.num_disparities, cfg.min_disparity
     if cfg.mode == "sad":
         disp, valid, d_r = sad_wta(left, right, cfg)
     else:
         C = _census(left, right, cfg)
         if cfg.mode == "census_wta":
-            return wta_lr(C, cfg)
+            return (*wta_lr(C, cfg), None)
         disp, valid, d_r = sgm_select(C, cfg)
+    hits = None
     if cfg.disp12_max_diff >= 0:
-        valid &= dr_consistency(d_r, disp, D, cfg.disp12_max_diff, d0)
-    return disp, valid
+        if cfg.fill_mode == "hirschmuller":
+            ok, hits = dr_consistency_hits(d_r, disp, D, cfg.disp12_max_diff,
+                                           d0)
+        else:
+            ok = dr_consistency(d_r, disp, D, cfg.disp12_max_diff, d0)
+        valid &= ok
+    return disp, valid, hits
 
 
 def _postproc(disp: torch.Tensor, valid: torch.Tensor,
-              cfg: Config) -> torch.Tensor:
-    """Speckle over the stacked frames, -1.0 at invalid pixels, median."""
-    valid = speckle_frames(disp, valid, cfg, cc=connected_component_labels)
+              hits: torch.Tensor | None, cfg: Config) -> torch.Tensor:
+    """Speckle over the stacked frames, -1.0 at invalid pixels, the fill
+    (hits: the Hirschmueller fill's map, else None), median."""
+    valid = speckle_frames(disp, valid, cfg, cc=connected_component_labels,
+                           sort=bitonic_sort)
     out = torch.where(valid, disp, INVALID)
+    if cfg.fill_mode == "background":
+        out = fill_background(out)
+    elif cfg.fill_mode == "hirschmuller":
+        out = fill_hirschmuller(out, hits)
     if cfg.median_filter:
         out = median3(out)
     return out
+
+
+def _shifted_columns(d_R: torch.Tensor, d_start: int) -> torch.Tensor:
+    """A true-unit right-view map indexed by the right column, d_R (..., W),
+    as the fused route's shifted-column index map: d_r[c] = d_R[c -
+    d_start] - d_start for c >= d_start (the hits kernel never reads
+    c < d_start, which stay 0)."""
+    d_r = torch.zeros_like(d_R)
+    W = d_R.shape[-1]
+    if d_start < W:
+        d_r[..., d_start:] = d_R[..., :W - d_start] - d_start
+    return d_r
 
 
 def sgbm_volume(left: torch.Tensor, right: torch.Tensor,
@@ -129,8 +164,10 @@ def sgbm_volume(left: torch.Tensor, right: torch.Tensor,
 
 def select_and_refine(S: torch.Tensor, cfg: Config) -> torch.Tensor:
     """WTA + uniqueness + subpixel + LR check over the volume S of
-    `sgbm_volume` in one `wta_lr` launch, then speckle and the median:
-    (F, H, W, D) -> (F, H, W) float32, invalid = -1.
+    `sgbm_volume` in one `wta_lr` launch, then speckle, the fill and the
+    median: (F, H, W, D) -> (F, H, W) float32, invalid = -1. The
+    Hirschmueller fill's hits map comes from `wta_lr`'s right-view map
+    through the hits kernel, never from a sheared volume.
 
     Every mode's volume goes through the kernel: the SAD volume as int32,
     exact while its costs (255 * block^2) stay below 2^20, so for
@@ -141,14 +178,21 @@ def select_and_refine(S: torch.Tensor, cfg: Config) -> torch.Tensor:
     if cfg.mode == "sad" and 255 * cfg.sad_block ** 2 >= 1 << 20:
         raise ValueError(f"sad_block {cfg.sad_block} out of [1, 64]: "
                          f"wta_lr needs every cost below 2^20")
-    return _postproc(*wta_lr(S, cfg), cfg)
+    if cfg.fill_mode != "hirschmuller":
+        return _postproc(*wta_lr(S, cfg), None, cfg)
+    disp, valid, d_R = wta_lr(S, cfg, with_dr=True)
+    _, hits = dr_consistency_hits(
+        _shifted_columns(d_R, cfg.min_disparity), disp, cfg.num_disparities,
+        cfg.disp12_max_diff, cfg.min_disparity)
+    return _postproc(disp, valid, hits, cfg)
 
 
 def sgbm_frames(left: torch.Tensor, right: torch.Tensor,
                 cfg: Config) -> torch.Tensor:
     """(F, H, W) uint8 x2 -> (F, H, W) float32 disparity, invalid = -1."""
     check_slice(cfg)
-    if cfg.mode == "sgm" and _sgm_bound(cfg) >= FUSED_BOUND:
+    if ((cfg.mode == "sgm" and _sgm_bound(cfg) >= FUSED_BOUND)
+            or (cfg.mode != "sgm" and cfg.fill_mode == "hirschmuller")):
         return select_and_refine(sgbm_volume(left, right, cfg), cfg)
     return _postproc(*_select(left, right, cfg), cfg)
 
