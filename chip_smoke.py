@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the thirteen CUDA kernels (eleven libraries) from
+Builds the eighteen CUDA kernels (twelve libraries) from
 `tpustereo_torch/csrc/` with nvcc, then runs the port's paths.
 
 The KITTI 8-path SGM preset as it stands (`PRESETS["kitti_sgm8"]`: speckle
@@ -100,12 +100,30 @@ The gap fills and the bitonic speckle sort:
    launched and the output to equal the default route's (step 3), and
    times both routes, the two sorts and `torch.sort` of the same keys.
 
-Prints a `{"kernels": [...]}` line with all thirteen kernels (the launches
-of the KITTI six from step 3, those of `sad_wta` and `wta_lr` from their
-presets' runs in step 6, `transpose_hw`'s from step 9,
-`transpose_sum_hw`'s and `sgm_sweep_bidir`'s from step 10,
-`dr_consistency_hits`'s from step 13 and `bitonic_sort`'s from step 15),
-then `{"ok": true, "device": ...}` as the last line. Exits non-zero, with
+The SAD route past `sad_wta`'s limits and the width micro-benchmarks:
+
+16. drives `tsukuba_sad` at block 37 on one 1988 x 2964 frame through
+   `api.match_batch` (past `sad_wta`'s shared memory at that width, so
+   the volume route), requires `wta_lr` to have launched and `sad_wta`
+   not, and the plain pipeline's output; times it;
+17. runs each of kernel 13's five micro-benchmarks once per mode or dtype
+   with the counters set to 0 (their only path), holds every kernel
+   against its plain version at the timing shapes (`torch.equal`), and
+   times them by CUDA-graph replay: `sweep_micro` at `SWEEP_SHAPES` (µs
+   per step, the byte bound, the ratios of `swar_i8` and `bf16_i8` to
+   `v32_i8`) and the chains at `CHAIN_SHAPES`, lengths 64 and 512
+   differenced into ns per operation; times each chain's library call,
+   one `torch.roll` by the chain's sum or one `torch.add` of its closed
+   form, held `torch.equal` to the kernel. Prints the share of the run
+   both steps take (`steps 16-17: ... s`).
+
+Prints a `{"kernels": [...]}` line with all eighteen kernels, every TPU
+kernel's port (the launches of the KITTI six from step 3, those of
+`sad_wta` and `wta_lr` from their presets' runs in step 6,
+`transpose_hw`'s from step 9, `transpose_sum_hw`'s and `sgm_sweep_bidir`'s
+from step 10, `dr_consistency_hits`'s from step 13, `bitonic_sort`'s from
+step 15 and kernel 13's five from step 17), then `{"ok": true, "device":
+...}` as the last line. Exits non-zero, with
 no result, on any failure or when CUDA is absent. Needs no network;
 imports nothing of JAX.
 """
@@ -172,6 +190,27 @@ FILL_KERNELS = {
     "bitonic_sort": ("tpustereo_torch/csrc/bitonic.cu",
                      "tpustereo/kernels/bitonic_pallas.py:218"),
 }
+# kernel 13, the data-width micro-benchmarks: one row per JAX function
+MICRO_KERNELS = {
+    "sweep_micro": ("tpustereo_torch/csrc/width_micro.cu",
+                    "tpustereo/kernels/width_micro.py:141"),
+    "elem_chain_micro": ("tpustereo_torch/csrc/width_micro.cu",
+                         "tpustereo/kernels/width_micro.py:198"),
+    "roll_chain_micro": ("tpustereo_torch/csrc/width_micro.cu",
+                         "tpustereo/kernels/width_micro.py:222"),
+    "reg_chain_micro": ("tpustereo_torch/csrc/width_micro.cu",
+                        "tpustereo/kernels/width_micro.py:253"),
+    "bf16_roll_chain_micro": ("tpustereo_torch/csrc/width_micro.cu",
+                              "tpustereo/kernels/width_micro.py:281"),
+}
+# (T, N) of the sweep micro: the JAX scripts' vertical-sweep slab
+# (scripts/tpu_batch_r43b.py:79) and the KITTI path's E sweep (1,242
+# columns of 4 frames x 375 rows)
+SWEEP_SHAPES = {"r43b": (376, 1280), "kitti_E": (1242, 1500)}
+# the chains' (N, D): the JAX scripts' slab (r43b.py:42), and one whose
+# int32 chain fills every SM (132 x 2,048 threads of 4 values, twice over)
+CHAIN_SHAPES = {"r43b": (1248, 128), "fill": (16896, 128)}
+CHAINS = (64, 512)
 # middlebury_sgm4 at full size: (frame shape, synthetic disparity,
 # valid-fraction floor, bad-2.0 ceiling), the bar the KITTI path keeps,
 # below the plain pipeline's valid 0.980, bad-2.0 0.0023 on these pairs
@@ -198,6 +237,33 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn(), a few kernel launches that never
+    synchronise: `reps` calls captured in one CUDA graph, replayed between
+    two events, so the host's time per launch (tens of µs through the
+    Python wrappers, more than a short kernel takes) drops out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -1026,6 +1092,311 @@ def fills_path(card: str, kitti: dict) -> list:
     return rows
 
 
+def sad_wide_path(card: str) -> None:
+    """Step 16: `tsukuba_sad` at block 37 on one Middlebury full-size frame,
+    past `sad_wta`'s shared-memory limit, through `api.match_batch`: the
+    volume route (`wta_lr` on the int32 SAD volume), equal to the plain
+    pipeline."""
+    import torch
+    from tpustereo_torch import PRESETS, api, kernels
+    from tpustereo_torch.kernels.sad import sad_wta_fits
+    from tpustereo_torch.pipeline import sgbm_batched
+
+    (H, W) = MIDDLEBURY[0]
+    cfg = PRESETS["tsukuba_sad"].replace(sad_block=37)
+    require(not sad_wta_fits(W, cfg.sad_block), "block 37 at the full "
+            "Middlebury width should be past sad_wta's limit")
+    lefts, rights, gts = synthetic_pairs((H, W), 30.0, 1)
+    kernels.reset_launch_counts()
+    out = api.match_batch(lefts, rights, cfg)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"tsukuba_sad block 37 at {H}x{W} launches: {launches}", flush=True)
+    require(launches["wta_lr"] > 0 and launches["sad_wta"] == 0,
+            "tsukuba_sad block 37 at full width did not take the volume route")
+    require(out.shape == (1, H, W) and np.isfinite(out).all(),
+            "tsukuba_sad block 37 output has the wrong shape or non-finite "
+            "values")
+    L = torch.from_numpy(lefts).cuda()
+    R = torch.from_numpy(rights).cuda()
+    ref = plain_pipeline(L, R, cfg).cpu().numpy()
+    require(np.array_equal(out == -1.0, ref == -1.0), "tsukuba_sad block 37 "
+            "invalid pattern differs from the plain pipeline")
+    err = float(np.abs(out - ref).max())
+    require(err <= DISP_TOL, "tsukuba_sad block 37 disparity differs from "
+            "the plain pipeline")
+    ms = cuda_ms(lambda: sgbm_batched(L, R, cfg), 3)
+    print(f"[{card}] tsukuba_sad block 37 at {H}x{W} (volume route) vs plain "
+          f"pipeline: max abs diff {err}; valid fraction, bad-2.0: "
+          f"{quality(out, gts)}; {ms:.3f} ms a frame on device tensors",
+          flush=True)
+
+
+def micro_path(card: str) -> list:
+    """Step 17: kernel 13. Drives each width micro-benchmark once per mode
+    or dtype through its wrapper with the counters set to 0 (their only
+    run: they are on no user's path), holds each kernel against its plain
+    version at the timing shapes (`torch.equal`), then times them: the
+    sweep at both `SWEEP_SHAPES`, µs per step and its byte bound, and the
+    ratios of `swar_i8` and `bf16_i8` to `v32_i8`; the chains at both
+    `CHAIN_SHAPES`, lengths 64 and 512 differenced into ns per operation,
+    and each chain's library call. Returns the five rows of the `kernels`
+    line."""
+    import torch
+    from tpustereo_torch import kernels
+    from tpustereo_torch.kernels import width_micro as wm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p1, p2 = 10, 120
+    sweeps = {}
+    for key, (T, N) in SWEEP_SHAPES.items():
+        C8 = torch.randint(0, 25, (T, N, wm.D_MICRO), generator=gen,
+                           device=dev, dtype=torch.int8)
+        C32 = C8.int()
+        sweeps[key] = {"v32": C32, "swar": wm.pack_rows(C32), "v32_i8": C8,
+                       "swar_i8": C8, "bf16_i8": C8}
+    chains = {}
+    for key, shape in CHAIN_SHAPES.items():
+        xi = torch.randint(0, 200, shape, generator=gen, device=dev,
+                           dtype=torch.int32)
+        chains[key] = {torch.int32: xi, torch.int16: xi.short(),
+                       torch.bfloat16: xi.bfloat16(),
+                       torch.float32: xi.float()}
+    elem_dts = (torch.int32, torch.int16, torch.bfloat16)
+
+    def dname(dt):
+        return str(dt).removeprefix("torch.")
+
+    reg_dts = (torch.int32, torch.float32, torch.bfloat16, torch.int16)
+    ch = CHAINS[-1]
+
+    # the run: every mode and dtype once at the JAX scripts' shapes
+    x = chains["r43b"]
+    kernels.reset_launch_counts()
+    for mode, C in sweeps["r43b"].items():
+        wm.sweep_micro(C, mode, p1, p2)
+    for dt in elem_dts:
+        wm.elem_chain_micro(x[dt], ch)
+    for dt in reg_dts:
+        wm.reg_chain_micro(x[dt], ch)
+    for axis in (1, 0):
+        wm.roll_chain_micro(x[torch.int32], ch, axis=axis)
+    wm.bf16_roll_chain_micro(x[torch.bfloat16], ch)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items()
+              if k in MICRO_KERNELS}
+    print(f"width micro launches: {counts}", flush=True)
+    for k in MICRO_KERNELS:
+        require(counts[k] > 0, f"{k} was not launched")
+
+    # each kernel against its plain version at the timing shapes
+    err = dict.fromkeys(MICRO_KERNELS, 0.0)
+
+    def hold(name, got, ref, what):
+        torch.cuda.synchronize()
+        require(torch.equal(got, ref), f"{name} {what} differs from plain")
+        err[name] = max(err[name], float((got.float() - ref.float())
+                                         .abs().max().item()))
+
+    for key, modes in sweeps.items():
+        for mode, C in modes.items():
+            ref = wm.sweep_micro_plain(C, mode, p1, p2)
+            hold("sweep_micro", wm.sweep_micro(C, mode, p1, p2), ref,
+                 f"{mode} at {key}")
+            del ref
+        a = wm.sweep_micro(modes["v32_i8"], "v32_i8", p1, p2)
+        require(torch.equal(a, wm.sweep_micro(modes["bf16_i8"], "bf16_i8",
+                                              p1, p2))
+                and torch.equal(a, wm.sweep_micro(modes["swar_i8"],
+                                                  "swar_i8", p1, p2)),
+                f"the i8 modes disagree at {key}")
+        del a
+    for key, x in chains.items():
+        for dt in elem_dts:
+            hold("elem_chain_micro", wm.elem_chain_micro(x[dt], ch),
+                 wm.elem_chain_micro_plain(x[dt], ch), f"{dt} at {key}")
+        for dt in reg_dts:
+            hold("reg_chain_micro", wm.reg_chain_micro(x[dt], ch),
+                 wm.reg_chain_micro_plain(x[dt], ch), f"{dt} at {key}")
+        for axis in ((1, 0) if x[torch.int32].shape[0] <= wm.MAX_LINE
+                     else (1,)):
+            hold("roll_chain_micro", wm.roll_chain_micro(
+                x[torch.int32], ch, axis=axis), wm.roll_chain_micro_plain(
+                x[torch.int32], ch, axis), f"axis {axis} at {key}")
+        hold("bf16_roll_chain_micro",
+             wm.bf16_roll_chain_micro(x[torch.bfloat16], ch),
+             wm.bf16_roll_chain_micro_plain(x[torch.bfloat16], ch),
+             f"at {key}")
+    for name, e in err.items():
+        print(f"check {name}: max abs diff to plain = {e}", flush=True)
+
+    # --- timing, of device time (`graph_ms`): the sweep kernel alone (the
+    # wrapper's domain check is a reduction and a sync)
+    sw_ms, sw_bytes = {}, {}
+    for key, modes in sweeps.items():
+        T = SWEEP_SHAPES[key][0]
+        for mode, C in modes.items():
+            sw_ms[key, mode] = graph_ms(
+                lambda C=C, m=mode: wm._sweep_launch(C, m, p1, p2), 20)
+            # C read once, L written once: 3 bytes a cost for the i8 modes,
+            # 8 for v32, 4 for swar (two costs a word)
+            sw_bytes[key, mode] = C.numel() * (
+                C.element_size() + (2 if mode in wm.I8_MODES else 4))
+        line = "; ".join(
+            f"{m} {ms:.4f} ms ({ms * 1e3 / T:.3f} us/step)"
+            for (k, m), ms in sw_ms.items() if k == key)
+        byte_ms = "; ".join(f"{m} {bound(b, 0)[0]:.4f}"
+                            for (k, m), b in sw_bytes.items() if k == key)
+        print(f"[{card}] sweep_micro at (T, N, D) = "
+              f"{(*SWEEP_SHAPES[key], wm.D_MICRO)}: {line}; byte bounds, "
+              f"ms: {byte_ms}", flush=True)
+    for key in sweeps:
+        base = sw_ms[key, "v32_i8"]
+        print(f"[{card}] width ratios at {key} {SWEEP_SHAPES[key]}: swar_i8 "
+              f"(s16x2 + DPX) / v32_i8 = {sw_ms[key, 'swar_i8'] / base:.4f}; "
+              f"bf16_i8 / v32_i8 = {sw_ms[key, 'bf16_i8'] / base:.4f}; "
+              f"swar / v32 = {sw_ms[key, 'swar'] / sw_ms[key, 'v32']:.4f}",
+              flush=True)
+
+    def chain_ns(fn, x, ops):
+        """(ms of each chain length, marginal ns per slab-wide operation)."""
+        t = {c: graph_ms(lambda c=c: fn(x, c), 200) for c in CHAINS}
+        lo, hi = CHAINS
+        return t, (t[hi] - t[lo]) * 1e6 / ((hi - lo) * ops)
+
+    ch_ms = {}
+    for key, x in chains.items():
+        res = {}
+        for dt in elem_dts:
+            res[f"elem {dname(dt)}"] = chain_ns(wm.elem_chain_micro, x[dt], 3)
+        for dt in reg_dts:
+            res[f"reg {dname(dt)}"] = chain_ns(wm.reg_chain_micro, x[dt], 3)
+        for axis in ((1, 0) if key == "r43b" else (1,)):
+            res[f"roll axis {axis}"] = chain_ns(
+                lambda v, c, a=axis: wm.roll_chain_micro(v, c, axis=a),
+                x[torch.int32], 1)
+        res["bf16 roll"] = chain_ns(wm.bf16_roll_chain_micro,
+                                    x[torch.bfloat16], 1)
+        ch_ms[key] = res
+        print(f"[{card}] chains at (N, D) = {CHAIN_SHAPES[key]}, ms at "
+              f"chain {CHAINS} and marginal ns per operation: "
+              + "; ".join(f"{k} {tuple(round(v, 5) for v in t.values())} "
+                          f"{ns:.4f} ns" for k, (t, ns) in res.items()),
+              flush=True)
+        ns = {k: v[1] for k, v in res.items()}
+        ratios = {
+            "elem int16/int32": ns["elem int16"] / ns["elem int32"],
+            "elem bf16/int32": ns["elem bfloat16"] / ns["elem int32"],
+            "reg int16/int32": ns["reg int16"] / ns["reg int32"],
+            "reg bf16/int32": ns["reg bfloat16"] / ns["reg int32"],
+            "roll/elem int32": ns["roll axis 1"] / ns["elem int32"],
+            "bf16 roll/int32 roll": ns["bf16 roll"] / ns["roll axis 1"]}
+        print(f"[{card}] chain ratios at {key}: "
+              + ", ".join(f"{k} {r:.4f}" for k, r in ratios.items()),
+              flush=True)
+
+    # --- the rows: each function at the JAX scripts' shapes (the sweep
+    # at r43b's, the mean of its five modes; a chain's at (1248, 128),
+    # chain 512, the mean of its dtypes or axes)
+    x = chains["r43b"]
+    n = x[torch.int32].numel()
+    mean = lambda vals: sum(vals) / len(vals)  # noqa: E731
+
+    def chain_plain_ms(fn, *args):
+        return cuda_ms(lambda: fn(*args), 1, warmup=0)
+
+    sweep_modes = list(sweeps["r43b"])
+    ms = {
+        "sweep_micro": mean([sw_ms["r43b", m] for m in sweep_modes]),
+        "elem_chain_micro": mean([ch_ms["r43b"][f"elem {dname(dt)}"][0][ch]
+                                  for dt in elem_dts]),
+        "reg_chain_micro": mean([ch_ms["r43b"][f"reg {dname(dt)}"][0][ch]
+                                 for dt in reg_dts]),
+        "roll_chain_micro": mean([ch_ms["r43b"][f"roll axis {a}"][0][ch]
+                                  for a in (1, 0)]),
+        "bf16_roll_chain_micro": ch_ms["r43b"]["bf16 roll"][0][ch],
+    }
+    plain_ms = {
+        "sweep_micro": mean([chain_plain_ms(
+            wm.sweep_micro_plain, sweeps["r43b"][m], m, p1, p2)
+            for m in sweep_modes]),
+        "elem_chain_micro": mean([chain_plain_ms(
+            wm.elem_chain_micro_plain, x[dt], ch) for dt in elem_dts]),
+        "reg_chain_micro": mean([chain_plain_ms(
+            wm.reg_chain_micro_plain, x[dt], ch) for dt in reg_dts]),
+        "roll_chain_micro": mean([chain_plain_ms(
+            wm.roll_chain_micro_plain, x[torch.int32], ch, a)
+            for a in (1, 0)]),
+        "bf16_roll_chain_micro": chain_plain_ms(
+            wm.bf16_roll_chain_micro_plain, x[torch.bfloat16], ch),
+    }
+    # a chain of rolls is one roll by their sum: torch.roll computes it
+    shift = sum(1 + (i & 1) for i in range(ch))
+    library_ms = dict.fromkeys(MICRO_KERNELS)
+    library_ms["roll_chain_micro"] = mean([graph_ms(
+        lambda a=a: torch.roll(x[torch.int32], shift, dims=a), 200)
+        for a in (1, 0)])
+    library_ms["bf16_roll_chain_micro"] = graph_ms(
+        lambda: torch.roll(x[torch.bfloat16], shift, dims=1), 200)
+    for a in (1, 0):
+        require(torch.equal(torch.roll(x[torch.int32], shift, dims=a),
+                            wm.roll_chain_micro(x[torch.int32], ch, axis=a)),
+                "a roll chain is not one roll by its sum")
+    # the add/min chains in closed form, one torch.add each, where the
+    # dtype's steps are exact: from i = 1 on both terms of the min are
+    # equal, so elem is x + (chain - 1) (int32, int16) and reg is
+    # 2x + 2 chain + 1 (int32, int16, float32); bf16 rounds, so has none
+    elem_closed, reg_closed = elem_dts[:2], (torch.int32, torch.int16,
+                                             torch.float32)
+    reg_const = {dt: torch.full_like(x[dt], 2 * ch + 1) for dt in reg_closed}
+    library = {
+        "elem_chain_micro": [(lambda dt=dt: torch.add(x[dt], ch - 1),
+                              wm.elem_chain_micro(x[dt], ch))
+                             for dt in elem_closed],
+        "reg_chain_micro": [(lambda dt=dt: torch.add(reg_const[dt], x[dt],
+                                                     alpha=2),
+                             wm.reg_chain_micro(x[dt], ch))
+                            for dt in reg_closed]}
+    for name, calls in library.items():
+        for call, got in calls:
+            require(torch.equal(call(), got),
+                    f"{name} differs from its closed form")
+        library_ms[name] = mean([graph_ms(call, 200) for call, _ in calls])
+    print(f"chain libraries in closed form: elem over "
+          f"{[dname(d) for d in elem_closed]}, reg over "
+          f"{[dname(d) for d in reg_closed]}", flush=True)
+    T, N = SWEEP_SHAPES["r43b"]
+    bounds = {
+        # each input read once and each output written once; the
+        # recurrence's ~12 integer operations a cost
+        "sweep_micro": bound(mean([sw_bytes["r43b", m] for m in sweep_modes]),
+                             12 * T * N * wm.D_MICRO),
+        # 3 operations an iteration a value; one value read and written
+        "elem_chain_micro": bound(mean([2 * n * x[dt].element_size()
+                                        for dt in elem_dts]), 3 * ch * n),
+        "reg_chain_micro": bound(mean([2 * n * x[dt].element_size()
+                                       for dt in reg_dts]), 3 * ch * n),
+        # one move a value a roll
+        "roll_chain_micro": bound(8 * n, ch * n),
+        "bf16_roll_chain_micro": bound(4 * n, ch * n),
+    }
+
+    rows = []
+    for name, (src, replaces) in MICRO_KERNELS.items():
+        b_ms, b_by = bounds[name]
+        print(f"[{card}] {name}: {ms[name]:.4f} ms/launch, {counts[name]} "
+              f"launches in the micro's run (none on any user path), bound "
+              f"{b_ms:.4f} ms ({b_by}), plain {plain_ms[name]:.3f} ms, "
+              f"library {library_ms[name]}", flush=True)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": counts[name],
+                     "max_abs_err": err[name], "ms": ms[name],
+                     "plain_ms": plain_ms[name], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": library_ms[name]})
+    return rows
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1288,6 +1659,10 @@ def main() -> None:
     rows += volume_path(card, kitti)
     rows += fills_path(card, dict(kitti, d_r=d_r, disp=disp, lab=lab,
                                   gaps=med_in))
+    t_steps = time.perf_counter()
+    sad_wide_path(card)
+    rows += micro_path(card)
+    print(f"steps 16-17: {time.perf_counter() - t_steps:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

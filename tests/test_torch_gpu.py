@@ -539,3 +539,156 @@ def test_bitonic_speckle_cuda_matches_default(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
     assert counts["bitonic_sort"] == 2 * 2     # a pair and a keys sort
+
+
+# ---------------------------------------------------------------------------
+# the SAD route past sad_wta's limits, and the width micro-benchmarks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("W", [1, 100, 2964, 4095, 4096, 4097, 5000, 9000])
+def test_sad_wta_fits_matches_the_c_export(cuda, W):
+    from tpustereo_torch.kernels import _build
+    from tpustereo_torch.kernels.sad import _SIGS, sad_wta_fits
+    lib = _build.load("sad_wta", _SIGS)
+    for block in range(1, 65):
+        assert sad_wta_fits(W, block) == bool(lib.sad_wta_fits(W, block)), \
+            (W, block)
+
+
+@pytest.mark.parametrize("H,W,D,block,d12", [(8, 5000, 16, 9, 1),
+                                             (8, 2964, 32, 63, -1),
+                                             (8, 2964, 32, 63, 1)])
+def test_sad_past_sad_wta_limits_cuda_matches_cpu(cuda, H, W, D, block, d12):
+    cfg = Config(mode="sad", num_disparities=D, sad_block=block,
+                 disp12_max_diff=d12, speckle_window_size=100,
+                 speckle_range=2, frames_per_step=2)
+    L, R = _pairs(2, (H, W), seed=19)
+    kernels.reset_launch_counts()
+    got = sgbm_batched(L.to(cuda), R.to(cuda), cfg).cpu()
+    counts = kernels.launch_counts()
+    ref = sgbm_batched(L, R, cfg)
+    assert counts["wta_lr"] == 1 and counts["sad_wta"] == 0
+    assert torch.equal(got == -1.0, ref == -1.0)
+    assert (got - ref).abs().max().item() <= 1e-6
+
+
+def _wm():
+    return importlib.import_module("tpustereo_torch.kernels.width_micro")
+
+
+# (T, N): rows that fill whole warps, an odd N (N/2 odd for the paired
+# modes), and N = 2048
+SWEEP_SHAPES = [(9, 16), (7, 9), (7, 18), (5, 2048)]
+
+
+@pytest.mark.parametrize("T,N,mode", [
+    (T, N, mode) for T, N in SWEEP_SHAPES
+    for mode in ("v32", "swar", "v32_i8", "swar_i8", "bf16_i8")
+    if N % 2 == 0 or mode in ("v32", "swar", "v32_i8")])
+@pytest.mark.parametrize("p1,p2", [(10, 120), (3, 1000), (0, 0x3FFE)])
+def test_sweep_micro_kernel_matches_plain(cuda, T, N, mode, p1, p2):
+    wm = _wm()
+    rng = np.random.default_rng(20)
+    if mode in wm.I8_MODES:
+        C = torch.from_numpy(rng.integers(0, 128, (T, N, 128), dtype=np.int8))
+    elif mode == "swar":
+        C = torch.from_numpy(rng.integers(0, 1 << 30, (T, N, 128),
+                                          dtype=np.int32) & 0x3FFF3FFF)
+    else:
+        C = torch.from_numpy(rng.integers(0, 1 << 14, (T, N, 128),
+                                          dtype=np.int32))
+    C = C.to(cuda)
+    ref = wm.sweep_micro_plain(C, mode, p1, p2)
+    kernels.reset_launch_counts()
+    got = wm.sweep_micro(C, mode, p1, p2)
+    assert kernels.launch_counts()["sweep_micro"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_sweep_micro_kernel_modes_agree(cuda):
+    wm = _wm()
+    rng = np.random.default_rng(21)
+    C = torch.from_numpy(rng.integers(0, 64, (11, 32, 128),
+                                      dtype=np.int8)).to(cuda)
+    a = wm.sweep_micro(C, "v32_i8")
+    assert torch.equal(a, wm.sweep_micro(C, "swar_i8"))
+    assert torch.equal(a, wm.sweep_micro(C, "bf16_i8"))
+    assert torch.equal(a.int(), wm.sweep_micro(C.int(), "v32"))
+    assert torch.equal(wm.unpack_rows(wm.sweep_micro(wm.pack_rows(C), "swar")),
+                       a.int())
+
+
+CHAIN_SHAPES = [(8, 128), (13, 37), (2048, 128), (1, 1)]
+
+
+@pytest.mark.parametrize("shape", CHAIN_SHAPES)
+@pytest.mark.parametrize("kind,dtype", [
+    ("elem", torch.int32), ("elem", torch.int16), ("elem", torch.bfloat16),
+    ("reg", torch.int32), ("reg", torch.float32), ("reg", torch.bfloat16),
+    ("reg", torch.int16)])
+@pytest.mark.parametrize("chain", [0, 7, 100])
+def test_chain_kernels_match_plain(cuda, shape, kind, dtype, chain):
+    """int16 values up to the edges, so the chains wrap; bf16 values past
+    256, so they round."""
+    wm = _wm()
+    rng = np.random.default_rng(22)
+    lo, hi = (-32768, 32768) if dtype == torch.int16 else (-500, 500)
+    x = torch.from_numpy(rng.integers(lo, hi, shape)).to(dtype)
+    if dtype == torch.int16 and x.numel() > 3:
+        x.view(-1)[:4] = torch.tensor([32767, 32766, -1, -32768])
+    x = x.to(cuda)
+    fn, plain = ((wm.elem_chain_micro, wm.elem_chain_micro_plain)
+                 if kind == "elem" else
+                 (wm.reg_chain_micro, wm.reg_chain_micro_plain))
+    got = fn(x, chain)
+    ref = plain(x, chain)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (37, 9), (2048, 3), (2047, 5),
+                                   (1248, 128), (5, 2048), (3, 2), (2, 1)])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("chain", [4, 33])
+def test_roll_kernel_matches_plain(cuda, shape, axis, chain):
+    wm = _wm()
+    x = torch.from_numpy(np.random.default_rng(23).integers(
+        -1000, 1000, shape, dtype=np.int32)).to(cuda)
+    kernels.reset_launch_counts()
+    got = wm.roll_chain_micro(x, chain, axis=axis)
+    assert kernels.launch_counts()["roll_chain_micro"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, wm.roll_chain_micro_plain(x, chain, axis))
+    if chain == 4:
+        assert torch.equal(got, torch.roll(x, 6, dims=axis))
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (16, 40), (2, 2048), (4, 31),
+                                   (1248, 128)])
+@pytest.mark.parametrize("chain", [4, 31])
+def test_bf16_roll_kernel_matches_plain(cuda, shape, chain):
+    wm = _wm()
+    x = (torch.from_numpy(np.random.default_rng(24).uniform(
+        -300, 300, shape).astype(np.float32)).bfloat16()).to(cuda)
+    got = wm.bf16_roll_chain_micro(x, chain)
+    torch.cuda.synchronize()
+    assert torch.equal(got, wm.bf16_roll_chain_micro_plain(x, chain))
+
+
+def test_width_micro_refuses_bad_cuda_inputs(cuda):
+    wm = _wm()
+    C = torch.zeros((4, 8, 128), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        wm.sweep_micro(C.transpose(0, 1), "v32_i8")
+    with pytest.raises(ValueError, match="128"):
+        wm.sweep_micro(C.view(4, 8, 128)[:, :, :64], "v32_i8")
+    with pytest.raises(ValueError, match="2\\^14"):
+        wm.sweep_micro(torch.full((2, 8, 128), -1, dtype=torch.int32,
+                                  device=cuda), "v32")
+    x = torch.zeros((9, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        wm.elem_chain_micro(x.view(-1)[1:1025].view(8, 128))
+    with pytest.raises(ValueError, match="2048"):
+        wm.roll_chain_micro(torch.zeros((2049, 1), dtype=torch.int32,
+                                        device=cuda), axis=0)

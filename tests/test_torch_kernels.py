@@ -121,6 +121,7 @@ def test_import_loads_neither_jax_nor_tpustereo():
             "tpustereo_torch.kernels.sad", "tpustereo_torch.kernels.wta",
             "tpustereo_torch.kernels.transpose",
             "tpustereo_torch.kernels.bitonic",
+            "tpustereo_torch.kernels.width_micro",
             "tpustereo_torch.ops.census", "tpustereo_torch.ops.sad",
             "tpustereo_torch.pipeline.sgbm"} <= names
 

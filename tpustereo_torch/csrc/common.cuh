@@ -41,6 +41,56 @@ __device__ __forceinline__ void sgm_step(const int (&c)[K], const int (&Lp)[K],
   }
 }
 
+// `sgm_step` for two lines at once, in Hopper's DPX min-plus instructions:
+// each 32-bit word packs the same disparity of two lines as signed 16-bit
+// halves (s16x2), and one instruction does both halves. The carry is
+// renormalised, q = Lp - min_d Lp (K words a lane, d = lane*K + k, every
+// lane full: D = 32 K), and the step returns
+//   L = C + min(q, q(d-1) + P1, q(d+1) + P1, P2)
+// per half; the caller takes min_d L (`warp_min_s16x2`) and carries L minus
+// it. d = -1 and d = D have no path: the other neighbour stands in for them,
+// which gives what a sentinel above P2 would and needs none. Exact while
+// every half stays in [0, 2^15): q is at most c_max + P2, so it holds when
+// c_max + P1 + P2 < 2^15. The halves' sums never carry: c + cand and
+// q(d+-1) + P1 stay below 2^16.
+template <int K>
+__device__ __forceinline__ void sgm_step_s16x2(const unsigned (&c)[K],
+                                               const unsigned (&q)[K],
+                                               int lane, unsigned p1x2,
+                                               unsigned p2x2,
+                                               unsigned (&L)[K]) {
+  const unsigned left = __shfl_up_sync(FULL_MASK, q[K - 1], 1);
+  const unsigned right = __shfl_down_sync(FULL_MASK, q[0], 1);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    unsigned dn = k == 0 ? left : q[k - 1];
+    unsigned up = k == K - 1 ? right : q[k + 1];
+    if (k == 0 && lane == 0) dn = up;
+    if (k == K - 1 && lane == 31) up = dn;
+    L[k] = c[k] + __vimin3_s16x2(q[k], __viaddmin_s16x2(up, p1x2, dn + p1x2),
+                                 p2x2);
+  }
+}
+
+// Per-half min of two s16x2 words.
+__device__ __forceinline__ unsigned min_s16x2(unsigned a, unsigned b) {
+  return __vimin3_s16x2(a, b, b);
+}
+
+// The per-half minimum over the warp's K words a lane, in every lane, by a
+// __shfl_xor_sync tree of s16x2 mins (5 shuffles, 5 mins). On the H100 it
+// is as fast as two __reduce_min_sync on the unpacked halves or faster.
+template <int K>
+__device__ __forceinline__ unsigned warp_min_s16x2(const unsigned (&v)[K]) {
+  unsigned m = v[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k) m = min_s16x2(m, v[k]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = min_s16x2(m, __shfl_xor_sync(FULL_MASK, m, o));
+  return m;
+}
+
 // The K costs and partial sums of one pixel that this lane owns; lanes past
 // D read 0.
 template <int K>

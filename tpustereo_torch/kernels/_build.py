@@ -21,7 +21,8 @@ PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "build")
 NAMES = ("census_cost", "sgm_sweep", "bwd_wta", "lr_check", "cc_labels",
-         "median3", "wta_lr", "sad_wta", "transpose", "sgm_bidir", "bitonic")
+         "median3", "wta_lr", "sad_wta", "transpose", "sgm_bidir", "bitonic",
+         "width_micro")
 
 SMEM_MAX = 232448  # bytes of shared memory one block may use on Hopper
 

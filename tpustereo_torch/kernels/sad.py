@@ -27,6 +27,15 @@ _SIGS = {
 }
 
 
+def sad_wta_fits(W: int, block: int) -> bool:
+    """Whether the kernel takes images of width W at this block: one band
+    row of 512 threads x 8 pixels (W <= 4096), and that row's two int32
+    sum rows plus the block's two uint8 image rows within shared memory.
+    The same formula as the C export `sad_wta_fits`, so the pipeline picks
+    its route alike on the CPU and on the card."""
+    return W <= 4096 and (8 + 2 * block) * W <= _build.SMEM_MAX
+
+
 def sad_wta_plain(left: torch.Tensor, right: torch.Tensor, cfg: Config):
     """The kernel's function in plain PyTorch: `sad_volume`, `ops.wta` and
     `_right_disparity` at d_start 0 (the shifted-column index map)."""

@@ -33,7 +33,12 @@ kernel reads it in the shifted-column convention. SGM configurations past
 the JAX fused bound, paths * (census_bits + P2) >= 4096, take it, as in
 the JAX `sgbm`, and so do the census_wta and SAD modes with
 `fill_mode="hirschmuller"`, whose fused kernels in the JAX package give no
-right-view map. The JAX package also sends configurations there that fail
+right-view map, and the SAD configurations that `sad_wta` cannot take
+(`kernels.sad.sad_wta_fits`: W > 4096, or a block whose band row overflows
+shared memory, e.g. block >= 36 at 2964 columns), as the JAX `sgbm` leaves
+its fused SAD kernel past `_sad_fused_ok`; its terms there (block <= 11, the
+VMEM budget) are TPU limits and are not copied, since both routes give the
+same output. The JAX package also sends configurations there that fail
 its TPU memory gate (`_bwd_feasible`, e.g. `middlebury_sgm4` at
 1988 x 2964); that gate is not ported, because the port's fused route is
 exact at every height, so here such a configuration keeps the fused route
@@ -56,6 +61,7 @@ from tpustereo_torch.kernels import (aggregate_volume, bitonic_sort,
                                      connected_component_labels,
                                      dr_consistency, dr_consistency_hits,
                                      median3, sad_wta, sgm_select, wta_lr)
+from tpustereo_torch.kernels.sad import sad_wta_fits
 from tpustereo_torch.ops import (fill_background, fill_hirschmuller,
                                  sad_volume)
 from tpustereo_torch.ops.postproc import speckle_frames
@@ -192,7 +198,9 @@ def sgbm_frames(left: torch.Tensor, right: torch.Tensor,
     """(F, H, W) uint8 x2 -> (F, H, W) float32 disparity, invalid = -1."""
     check_slice(cfg)
     if ((cfg.mode == "sgm" and _sgm_bound(cfg) >= FUSED_BOUND)
-            or (cfg.mode != "sgm" and cfg.fill_mode == "hirschmuller")):
+            or (cfg.mode != "sgm" and cfg.fill_mode == "hirschmuller")
+            or (cfg.mode == "sad"
+                and not sad_wta_fits(left.shape[-1], cfg.sad_block))):
         return select_and_refine(sgbm_volume(left, right, cfg), cfg)
     return _postproc(*_select(left, right, cfg), cfg)
 
