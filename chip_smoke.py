@@ -14,7 +14,9 @@ D = 128, 8 frames, 4 per set of kernel launches):
 2. runs each of the path's six kernels and its plain PyTorch version on the
    card at the main path's shapes (the speckle and median kernels on the
    main path's own disparity maps) and requires integer and bool outputs
-   and the median to be equal and the float disparity to agree within 1e-6;
+   and the median to be equal and the float disparity to agree within 1e-6,
+   and the census kernel also on one 2 x 9,000 frame (past the width its
+   earlier design took);
 3. drives `api.match_batch` on 8 synthetic pairs with every launch counter
    set to 0 just before, requires every kernel of the path to have
    launched, and holds the output against the plain PyTorch pipeline (the
@@ -61,7 +63,8 @@ The SGM volume route and the relayout kernels:
    the same frames and against the plain pipeline on 2 frames (one at a
    time); requires a valid fraction and bad-2.0 within bars (`MIDDLEBURY`);
    prints both routes' ms per batch, the profiler's kernel times and the
-   route's peak memory;
+   route's peak memory; times `census_cost_volume` and `sweep_bwd_wta`
+   alone on one set of 4 frames, beside their byte bounds;
 10. drives `kitti_sgm8` through `api.match_batch` with
    `kernels.sgm.BIDIR_VERT = True`, requires `sgm_sweep_bidir`,
    `transpose_sum_hw` and `transpose_hw` to have launched and the output to
@@ -592,6 +595,7 @@ def volume_path(card: str, kitti: dict) -> list:
     from tpustereo_torch.kernels.sgm import sgm_sweep_bidir_plain
     from tpustereo_torch.kernels.transpose import (transpose_hw_plain,
                                                    transpose_sum_hw_plain)
+    from tpustereo_torch.ops.sgm import DIRS_4
     from tpustereo_torch.pipeline import (select_and_refine, sgbm_batched,
                                           sgbm_volume)
     ksgm = importlib.import_module("tpustereo_torch.kernels.sgm")
@@ -764,6 +768,26 @@ def volume_path(card: str, kitti: dict) -> list:
     print(f"[{card}] fused route profiler, one batch: "
           f"{device_busy(lambda: sgbm_batched(L, R, cfg))}", flush=True)
     counts = {"transpose_hw": launches["transpose_hw"]}
+
+    # the census and the fused backward sweep alone at this size (one set
+    # of F frames; S7 from the other three paths), beside their byte bounds
+    def census_m():
+        return kernels.census_cost_volume(L[:F], R[:F], D, cfg.max_census_cost,
+                                          cfg.census_window, d0)
+
+    Cm = census_m()
+    S7m = torch.zeros(Cm.shape, dtype=torch.int16, device=dev)
+    for dy, dx in DIRS_4:
+        if (dy, dx) != (0, -1):
+            kernels.sgm_sweep(Cm, S7m, dy, dx, cfg.p1, cfg.p2)
+    m_census = cuda_ms(census_m, 5)
+    m_bwd = cuda_ms(lambda: kernels.sweep_bwd_wta(Cm, S7m, cfg), 3)
+    del Cm, S7m
+    print(f"[{card}] middlebury_sgm4 {H}x{W}, D={D}, F={F}, ms per launch: "
+          f"census_cost_volume {m_census:.4f} (byte bound "
+          f"{bound(2 * F * H * W + n, 0)[0]:.4f}), sweep_bwd_wta "
+          f"{m_bwd:.4f} (byte bound {bound(3 * n + 9 * F * H * W, 0)[0]:.4f})",
+          flush=True)
     del L, R
 
     # --- 10. the BIDIR_VERT route of kitti_sgm8 through match_batch
@@ -1447,6 +1471,16 @@ def main() -> None:
     require(torch.equal(C, C_p), "census_cost_volume differs from plain")
     err["census_cost_volume"] = (C.int() - C_p.int()).abs().max().item()
     del C_p
+    # one 2 x 9,000 frame: past the 8,940 columns of the kernel's old design
+    Lw, Rw = (torch.from_numpy(np.random.default_rng(s).integers(
+        0, 256, (1, 2, 9000), dtype=np.uint8)).to(dev) for s in (1, 2))
+    require(torch.equal(
+        kernels.census_cost_volume(Lw, Rw, D, cfg.max_census_cost,
+                                   cfg.census_window, d0),
+        census_cost_volume_plain(Lw, Rw, D, cfg.max_census_cost,
+                                 cfg.census_window, d0)),
+        "census_cost_volume differs from plain at 9,000 columns")
+    del Lw, Rw
 
     S7 = torch.zeros(C.shape, dtype=torch.int16, device=dev)
     sweep_err = 0

@@ -126,12 +126,22 @@ def _volume(cuda, B, H, W, D, seed=0):
         rng.integers(0, 25, (B, H, W, D), dtype=np.uint8)).to(cuda)
 
 
-@pytest.mark.parametrize("D,d0,window", [(16, 0, (5, 5)), (30, 3, (5, 5)),
-                                         (128, 0, (7, 9)), (64, 5, (5, 13))])
-def test_cost_kernel_matches_plain(cuda, D, d0, window):
-    L, R = _pairs(2, (23, 57))
+# the census kernel's tiles are TY = 2 rows by TX = 256 columns; 9,000
+# columns are past the 8,940 that its earlier, row-wide design took
+@pytest.mark.parametrize("B,H,W", [(2, 23, 57), (1, 1, 1), (3, 5, 255),
+                                   (1, 6, 256), (1, 3, 257), (1, 2, 9000)])
+@pytest.mark.parametrize("D,d0,window", [
+    (16, 0, (5, 5)), (30, 3, (5, 5)), (128, 0, (5, 5)), (200, 2, (5, 5)),
+    (128, 0, (7, 9)), (16, 60, (7, 9)), (64, 5, (5, 13)), (30, 0, (1, 65))])
+@pytest.mark.parametrize("max_cost", [None, 7])
+def test_cost_kernel_matches_plain(cuda, B, H, W, D, d0, window, max_cost):
+    """32-bit words (5x5) and 64-bit (7x9: 62 bits, 1x65: 64), D with and
+    without 16 | D, d_start + D past W, widths around the tile's and past
+    the old limit, B*H not a multiple of the tile's rows, and a max_cost
+    below the window's bits."""
+    L, R = _pairs(B, (H, W))
     L, R = L.to(cuda), R.to(cuda)
-    bits = window[0] * window[1] - 1
+    bits = window[0] * window[1] - 1 if max_cost is None else max_cost
     got = kernels.census_cost_volume(L, R, D, bits, window, d0)
     ref = census_cost_volume_plain(L, R, D, bits, window, d0)
     torch.cuda.synchronize()
@@ -150,13 +160,22 @@ def test_sweep_kernel_matches_plain(cuda, D, direction):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("D,uniq,subpixel,d0", [
-    (16, 10, True, 0), (16, 0, False, 0), (40, 5, True, 3),
-    (128, 10, True, 0), (200, 10, True, 2), (3, 10, True, 0)])
-def test_bwd_wta_kernel_matches_plain(cuda, D, uniq, subpixel, d0):
-    C = _volume(cuda, 2, 17, 41, D, seed=1)
+# the ring and chunk of bwd_wta: 32 columns a chunk, one warp a row, 4 rows
+# a block at D <= 128 (B*H = 34 is not a multiple of 4)
+@pytest.mark.parametrize("W", [1, 2, 31, 32, 33, 41, 1242])
+@pytest.mark.parametrize("D,uniq,subpixel,d0,p2", [
+    (16, 10, True, 0, 90), (16, 0, False, 0, 90), (40, 5, True, 3, 90),
+    (128, 10, True, 0, 90), (200, 10, True, 2, 90), (3, 10, True, 0, 90),
+    (256, 10, True, 1, 90), (512, 10, True, 0, 90), (128, 10, True, 0, 487),
+    (41, 10, True, 0, 90)])
+def test_bwd_wta_kernel_matches_plain(cuda, W, D, uniq, subpixel, d0, p2):
+    """p2 = 487 is the fused route's bound at 8 paths and costs below 25:
+    8 * (24 + 487) < 4096. D = 3 and 41 take the kernel's plain-load
+    fill (D not a multiple of 4); D = 128, 256 and 512 its full-warp
+    builds (D = 32 K)."""
+    C = _volume(cuda, 2, 17, W, D, seed=1)
     cfg = Config(num_disparities=D, uniqueness_ratio=uniq,
-                 subpixel=subpixel, min_disparity=d0, p1=7, p2=90)
+                 subpixel=subpixel, min_disparity=d0, p1=7, p2=p2)
     S7 = torch.zeros(C.shape, dtype=torch.int16, device=cuda)
     for dy, dx in DIRS_8:
         if (dy, dx) != (0, -1):
@@ -486,6 +505,8 @@ def test_wrappers_refuse_bad_cuda_inputs(cuda):
                           120)
     with pytest.raises(ValueError):
         kernels.wta_lr(C.transpose(1, 2), Config(num_disparities=16))
+    with pytest.raises(ValueError, match="2\\^15"):
+        kernels.sweep_bwd_wta(C, S16, Config(num_disparities=16, p2=4000))
     with pytest.raises(ValueError, match="shared memory"):
         kernels.wta_lr(torch.zeros((1, 1, 30000, 4), dtype=torch.uint8,
                                    device=cuda), Config(num_disparities=4))

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import tpustereo_torch
+from tpustereo import ops as jops
 from tpustereo.config import PRESETS as JPRESETS
 from tpustereo.config import Config as JConfig
 from tpustereo.kernels import census_cost_volume_pallas, dr_consistency_pallas
@@ -39,6 +40,17 @@ def test_cost_plain_matches_pallas_interpret(small_pair, D, d_start):
                                     interpret=True, d_start=d_start)
     got = kernels.census_cost_volume(_t(L)[None], _t(R)[None], D, 24,
                                      (5, 5), d_start)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref))
+
+
+def test_cost_takes_any_width():
+    """A 2 x 9,000 pair, past the 8,940 columns the kernel's old design
+    took: the wrapper does not refuse it, and equals the JAX jnp ops."""
+    rng = np.random.default_rng(9)
+    L, R = (rng.integers(0, 256, (2, 9000), dtype=np.uint8) for _ in "LR")
+    ref = jops.cost_volume(jops.census(jnp.asarray(L)),
+                           jops.census(jnp.asarray(R)), 8, 24)
+    got = kernels.census_cost_volume(_t(L)[None], _t(R)[None], 8, 24)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref))
 
 

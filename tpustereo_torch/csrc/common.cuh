@@ -105,6 +105,57 @@ __device__ __forceinline__ void load_pixel(const uint8_t* c, const int16_t* s,
   }
 }
 
+// N bytes as 32-bit words, aligned to N: one vector load or store of up to
+// 16 bytes (two for 32).
+template <int N>
+struct alignas(N) Words {
+  uint32_t w[N / 4];
+};
+
+// `load_pixel` for a lane whose K costs and K partial sums lie at c and s,
+// c aligned to K bytes and s to 2K (K >= 4): one vector load of each.
+// Every element is read, so a lane past D must point at readable bytes.
+template <int K>
+__device__ __forceinline__ void load_slice(const uint8_t* c, const int16_t* s,
+                                           int (&cv)[K], int (&sv)[K]) {
+  const Words<K> cw = *reinterpret_cast<const Words<K>*>(c);
+  const Words<2 * K> sw = *reinterpret_cast<const Words<2 * K>*>(s);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    cv[k] = (cw.w[k / 4] >> (8 * (k % 4))) & 0xff;
+    sv[k] = (int16_t)(sw.w[k / 2] >> (16 * (k % 2)));
+  }
+}
+
+// An asynchronous copy of N bytes (4, 8, 16 or 32) from device to shared
+// memory, both aligned to min(N, 16), in the thread's current group.
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (N == 32) {
+    cp_async<16>(dst, src);
+    cp_async<16>(static_cast<char*>(dst) + 16,
+                 static_cast<const char*>(src) + 16);
+  } else {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    if constexpr (N == 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                   "l"(src) : "memory");
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                   "l"(src), "n"(N) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of the thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // `load_pixel` without the partial sums.
 template <int K>
 __device__ __forceinline__ void load_cost(const uint8_t* c, int lane, int D,

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's `kernels/cost_pallas.py`
 (`census_cost_volume_pallas`). The kernel is `csrc/census_cost.cu`; it
 emits the plain (B, H, W, D) volume, with no padding and no transposed copy
-(the horizontal sweeps read this layout directly).
+(the horizontal sweeps read this layout directly). It works in tiles of
+rows and columns, so it takes any image width.
 """
 
 from __future__ import annotations
@@ -17,7 +18,6 @@ from tpustereo_torch.ops.census import census, cost_volume
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
-    "census_cost_smem_bytes": ([_I, _I], ctypes.c_size_t),
     # left, right, cost, B, H, W, D, ch, cw, d_start, max_cost, stream
     "census_cost_launch": ([_P] * 3 + [_I] * 8 + [_P], _I),
 }
@@ -61,9 +61,6 @@ def census_cost_volume(left: torch.Tensor, right: torch.Tensor,
         raise ValueError("images must be contiguous")
     B, H, W = left.shape
     lib = _build.load("census_cost", _SIGS)
-    if lib.census_cost_smem_bytes(W, ch) > _build.SMEM_MAX:
-        raise ValueError(f"image width {W} exceeds the kernel's shared "
-                         f"memory")
     out = torch.empty((B, H, W, num_disp), dtype=torch.uint8,
                       device=left.device)
     rc = lib.census_cost_launch(

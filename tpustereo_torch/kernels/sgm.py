@@ -178,10 +178,17 @@ def sweep_bwd_wta(C: torch.Tensor, S7: torch.Tensor, cfg: Config):
     uniqueness test; d_r[x] = argmin_k S(x + k, k) is the right-view index
     map in the shifted-column convention of the JAX `sweep_bwd_wta`, for
     `kernels.lr.dr_consistency`. CUDA tensors run the kernel, CPU tensors
-    the plain version."""
+    the plain version.
+
+    S7 is the sum of the other seven (or three) path costs, each at most
+    255 + P2. The kernel holds S = S7 + L_W as int16, so it takes
+    8 * (255 + P2) < 2^15, far above the fused route's bound."""
     _check_volume(C, S7, "S7")
     if C.device.type == "cpu":
         return sweep_bwd_wta_plain(C, S7, cfg)
+    if 8 * (255 + cfg.p2) >= 1 << 15:
+        raise ValueError(f"P2 = {cfg.p2} unsupported: S = S7 + L_W must stay "
+                         f"below 2^15")
     B, H, W, D = C.shape
     dev = C.device
     disp = torch.empty((B, H, W), dtype=torch.float32, device=dev)
