@@ -33,7 +33,10 @@ D = 128), on 8 synthetic pairs each:
 5. holds `sad_wta` and `wta_lr` against their plain versions at those
    geometries, with the presets' LR check off and with it on
    (disp12_max_diff = 1), on 8 frames in one launch and on one, and
-   `wta_lr` also on the int32 SAD volume of block 13 at Tsukuba's;
+   `wta_lr` also on the int32 SAD volume of block 13 at Tsukuba's; then
+   `sad_wta` on one 288 x 4096 frame (the widest `sad_wta_fits` admits at
+   block 9) and `wta_lr` on the census volume of 8 rows of 30,000 columns
+   (past the 25,827 of its earlier design), LR off and on;
 6. drives `api.match_batch` on each preset, and on tsukuba_sad with the LR
    check on, with the launch counters set to 0 just before each; requires
    `sad_wta` (and `dr_consistency` with the LR check), `census_cost_volume`
@@ -43,9 +46,10 @@ D = 128), on 8 synthetic pairs each:
    own figures (`MODES`); then drives tsukuba_sad at block 13 with the LR
    check through `sgbm_volume` + `select_and_refine` (an int32 volume),
    requires `wta_lr` to have launched and the plain pipeline's output;
-7. times both kernels per launch, their plain versions and bounds, each
-   path at one frame per launch (the presets) and at 8, through
-   `match_batch`, and the profiler's busy share.
+7. times both kernels per launch, by CUDA events and by CUDA-graph
+   replay (the device's time, without the host's per launch), their plain
+   versions and bounds, each path at one frame per launch (the presets)
+   and at 8, through `match_batch`, and the profiler's busy share.
 
 The SGM volume route and the relayout kernels:
 
@@ -64,7 +68,8 @@ The SGM volume route and the relayout kernels:
    time); requires a valid fraction and bad-2.0 within bars (`MIDDLEBURY`);
    prints both routes' ms per batch, the profiler's kernel times and the
    route's peak memory; times `census_cost_volume` and `sweep_bwd_wta`
-   alone on one set of 4 frames, beside their byte bounds;
+   alone on one set of 4 frames, and `wta_lr` on the route's S of those
+   frames (int16, LR check on), beside their byte bounds;
 10. drives `kitti_sgm8` through `api.match_batch` with
    `kernels.sgm.BIDIR_VERT = True`, requires `sgm_sweep_bidir`,
    `transpose_sum_hw` and `transpose_hw` to have launched and the output to
@@ -450,8 +455,38 @@ def modes_path(card: str) -> list:
         require(e <= DISP_TOL, f"{what} disp differs by {e}")
         err["wta_lr"] = max(err["wta_lr"], e)
     del disp_p, valid_p, S32
+    # the widths of the earlier designs' limits: sad_wta at the widest that
+    # sad_wta_fits admits at block 9, wta_lr past 25,827 columns
+    Lw, Rw, _ = synthetic_pairs((288, 4096), 20.0, 1)
+    Lw, Rw = torch.from_numpy(Lw).to(dev), torch.from_numpy(Rw).to(dev)
+    for cfg in (sad_cfg, sad_cfg.replace(**lr_on)):
+        disp, valid, d_r = kernels.sad_wta(Lw, Rw, cfg)
+        disp_p, valid_p, d_r_p = sad_wta_plain(Lw, Rw, cfg)
+        torch.cuda.synchronize()
+        what = f"sad_wta (288 x 4096, max_diff {cfg.disp12_max_diff})"
+        require(torch.equal(valid, valid_p), f"{what} valid differs")
+        require((d_r is None and d_r_p is None)
+                or torch.equal(d_r, d_r_p), f"{what} d_r differs")
+        e = (disp - disp_p).abs().max().item()
+        require(e <= DISP_TOL, f"{what} disp differs by {e}")
+        err["sad_wta"] = max(err["sad_wta"], e)
+    Lw, Rw, _ = synthetic_pairs((8, 30000), 40.0, 1)
+    Lw, Rw = torch.from_numpy(Lw).to(dev), torch.from_numpy(Rw).to(dev)
+    Cw = kernels.census_cost_volume(Lw, Rw, D, cw_cfg.max_census_cost,
+                                    cw_cfg.census_window, d0)
+    for cfg in (cw_cfg, cw_cfg.replace(**lr_on)):
+        disp, valid = kernels.wta_lr(Cw, cfg)
+        disp_p, valid_p = wta_lr_plain(Cw, cfg)
+        torch.cuda.synchronize()
+        what = f"wta_lr (8 x 30000, max_diff {cfg.disp12_max_diff})"
+        require(torch.equal(valid, valid_p), f"{what} valid differs")
+        e = (disp - disp_p).abs().max().item()
+        require(e <= DISP_TOL, f"{what} disp differs by {e}")
+        err["wta_lr"] = max(err["wta_lr"], e)
+    del Lw, Rw, Cw, disp_p, valid_p, d_r_p
     for name, e in err.items():
-        also = "; also on an int32 volume" if name == "wta_lr" else ""
+        also = ("; also on an int32 volume and 8 x 30000" if name == "wta_lr"
+                else "; also 288 x 4096")
         print(f"check {name}: max abs diff to plain = {e} (LR off and on, "
               f"{BATCH} frames and 1{also})", flush=True)
 
@@ -532,6 +567,18 @@ def modes_path(card: str) -> list:
             C1, cw_cfg.replace(**lr_on)), 50)}
     print(f"[{card}] ms per launch of 8 frames: {ms8}; of one frame with "
           f"the LR check on: {ms_lr}", flush=True)
+    # device time of one-frame launches, which the event loop above hides
+    # behind the host's time per launch
+    g_ms = {"sad_wta": graph_ms(lambda: kernels.sad_wta(L1, R1, sad_cfg), 50),
+            "wta_lr": graph_ms(lambda: kernels.wta_lr(C1, cw_cfg), 50)}
+    g_lr = {
+        "sad_wta": graph_ms(lambda: kernels.sad_wta(
+            L1, R1, sad_cfg.replace(**lr_on)), 50),
+        "wta_lr": graph_ms(lambda: kernels.wta_lr(
+            C1, cw_cfg.replace(**lr_on)), 50)}
+    print(f"[{card}] ms per launch of one frame by CUDA-graph replay: "
+          f"{g_ms}; with the LR check on: {g_lr} (by events: {ms})",
+          flush=True)
     Hs, Ws = MODES["tsukuba_sad"][0]
     Hc, Wc = MODES["middlebury_census_wta"][0]
     n_sad = Hs * Ws * sad_cfg.num_disparities
@@ -783,11 +830,17 @@ def volume_path(card: str, kitti: dict) -> list:
     m_census = cuda_ms(census_m, 5)
     m_bwd = cuda_ms(lambda: kernels.sweep_bwd_wta(Cm, S7m, cfg), 3)
     del Cm, S7m
+    # wta_lr on the volume route's S of one set of F frames (int16, the
+    # preset's LR check on): S read once, disp and valid written
+    Sm = sgbm_volume(L[:F], R[:F], cfg)
+    m_wta = cuda_ms(lambda: kernels.wta_lr(Sm, cfg), 5)
+    del Sm
     print(f"[{card}] middlebury_sgm4 {H}x{W}, D={D}, F={F}, ms per launch: "
           f"census_cost_volume {m_census:.4f} (byte bound "
           f"{bound(2 * F * H * W + n, 0)[0]:.4f}), sweep_bwd_wta "
-          f"{m_bwd:.4f} (byte bound {bound(3 * n + 9 * F * H * W, 0)[0]:.4f})",
-          flush=True)
+          f"{m_bwd:.4f} (byte bound {bound(3 * n + 9 * F * H * W, 0)[0]:.4f}),"
+          f" wta_lr {m_wta:.4f} (byte bound "
+          f"{bound(2 * n + 5 * F * H * W, 0)[0]:.4f})", flush=True)
     del L, R
 
     # --- 10. the BIDIR_VERT route of kitti_sgm8 through match_batch

@@ -252,8 +252,15 @@ def test_bitonic_kernel_matches_plain(cuda, rows, n, payload):
         assert torch.equal(got, k.sort(dim=1).values)
 
 
-@pytest.mark.parametrize("H,W,D", [(17, 41, 16), (1, 45, 32), (6, 200, 128),
-                                   (5, 37, 512)])
+# (H, W, D) of the selection kernel: a tile is up to 128 pixels of a row
+# (49 at int32 D = 512); W = 30,000 is past the 25,827 columns of the
+# earlier design's shared-memory row map
+WTA_SHAPES = [(17, 41, 16), (1, 45, 32), (9, 20, 40), (5, 37, 512),
+              (6, 200, 128), (1, 30000, 16), (3, 127, 128), (2, 128, 200),
+              (2, 129, 3), (3, 49, 512), (2, 50, 40)]
+
+
+@pytest.mark.parametrize("H,W,D", WTA_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32])
 @pytest.mark.parametrize("d0,d12", [(0, 1), (3, -1), (3, 0)])
 def test_wta_lr_right_map_matches_plain(cuda, H, W, D, dtype, d0, d12):
@@ -316,8 +323,7 @@ SELECT_KNOBS = [(0, 10, True, 1), (3, 0, False, -1), (3, 10, True, 0),
                 (0, 0, True, 2), (3, 10, False, 1)]
 
 
-@pytest.mark.parametrize("H,W,D", [(17, 41, 16), (1, 45, 32), (9, 20, 40),
-                                   (5, 37, 512), (6, 200, 128)])
+@pytest.mark.parametrize("H,W,D", WTA_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32])
 @pytest.mark.parametrize("knobs", SELECT_KNOBS)
 def test_wta_lr_kernel_matches_plain(cuda, H, W, D, dtype, knobs):
@@ -336,14 +342,23 @@ def test_wta_lr_kernel_matches_plain(cuda, H, W, D, dtype, knobs):
     assert (disp - disp_p).abs().max().item() <= 1e-6
 
 
-@pytest.mark.parametrize("shape,D", [((23, 57), 16), ((1, 45), 32),
-                                     ((9, 20), 40), ((12, 70), 512),
-                                     ((30, 100), 64)])
+# (frames, (H, W), D) of the tiled kernel (tiles of 16 rows x 64 columns,
+# planes in chunks of 32): widths 1 and the tile's 63, 64, 65; row counts
+# no multiple of 16; d0 + D > W; D = 1024 (tiles of 8 x 32: 16 x 64
+# overflows shared memory); W = 4096, the widest that `sad_wta_fits`
+# admits at block 9; 8 frames in one launch
+SAD_SHAPES = [(2, (23, 57), 16), (2, (1, 45), 32), (2, (9, 20), 40),
+              (2, (12, 70), 512), (2, (30, 100), 64), (2, (13, 1), 16),
+              (2, (11, 63), 32), (2, (9, 64), 40), (2, (10, 65), 64),
+              (1, (3, 4096), 64), (8, (19, 45), 64), (1, (20, 100), 1024)]
+
+
+@pytest.mark.parametrize("B,shape,D", SAD_SHAPES)
 @pytest.mark.parametrize("block", [5, 9, 13, 8])
 @pytest.mark.parametrize("knobs", SELECT_KNOBS)
-def test_sad_wta_kernel_matches_plain(cuda, shape, D, block, knobs):
+def test_sad_wta_kernel_matches_plain(cuda, B, shape, D, block, knobs):
     d0, uniq, subpixel, d12 = knobs
-    L, R = _pairs(2, shape, seed=4)
+    L, R = _pairs(B, shape, seed=4)
     L, R = L.to(cuda), R.to(cuda)
     cfg = Config(mode="sad", num_disparities=D, sad_block=block,
                  min_disparity=d0, uniqueness_ratio=uniq, subpixel=subpixel,
@@ -507,9 +522,11 @@ def test_wrappers_refuse_bad_cuda_inputs(cuda):
         kernels.wta_lr(C.transpose(1, 2), Config(num_disparities=16))
     with pytest.raises(ValueError, match="2\\^15"):
         kernels.sweep_bwd_wta(C, S16, Config(num_disparities=16, p2=4000))
-    with pytest.raises(ValueError, match="shared memory"):
-        kernels.wta_lr(torch.zeros((1, 1, 30000, 4), dtype=torch.uint8,
-                                   device=cuda), Config(num_disparities=4))
+    # any width runs (W = 30,000 is a case of the tests above); D past the
+    # kernel's 512 is refused
+    with pytest.raises(ValueError, match="unsupported"):
+        kernels.wta_lr(torch.zeros((1, 1, 8, 513), dtype=torch.uint8,
+                                   device=cuda), Config(num_disparities=513))
     img = torch.zeros((1, 8, 16), dtype=torch.uint8, device=cuda)
     cfg = Config(mode="sad", num_disparities=16)
     with pytest.raises(ValueError):

@@ -54,6 +54,22 @@ def test_cost_takes_any_width():
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref))
 
 
+def test_wta_lr_takes_any_width():
+    """A (1, 1, 30,000, 8) int16 volume with the LR check on, past the
+    25,827 columns the kernel's old design took: the wrapper does not
+    refuse it, and equals the JAX jnp `wta` + `lr_check`."""
+    rng = np.random.default_rng(11)
+    S = rng.integers(0, 1000, (1, 30000, 8), dtype=np.int16)
+    jcfg = JConfig(num_disparities=8, min_disparity=2, disp12_max_diff=1)
+    disp_r, _, valid_r = jops.wta(jnp.asarray(S), jcfg)
+    valid_r = valid_r & jops.lr_check(jnp.asarray(S), disp_r, jcfg)
+    disp, valid = kernels.wta_lr(_t(S)[None],
+                                 config_from_jax(dataclasses.asdict(jcfg)))
+    np.testing.assert_allclose(disp[0].numpy(), np.asarray(disp_r),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(valid[0].numpy(), np.asarray(valid_r))
+
+
 @pytest.mark.parametrize("shape", [(40, 72, 32), (6, 20, 32)],
                          ids=["W>D", "W<D"])
 @pytest.mark.parametrize("d_start", [0, 3])

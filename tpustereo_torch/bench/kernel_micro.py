@@ -3,17 +3,25 @@ card: its compile-time sizes, and the source with one part cut out.
 
     python3 -m tpustereo_torch.bench.kernel_micro bwd_wta
     python3 -m tpustereo_torch.bench.kernel_micro census_cost
+    python3 -m tpustereo_torch.bench.kernel_micro sad_wta
+    python3 -m tpustereo_torch.bench.kernel_micro wta_lr
 
 For the kernel named (`csrc/<name>.cu`) this script compiles the source once
 per entry of `SIZES[name]` (`-D` macros that the source reads in place of
 its shipped constants; the outputs must equal the shipped kernel's) and
 once per entry of `ABLATIONS[name]` (the source with one statement
 replaced, at the shipped sizes; its outputs are wrong and not checked)
-into `build/kernel_micro/`. It runs each at the KITTI path's shapes (4
-synthetic 375 x 1242 frames, D = 128, the `kitti_sgm8` preset), and
-prints the card's name and power limit, then one JSON line: ms per launch
-of each build (CUDA events, mean of 20 launches after a warm-up, in turns
-shipped, builds..., shipped).
+into `build/kernel_micro/`. It runs each at its path's shapes (`_cases`):
+`bwd_wta` and `census_cost` at the KITTI path's (4 synthetic 375 x 1242
+frames, D = 128, the `kitti_sgm8` preset); `sad_wta` on one 288 x 384
+Tsukuba frame (`tsukuba_sad`, LR check off as in the preset, and on);
+`wta_lr` on one 375 x 621 uint8 census volume (`middlebury_census_wta`)
+and on 4 frames of 1988 x 2964 of the int16 aggregated volume
+(`middlebury_sgm4`, LR check on). It prints the card's name and power
+limit, then one JSON line: ms per launch of each build in each case, by
+CUDA events (mean of 20 launches after a warm-up) and by CUDA-graph replay
+(20 launches captured in one graph: the device's time without the host's
+per launch), in turns shipped, builds..., shipped.
 """
 
 from __future__ import annotations
@@ -31,11 +39,15 @@ from tpustereo_torch import PRESETS, kernels
 from tpustereo_torch.data import synthetic_pair
 from tpustereo_torch.kernels import _build
 from tpustereo_torch.kernels.cost import _SIGS as _COST_SIGS
+from tpustereo_torch.kernels.sad import _SIGS as _SAD_SIGS
 from tpustereo_torch.kernels.sgm import _BWD_SIGS
+from tpustereo_torch.kernels.wta import _SIGS as _WTA_SIGS
 from tpustereo_torch.ops.sgm import DIRS_8
+from tpustereo_torch.pipeline import sgbm_volume
 
 OUT = os.path.join(_build.BUILD, "kernel_micro")
-SIGS = {"bwd_wta": _BWD_SIGS, "census_cost": _COST_SIGS}
+SIGS = {"bwd_wta": _BWD_SIGS, "census_cost": _COST_SIGS,
+        "sad_wta": _SAD_SIGS, "wta_lr": _WTA_SIGS}
 # name: {build name: -D flags}
 SIZES = {
     # columns of C and S7 in flight per warp
@@ -45,8 +57,16 @@ SIZES = {
                                        f"-DCENSUS_TY={ty}"]
                     for tx, ty in ((128, 2), (128, 4), (256, 1), (256, 4),
                                    (512, 1), (512, 2))},
+    # the tile: columns x rows (one thread a pixel), and planes a chunk
+    "sad_wta": {f"tile{tx}x{ty}_dc{dc}": [f"-DSAD_TX={tx}", f"-DSAD_TY={ty}",
+                                          f"-DSAD_DC={dc}"]
+                for tx, ty, dc in ((32, 16, 32), (64, 16, 16), (64, 8, 32),
+                                   (32, 32, 32))},
+    # pixels a tile, at most
+    "wta_lr": {f"tile{n}": [f"-DWTA_TX={n}"] for n in (32, 64, 256)},
 }
-# name: {build name: (statement of the source, what replaces it)}
+# name: {build name: (statement of the source, what replaces it), or a
+# list of such pairs that cut one part together}
 ABLATIONS = {
     "bwd_wta": {
         # the selection of each chunk of 32 columns
@@ -79,6 +99,42 @@ ABLATIONS = {
         "no_right_reads": ("uint32_t c = popc(wl ^ r[15 - j]);",
                            "uint32_t c = popc(wl ^ (Word)j);"),
     },
+    "sad_wta": {
+        # the image rows staged in shared memory
+        "no_staging": [("for (int i = tid; i < nrows * cw; i += THREADS)",
+                        "for (int i = tid; i < 0; i += THREADS)"),
+                       ("for (int i = tid; i < nrows * rw; i += THREADS)",
+                        "for (int i = tid; i < 0; i += THREADS)")],
+        # the vertical sums (the horizontal phase reads whatever is there)
+        "no_vertical": ("for (int it = tid; it < cw * DC; it += THREADS)",
+                        "for (int it = tid; it < 0; it += THREADS)"),
+        # the horizontal running sums
+        "no_horizontal": ("for (int it = tid; it < TY * DC; it += THREADS)",
+                          "for (int it = tid; it < 0; it += THREADS)"),
+        # the pixels' fold over the planes (WTA, uniqueness, neighbours)
+        "no_fold": ("for (int jj = 0; jj < nj; ++jj) {\n      const int j",
+                    "for (int jj = 0; jj < 0; ++jj) {\n      const int j"),
+        # the right-view diagonals of each chunk (LR check on only)
+        "no_right_map": ("for (int it = tid; it < TY * nd; it += THREADS)",
+                         "for (int it = tid; it < 0; it += THREADS)"),
+    },
+    "wta_lr": {
+        # the copies of the tile into shared memory
+        "no_copy": ("cp_async<4>(buf + p * SW + k, g + (size_t)p * WP + k);",
+                    ";"),
+        # the second pass for the min over |d - d*| > 1
+        "no_uniqueness": ("if (uniq > 0) {\n      // groups ga",
+                          "if (false) {\n      // groups ga"),
+        # the right map's diagonals and their atomicMin (LR check on only)
+        "no_right_map": ("for (int t = tid; t < npix + D - 1;",
+                         "for (int t = tid; t < 0;"),
+        # the right map's atomicMin into the row maps (its diagonals stay)
+        "no_map_atomics": ("atomicMin(&map[row * W + xr], min(m0, m1));",
+                           "if (min(m0, m1) == -7) map[row * W + xr] = 0;"),
+        # the LR check and d_R from the row maps (LR check on only)
+        "no_finish": ("if (need_map) {\n    const size_t g",
+                      "if (false) {\n    const size_t g"),
+    },
 }
 
 
@@ -89,12 +145,15 @@ def _compile(name: str) -> dict:
     with open(src) as f:
         text = f.read()
     builds = {b: (src, flags) for b, flags in SIZES[name].items()}
-    for b, (old, new) in ABLATIONS[name].items():
-        if old not in text:
-            raise RuntimeError(f"ablation {b}: statement not found")
+    for b, cut in ABLATIONS[name].items():
+        cut_text = text
+        for old, new in [cut] if isinstance(cut[0], str) else cut:
+            if cut_text.count(old) != 1:
+                raise RuntimeError(f"ablation {b}: statement not found once")
+            cut_text = cut_text.replace(old, new)
         path = os.path.join(OUT, f"{name}_{b}.cu")
         with open(path, "w") as f:
-            f.write(text.replace(old, new))
+            f.write(cut_text)
         builds[b] = (path, ["-I", _build.CSRC])
     procs = {}
     for b, (path, flags) in builds.items():
@@ -118,6 +177,134 @@ def _compile(name: str) -> dict:
     return libs
 
 
+def _frames(shape, n: int, disparity: float, dev):
+    pairs = [synthetic_pair(shape, disparity=disparity, seed=s)
+             for s in range(n)]
+    return (torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev),
+            torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev))
+
+
+def _cases(name: str, dev) -> list:
+    """[(label, shape, reference outputs, output buffers, launch(lib))] at
+    the path's shapes; launch passes the current stream, so that a CUDA
+    graph can capture it."""
+    cases = []
+
+    def stream():
+        return _build.stream_ptr(torch.empty(0, device=dev))
+
+    if name in ("bwd_wta", "census_cost"):
+        cfg = PRESETS["kitti_sgm8"]
+        L, R = _frames((375, 1242), 4, 40.0, dev)
+        D, d0 = cfg.num_disparities, cfg.min_disparity
+        (ch, cw), bits = cfg.census_window, cfg.max_census_cost
+        C = kernels.census_cost_volume(L, R, D, bits, (ch, cw), d0)
+        B, H, W, _ = C.shape
+        if name == "bwd_wta":
+            S7 = torch.zeros(C.shape, dtype=torch.int16, device=dev)
+            for dy, dx in DIRS_8:
+                if (dy, dx) != (0, -1):
+                    kernels.sgm_sweep(C, S7, dy, dx, cfg.p1, cfg.p2)
+            ref = kernels.sweep_bwd_wta(C, S7, cfg)
+            outs = tuple(torch.empty_like(t) for t in ref)
+            cases.append(("kitti_F4", [B, H, W, D], ref, outs, lambda lib: (
+                lib.bwd_wta_launch(
+                    _build.ptr(C), _build.ptr(S7), *map(_build.ptr, outs),
+                    B * H, W, D, cfg.p1, cfg.p2, cfg.uniqueness_ratio,
+                    int(cfg.subpixel), d0, stream()))))
+        else:
+            outs = (torch.empty_like(C),)
+            cases.append(("kitti_F4", [B, H, W, D], (C,), outs, lambda lib: (
+                lib.census_cost_launch(
+                    _build.ptr(L), _build.ptr(R), _build.ptr(outs[0]), B, H,
+                    W, D, ch, cw, d0, bits, stream()))))
+    elif name == "sad_wta":
+        base = PRESETS["tsukuba_sad"]
+        L, R = _frames((288, 384), 1, 20.0, dev)
+        B, H, W = L.shape
+        for label, cfg in (("tsukuba_F1", base),
+                           ("tsukuba_F1_lr", base.replace(disp12_max_diff=1))):
+            ref = tuple(t for t in kernels.sad_wta(L, R, cfg)
+                        if t is not None)
+            outs = tuple(torch.empty_like(t) for t in ref)
+            with_dr = cfg.disp12_max_diff >= 0
+
+            def launch(lib, cfg=cfg, outs=outs, with_dr=with_dr):
+                d_r = _build.ptr(outs[2]) if with_dr else None
+                return lib.sad_wta_launch(
+                    _build.ptr(L), _build.ptr(R), _build.ptr(outs[0]),
+                    _build.ptr(outs[1]), d_r, B, H, W, cfg.num_disparities,
+                    cfg.sad_block, cfg.min_disparity, cfg.uniqueness_ratio,
+                    int(cfg.subpixel), int(with_dr), stream())
+            cases.append((label, [B, H, W, base.num_disparities], ref, outs,
+                          launch))
+    else:
+        cw_cfg = PRESETS["middlebury_census_wta"]
+        L, R = _frames((375, 621), 1, 40.0, dev)
+        C = kernels.census_cost_volume(L, R, cw_cfg.num_disparities,
+                                       cw_cfg.max_census_cost,
+                                       cw_cfg.census_window,
+                                       cw_cfg.min_disparity)
+        del L, R
+        m_cfg = PRESETS["middlebury_sgm4"]
+        L, R = _frames((1988, 2964), m_cfg.frames_per_step, 60.0, dev)
+        S = sgbm_volume(L, R, m_cfg)
+        del L, R
+        for label, vol, cfg in (("census_wta_F1", C, cw_cfg),
+                                ("middlebury_F4_lr", S, m_cfg)):
+            ref = kernels.wta_lr(vol, cfg)
+            outs = tuple(torch.empty_like(t) for t in ref)
+            B, H, W, D = vol.shape
+            need_map = cfg.disp12_max_diff >= 0
+            dmap = torch.empty(ref[0].shape, dtype=torch.int32, device=dev)
+
+            def launch(lib, vol=vol, cfg=cfg, outs=outs, dmap=dmap,
+                       need_map=need_map):
+                return lib.wta_lr_launch(
+                    _build.ptr(vol), _build.ptr(outs[0]), _build.ptr(outs[1]),
+                    None, _build.ptr(dmap) if need_map else None,
+                    vol.shape[0] * vol.shape[1], vol.shape[2], vol.shape[3],
+                    vol.element_size(), cfg.uniqueness_ratio,
+                    int(cfg.subpixel), cfg.min_disparity,
+                    cfg.disp12_max_diff, stream())
+            cases.append((label, [B, H, W, D], ref, outs, launch))
+    return cases
+
+
+def _graph_ms(fn, reps: int = 20) -> float:
+    """Mean device ms of fn() by replay of `reps` calls in one CUDA graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del graph
+    return a.elapsed_time(b) / reps
+
+
+def _ms(fn, reps: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def main(name: str) -> None:
     if name not in SIGS:
         raise SystemExit(f"kernel_micro: name one of {sorted(SIGS)}")
@@ -127,70 +314,33 @@ def main(name: str) -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
-    cfg = PRESETS["kitti_sgm8"]
     dev = torch.device("cuda")
-    pairs = [synthetic_pair((375, 1242), disparity=40.0, seed=s)
-             for s in range(4)]
-    L = torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev)
-    R = torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev)
-    D, d0 = cfg.num_disparities, cfg.min_disparity
-    (ch, cw), bits = cfg.census_window, cfg.max_census_cost
-    C = kernels.census_cost_volume(L, R, D, bits, (ch, cw), d0)
-    B, H, W, _ = C.shape
-    stream = _build.stream_ptr(C)
-    if name == "bwd_wta":
-        S7 = torch.zeros(C.shape, dtype=torch.int16, device=dev)
-        for dy, dx in DIRS_8:
-            if (dy, dx) != (0, -1):
-                kernels.sgm_sweep(C, S7, dy, dx, cfg.p1, cfg.p2)
-        ref = kernels.sweep_bwd_wta(C, S7, cfg)
-        outs = tuple(torch.empty_like(t) for t in ref)
-
-        def launch(lib):
-            return lib.bwd_wta_launch(
-                _build.ptr(C), _build.ptr(S7), *map(_build.ptr, outs),
-                B * H, W, D, cfg.p1, cfg.p2, cfg.uniqueness_ratio,
-                int(cfg.subpixel), d0, stream)
-    else:
-        ref = (C,)
-        outs = (torch.empty_like(C),)
-
-        def launch(lib):
-            return lib.census_cost_launch(
-                _build.ptr(L), _build.ptr(R), _build.ptr(outs[0]), B, H, W,
-                D, ch, cw, d0, bits, stream)
-
-    def run(lib):
-        rc = launch(lib)
-        if rc != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-
-    def ms(fn, reps=20):
-        fn()
-        torch.cuda.synchronize()
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
-
+    cases = _cases(name, dev)
     libs = _compile(name)
-    for b, lib in libs.items():
-        run(lib)
-        torch.cuda.synchronize()
-        if b in SIZES[name] and not all(
-                torch.equal(o, r) for o, r in zip(outs, ref)):
-            raise SystemExit(f"kernel_micro: {name} build {b} differs from "
-                             f"the shipped kernel")
     shipped = _build.load(name, SIGS[name])
-    res = {"shipped_first": ms(lambda: run(shipped))}
-    for b, lib in libs.items():
-        res[b] = ms(lambda lib=lib: run(lib))
-    res["shipped_last"] = ms(lambda: run(shipped))
-    print(json.dumps({"card": card, "kernel": name, "shape": [B, H, W, D],
-                      "ms_per_launch": res}))
+    result = {}
+    for label, shape, ref, outs, launch in cases:
+        def run(lib, launch=launch):
+            rc = launch(lib)
+            if rc != 0:
+                raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+        for b, lib in libs.items():
+            run(lib)
+            torch.cuda.synchronize()
+            if b in SIZES[name] and not all(
+                    torch.equal(o, r) for o, r in zip(outs, ref)):
+                raise SystemExit(f"kernel_micro: {name} build {b} differs "
+                                 f"from the shipped kernel ({label})")
+        res, gres = {}, {}
+        for key, lib in [("shipped_first", shipped), *libs.items(),
+                         ("shipped_last", shipped)]:
+            res[key] = _ms(lambda lib=lib: run(lib))
+            gres[key] = _graph_ms(lambda lib=lib: run(lib))
+        result[label] = {"shape": shape, "ms_per_launch": res,
+                         "graph_ms_per_launch": gres}
+        print(f"{label}: {json.dumps(result[label])}", flush=True)
+    print(json.dumps({"card": card, "kernel": name, "cases": result}))
 
 
 if __name__ == "__main__":

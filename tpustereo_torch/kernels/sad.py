@@ -28,11 +28,13 @@ _SIGS = {
 
 
 def sad_wta_fits(W: int, block: int) -> bool:
-    """Whether the kernel takes images of width W at this block: one band
-    row of 512 threads x 8 pixels (W <= 4096), and that row's two int32
-    sum rows plus the block's two uint8 image rows within shared memory.
-    The same formula as the C export `sad_wta_fits`, so the pipeline picks
-    its route alike on the CPU and on the card."""
+    """Whether the wrapper takes images of width W at this block: the limit
+    of the kernel's first design (one band row of 512 threads x 8 pixels,
+    W <= 4096, and that row's two int32 sum rows plus the block's two uint8
+    image rows within shared memory), kept so that configurations route as
+    before; the tiled kernel itself takes any width. The same formula as
+    the C export `sad_wta_fits`, so the pipeline picks its route alike on
+    the CPU and on the card."""
     return W <= 4096 and (8 + 2 * block) * W <= _build.SMEM_MAX
 
 
@@ -78,9 +80,10 @@ def sad_wta(left: torch.Tensor, right: torch.Tensor, cfg: Config):
     B, H, W = left.shape
     lib = _build.load("sad_wta", _SIGS)
     if not lib.sad_wta_fits(W, block):
-        raise ValueError(f"image width {W} exceeds the kernel's limit: a "
-                         f"band of one row needs W <= 4096 (512 threads x 8 "
-                         f"pixels) and its rows within shared memory")
+        raise ValueError(f"image width {W} at block {block} is past "
+                         f"sad_wta_fits (W <= 4096 and (8 + 2 * block) * W "
+                         f"<= {_build.SMEM_MAX}); such configurations take "
+                         f"the volume route")
     dev = left.device
     with_dr = cfg.disp12_max_diff >= 0
     disp = torch.empty((B, H, W), dtype=torch.float32, device=dev)

@@ -21,10 +21,9 @@ from tpustereo_torch.ops.wta import wta
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
-    "wta_lr_smem_bytes": ([_I], ctypes.c_size_t),
-    # S, disp, valid, d_R (or null), rows, W, D, element bytes, uniq,
-    # subpixel, d_start, max_diff, stream
-    "wta_lr_launch": ([_P] * 4 + [_I] * 8 + [_P], _I),
+    # S, disp, valid, d_R (or null), the row maps' scratch (or null), rows,
+    # W, D, element bytes, uniq, subpixel, d_start, max_diff, stream
+    "wta_lr_launch": ([_P] * 5 + [_I] * 8 + [_P], _I),
 }
 
 
@@ -70,16 +69,18 @@ def wta_lr(S: torch.Tensor, cfg: Config, with_dr: bool = False):
         raise ValueError("S must be contiguous")
     B, H, W, D = S.shape
     lib = _build.load("wta_lr", _SIGS)
-    if lib.wta_lr_smem_bytes(W) > _build.SMEM_MAX:
-        raise ValueError(f"image width {W} exceeds the kernel's shared "
-                         f"memory ({_build.SMEM_MAX} bytes, 9 per column)")
     disp = torch.empty((B, H, W), dtype=torch.float32, device=S.device)
     valid = torch.empty((B, H, W), dtype=torch.bool, device=S.device)
     d_R = (torch.empty((B, H, W), dtype=torch.int32, device=S.device)
            if with_dr else None)
+    # the right-view rows as packed minima, for the LR check and d_R
+    need_map = with_dr or cfg.disp12_max_diff >= 0
+    dmap = (torch.empty((B, H, W), dtype=torch.int32, device=S.device)
+            if need_map else None)
     rc = lib.wta_lr_launch(
         _build.ptr(S), _build.ptr(disp), _build.ptr(valid),
-        _build.ptr(d_R) if with_dr else None, B * H, W, D,
+        _build.ptr(d_R) if with_dr else None,
+        _build.ptr(dmap) if need_map else None, B * H, W, D,
         S.element_size(), cfg.uniqueness_ratio, int(cfg.subpixel),
         cfg.min_disparity, cfg.disp12_max_diff, _build.stream_ptr(S))
     _build.check(lib, rc, "wta_lr")
