@@ -23,7 +23,10 @@ D = 128, 8 frames, 4 per set of kernel launches):
    JAX package's jnp formulation, ported) run on the card;
 4. times each kernel, its plain version, `component_big`, the whole path,
    and the whole path with speckle and the median off, with CUDA events,
-   and prints them beside the card's name and power limit.
+   and the LR check, labelling and median kernels also by CUDA-graph
+   replay (the device's time, without the host's per launch); counts the
+   labelling's kernel launches a call (profiler); prints them beside the
+   card's name and power limit.
 
 The SAD and census_wta modes, each preset as it stands
 (`PRESETS["tsukuba_sad"]` at Tsukuba's 288 x 384, D = 64, block 9;
@@ -89,7 +92,10 @@ The gap fills and the bitonic speckle sort:
    frames of 375 x 1242, D = 128), and `bitonic_sort` on step 1's speckle
    labels of those frames (4 rows of 465,750, padded to 2^19): the pair
    sort (labels, pixel index) and the keys-only sort of index * 2 + bit,
-   all `torch.equal`;
+   all `torch.equal`; times both by events and by CUDA-graph replay, and
+   the hits kernel too; requires one sort of those rows to make at most
+   15 kernel launches (the source's schedule, and the profiler's count of
+   bitonic kernels in one call where it records device kernels);
 13. drives `kitti_sgm8` with `fill_mode="hirschmuller"` and with
    `"background"` through `api.match_batch` on step 3's 8 pairs, with the
    launch counters set to 0 just before each; requires
@@ -273,6 +279,34 @@ def graph_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / reps
+
+
+def device_kernels(fn) -> list:
+    """Names of the device kernels that one call of fn() runs, in order,
+    from `torch.profiler` (fn is called once untraced first). Two small
+    fills run first in the traced span, because the profiler can miss the
+    span's first kernel; their names are dropped. Empty when the profiler
+    records no device kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    pad = torch.empty(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        pad.fill_(0)
+        pad.fill_(1)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    names = [e.name for e in evs]
+    while names and "fill" in names[0].lower():
+        names.pop(0)
+    return names
 
 
 def device_busy(fn) -> str:
@@ -938,7 +972,7 @@ def fills_path(card: str, kitti: dict) -> list:
     import torch
     from tpustereo_torch import PRESETS, api, kernels
     from tpustereo_torch.kernels.bitonic import (bitonic_sort_plain,
-                                                 padded_log2)
+                                                 kernel_launches, padded_log2)
     from tpustereo_torch.kernels.lr import dr_consistency_hits_plain
     from tpustereo_torch.ops import (component_big, component_big_sorted,
                                      fill_background, fill_hirschmuller)
@@ -1009,6 +1043,25 @@ def fills_path(card: str, kitti: dict) -> list:
     print(f"[{card}] bitonic_sort of ({F}, {n}) int32 keys, padded to "
           f"2^{padded_log2(n)}, ms (kernel, plain, torch.sort): pair "
           f"{sort_ms['pair']}; keys only {sort_ms['keys']}", flush=True)
+    g_ms = {"dr_consistency_hits": graph_ms(
+                lambda: kernels.dr_consistency_hits(d_r, disp, D, md, d0), 50),
+            "bitonic_sort pair": graph_ms(
+                lambda: kernels.bitonic_sort(keys, idx), 20),
+            "bitonic_sort keys": graph_ms(
+                lambda: kernels.bitonic_sort(packed), 20)}
+    print(f"[{card}] ms per call by CUDA-graph replay (the sorts with "
+          f"their pads): {g_ms}; the hits kernel by events "
+          f"{ms['dr_consistency_hits']:.4f}", flush=True)
+    n_launch = kernel_launches(n)
+    traced = [k for k in device_kernels(
+        lambda: kernels.bitonic_sort(keys, idx)) if "bitonic" in k]
+    print(f"bitonic_sort of rows of {n}: {n_launch} kernel launches a sort "
+          f"(the source's schedule); {len(traced)} bitonic kernels in one "
+          f"traced call", flush=True)
+    require(0 < n_launch <= 15, "one bitonic sort of the speckle rows makes "
+            "more than 15 kernel launches")
+    require(not traced or len(traced) == n_launch, "the traced bitonic "
+            "kernels differ from the source's schedule")
     # what any sort of these rows needs, not the network's n2/2 * L(L+1)/2
     # exchanges (the mask `component_big_sorted` builds does not depend on
     # the network's tie order): each array read and written once, against
@@ -1649,6 +1702,21 @@ def main() -> None:
             lambda: kernels.connected_component_labels(conn_h, conn_v), 20),
         "median3": cuda_ms(lambda: kernels.median3(med_in), 50),
     }
+    # device time of the three short kernels: their event times above are
+    # the host's time per launch through the wrappers where that is longer
+    g_ms = {
+        "dr_consistency": graph_ms(lambda: kernels.dr_consistency(
+            d_r, disp, D, cfg.disp12_max_diff, d0), 50),
+        "connected_component_labels": graph_ms(
+            lambda: kernels.connected_component_labels(conn_h, conn_v), 50),
+        "median3": graph_ms(lambda: kernels.median3(med_in), 50),
+    }
+    print(f"[{card}] ms per launch by CUDA-graph replay: {g_ms}; by "
+          f"events: { {n: ms[n] for n in g_ms} }", flush=True)
+    cc_names = device_kernels(
+        lambda: kernels.connected_component_labels(conn_h, conn_v))
+    print(f"connected_component_labels: {len(cc_names)} kernel launches a "
+          f"call (profiler): {[n[:40] for n in cc_names]}", flush=True)
     per_dir = {f"{dy},{dx}": cuda_ms(
         lambda dy=dy, dx=dx: kernels.sgm_sweep(C, S_tmp, dy, dx, p1, p2), 3)
         for dy, dx in dirs7}

@@ -22,8 +22,11 @@ import torch
 
 from tpustereo_torch import Config, kernels
 from tpustereo_torch.data import synthetic_pair
-from tpustereo_torch.kernels.bitonic import bitonic_sort_plain
-from tpustereo_torch.kernels.cc import connected_component_labels_plain
+from tpustereo_torch.kernels.bitonic import (GLOBAL_M, TILE_LOG2,
+                                             bitonic_sort_plain,
+                                             kernel_launches, padded_log2)
+from tpustereo_torch.kernels.cc import (TILE_COLS, TILE_ROWS,
+                                        connected_component_labels_plain)
 from tpustereo_torch.kernels.cost import census_cost_volume_plain
 from tpustereo_torch.kernels.lr import (dr_consistency_hits_plain,
                                         dr_consistency_plain)
@@ -112,6 +115,42 @@ def _cc_masks(name: str) -> np.ndarray:
 
 CC_MASKS = ["p0.3", "p0.55", "p0.7", "hilbert", "serpentine", "h1", "w1",
             "frames3"]
+
+
+def _cc_tile_masks(name: str) -> np.ndarray:
+    """Masks at the labelling kernel's tile borders (TILE_ROWS x
+    TILE_COLS): widths a tile's width +- 1, heights a multiple of its rows
+    +- 1, frames whose height no tile row divides, one component through
+    every tile, a single pixel and a KITTI frame."""
+    rng = np.random.default_rng(7)
+    tr, tc = TILE_ROWS, TILE_COLS
+    # the Hilbert mask's last row and column are empty, so cropping them
+    # or padding keeps it one component
+    hil = _hilbert_mask(max(3, (tc - 1).bit_length() - 1))
+    if name == "hilbert_w-1":
+        return hil[:-1, :-1]
+    if name == "hilbert_w+1":
+        return np.pad(hil, ((0, 2 * tr + 1 - hil.shape[0] % tr), (0, 1)))
+    if name == "serp_w+1":
+        return _serpentine_mask(4 * tr + 1, tc + 1)
+    if name == "serp_w-1":
+        return _serpentine_mask(4 * tr - 1, tc - 1)
+    if name == "touch_all":
+        v = rng.random((3 * tr + 5, 3 * tc + 7)) < 0.5
+        v[:, 0] = True
+        v[::5, :] = True
+        return v
+    if name == "frames3_tiles":
+        v = rng.random((3, 2 * tr + 5, tc + 9)) < 0.6
+        v[:, :, 3] = True
+        return v
+    if name == "px1":
+        return np.ones((1, 1), bool)
+    return rng.random((375, 1242)) < 0.62     # "kitti"
+
+
+CC_TILE_MASKS = ["hilbert_w-1", "hilbert_w+1", "serp_w+1", "serp_w-1",
+                 "touch_all", "frames3_tiles", "px1", "kitti"]
 
 
 def _conn(v: np.ndarray):
@@ -227,21 +266,39 @@ def test_lr_hits_kernel_matches_plain(cuda, B, H, W, D, d0, max_diff):
                                                   d0))
 
 
-@pytest.mark.parametrize("rows,n", [(1, 1), (1, 100), (1, 256), (3, 5000),
-                                    (1, 4096), (2, 4097), (4, 465750),
-                                    (1, 1 << 19)])
+_TILE = 1 << TILE_LOG2
+
+
+@pytest.mark.parametrize("rows,n", [
+    (1, 1), (1, 100), (1, 256), (3, 5000), (1, 4096), (2, 4097),
+    (4, 465750), (1, 1 << 19),
+    # the shared-memory tile's edges, and stages past it whose count of
+    # global substages is and is not a multiple of GLOBAL_M
+    (2, _TILE // 2), (3, _TILE), (2, _TILE + 1), (1, 1 << 15),
+    (2, 1 << 17), (1, (1 << 20) + 1)])
 @pytest.mark.parametrize("payload", [False, True])
-def test_bitonic_kernel_matches_plain(cuda, rows, n, payload):
-    """Keys with heavy duplication (the speckle labels' regime) and the
-    payload order, at the KITTI frame's 465,750 and at a power of two."""
+@pytest.mark.parametrize("order", ["dup", "equal", "descending"])
+def test_bitonic_kernel_matches_plain(cuda, rows, n, payload, order):
+    """Keys with heavy duplication (the speckle labels' regime), all equal
+    (every compare a tie) and descending, and the payload order, at the
+    KITTI frame's 465,750, at powers of two and around the tile."""
     rng = np.random.default_rng(16)
-    k = torch.from_numpy(rng.integers(0, max(2, n // 50), (rows, n),
-                                      dtype=np.int32)).to(cuda)
+    if order == "dup":
+        k = rng.integers(0, max(2, n // 50), (rows, n), dtype=np.int32)
+    elif order == "equal":
+        k = np.full((rows, n), 7, np.int32)
+    else:
+        k = np.sort(rng.integers(-n, n, (rows, n), dtype=np.int32))[:, ::-1]
+    k = torch.from_numpy(k.copy()).to(cuda)
     p = (torch.arange(n, dtype=torch.int32, device=cuda).expand(rows, n)
          if payload else None)
     kernels.reset_launch_counts()
     got = kernels.bitonic_sort(k, p)
     assert kernels.launch_counts()["bitonic_sort"] == 1
+    L = padded_log2(n)
+    t = min(L, TILE_LOG2)
+    assert kernel_launches(n) == 1 + sum(
+        -(-(kk - t) // GLOBAL_M) + 1 for kk in range(t + 1, L + 1))
     ref = bitonic_sort_plain(k, p)
     torch.cuda.synchronize()
     if payload:
@@ -277,17 +334,25 @@ def test_wta_lr_right_map_matches_plain(cuda, H, W, D, dtype, d0, d12):
     assert (disp - disp_p).abs().max().item() <= 1e-6
 
 
-@pytest.mark.parametrize("name", CC_MASKS)
+@pytest.mark.parametrize("name", CC_MASKS + CC_TILE_MASKS)
 def test_cc_kernel_matches_plain(cuda, name):
-    conn_h, conn_v = _conn(_cc_masks(name))
+    v = (_cc_masks if name in CC_MASKS else _cc_tile_masks)(name)
+    conn_h, conn_v = _conn(v)
     got = kernels.connected_component_labels(conn_h.to(cuda),
                                              conn_v.to(cuda))
     torch.cuda.synchronize()
     ref = connected_component_labels_plain(conn_h, conn_v)
     assert torch.equal(got.cpu(), ref)
-    if name in ("hilbert", "serpentine"):
-        v = torch.from_numpy(_cc_masks(name))
-        assert got.cpu()[v].unique().numel() == 1
+    if name in ("hilbert", "serpentine", "hilbert_w-1", "hilbert_w+1",
+                "serp_w+1"):
+        assert got.cpu()[torch.from_numpy(v)].unique().numel() == 1
+    if name == "touch_all":
+        # pixel (0, 0)'s component reaches into every tile
+        one = (got.cpu() == 0).numpy()
+        H, W = v.shape
+        assert all(one[y:y + TILE_ROWS, x:x + TILE_COLS].any()
+                   for y in range(0, H, TILE_ROWS)
+                   for x in range(0, W, TILE_COLS))
 
 
 def test_cc_kernel_full_middlebury_frame(cuda):

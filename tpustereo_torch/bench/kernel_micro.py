@@ -5,23 +5,38 @@ card: its compile-time sizes, and the source with one part cut out.
     python3 -m tpustereo_torch.bench.kernel_micro census_cost
     python3 -m tpustereo_torch.bench.kernel_micro sad_wta
     python3 -m tpustereo_torch.bench.kernel_micro wta_lr
+    python3 -m tpustereo_torch.bench.kernel_micro bitonic
+    python3 -m tpustereo_torch.bench.kernel_micro cc_labels
+    python3 -m tpustereo_torch.bench.kernel_micro NAME --against DIR
 
 For the kernel named (`csrc/<name>.cu`) this script compiles the source once
 per entry of `SIZES[name]` (`-D` macros that the source reads in place of
 its shipped constants; the outputs must equal the shipped kernel's) and
 once per entry of `ABLATIONS[name]` (the source with one statement
-replaced, at the shipped sizes; its outputs are wrong and not checked)
+replaced, at the shipped sizes; its outputs are not checked, and most
+are wrong)
 into `build/kernel_micro/`. It runs each at its path's shapes (`_cases`):
 `bwd_wta` and `census_cost` at the KITTI path's (4 synthetic 375 x 1242
 frames, D = 128, the `kitti_sgm8` preset); `sad_wta` on one 288 x 384
 Tsukuba frame (`tsukuba_sad`, LR check off as in the preset, and on);
 `wta_lr` on one 375 x 621 uint8 census volume (`middlebury_census_wta`)
 and on 4 frames of 1988 x 2964 of the int16 aggregated volume
-(`middlebury_sgm4`, LR check on). It prints the card's name and power
-limit, then one JSON line: ms per launch of each build in each case, by
-CUDA events (mean of 20 launches after a warm-up) and by CUDA-graph replay
-(20 launches captured in one graph: the device's time without the host's
-per launch), in turns shipped, builds..., shipped.
+(`middlebury_sgm4`, LR check on); `bitonic` on the pair sort (labels,
+pixel index) and the keys-only sort (index * 2 + bit) of the speckle
+labels of 4 KITTI frames, 4 rows of 465,750 padded to 2^19, as
+`component_big_sorted` makes them (each launch first copies the unsorted
+rows into the buffers it sorts in place: `copy_ms` is that copy alone);
+`cc_labels` on the speckle graph of those 4 frames (the LR-checked WTA
+disparity of the `kitti_sgm8` path). Each `--against DIR` (the option
+may be repeated) makes the same source of another checkout
+(`DIR/tpustereo_torch/csrc/<name>.cu`, the same C interface) one more
+build, named after DIR (a parent commit unpacked into `parent/`, say),
+held to the shipped outputs. It prints the card's name and power limit,
+then one JSON line: ms per launch of each build in each case, by CUDA
+events (mean of 20 launches after a warm-up) and by CUDA-graph replay (20
+launches captured in one graph: the device's time without the host's per
+launch), in turns shipped, builds..., shipped, and each build's device ms
+a call in each of its kernels (`profile_ms`, by `torch.profiler`).
 """
 
 from __future__ import annotations
@@ -38,16 +53,22 @@ import torch
 from tpustereo_torch import PRESETS, kernels
 from tpustereo_torch.data import synthetic_pair
 from tpustereo_torch.kernels import _build
+from tpustereo_torch.kernels.bitonic import _SIGS as _BITONIC_SIGS
+from tpustereo_torch.kernels.bitonic import IMAX, padded_log2
+from tpustereo_torch.kernels.cc import _SIGS as _CC_SIGS
 from tpustereo_torch.kernels.cost import _SIGS as _COST_SIGS
 from tpustereo_torch.kernels.sad import _SIGS as _SAD_SIGS
 from tpustereo_torch.kernels.sgm import _BWD_SIGS
 from tpustereo_torch.kernels.wta import _SIGS as _WTA_SIGS
+from tpustereo_torch.ops.postproc import speckle_conn
 from tpustereo_torch.ops.sgm import DIRS_8
 from tpustereo_torch.pipeline import sgbm_volume
 
 OUT = os.path.join(_build.BUILD, "kernel_micro")
 SIGS = {"bwd_wta": _BWD_SIGS, "census_cost": _COST_SIGS,
-        "sad_wta": _SAD_SIGS, "wta_lr": _WTA_SIGS}
+        "sad_wta": _SAD_SIGS, "wta_lr": _WTA_SIGS,
+        "bitonic": {"bitonic_launch": _BITONIC_SIGS["bitonic_launch"]},
+        "cc_labels": _CC_SIGS}
 # name: {build name: -D flags}
 SIZES = {
     # columns of C and S7 in flight per warp
@@ -64,6 +85,19 @@ SIZES = {
                                    (32, 32, 32))},
     # pixels a tile, at most
     "wta_lr": {f"tile{n}": [f"-DWTA_TX={n}"] for n in (32, 64, 256)},
+    # log2 of the shared-memory tile, log2 of the elements a tile thread
+    # holds, substages a global launch runs (m1: one, the earlier schedule)
+    "bitonic": {f"t{t}_r{r}_m{m}": [f"-DBITONIC_TILE_LOG2={t}",
+                                    f"-DBITONIC_REG_LOG2={r}",
+                                    f"-DBITONIC_GLOBAL_M={m}"]
+                for t, r, m in ((12, 4, 5), (13, 4, 5), (13, 3, 5),
+                                (14, 5, 5), (14, 4, 4), (14, 4, 3),
+                                (14, 4, 2), (14, 4, 1))},
+    # the tile: rows x columns
+    "cc_labels": {f"tile{r}x{c}": [f"-DCC_TILE_ROWS={r}",
+                                   f"-DCC_TILE_COLS={c}"]
+                  for r, c in ((8, 128), (32, 128), (16, 64), (16, 256),
+                               (32, 256), (4, 512))},
 }
 # name: {build name: (statement of the source, what replaces it), or a
 # list of such pairs that cut one part together}
@@ -135,16 +169,53 @@ ABLATIONS = {
         "no_finish": ("if (need_map) {\n    const size_t g",
                       "if (false) {\n    const size_t g"),
     },
+    "bitonic": {
+        # the global launches (they start and leave at once)
+        "no_global": ("if (gid >= groups) return;", "if (gid >= 0) return;"),
+        # the groups of substages in shared memory (the first stages and
+        # each stage's last group stay)
+        "no_smem_groups": ("smem_chunk_at<0, P>(jhi - jlo + 1, jlo, sk, sp, "
+                           "t, k, g0);", ";"),
+        # the swizzle (still exact: it only places elements)
+        "no_swizzle": ("return i ^ (((i >> 5) & 15) | ((i >> 4) & 16));",
+                       "return i;"),
+    },
+    "cc_labels": {
+        # the vertical unions inside each tile
+        "no_local_unions": ("cc_union(L, i, i + TILE_COLS);", ";"),
+        # the border unions (the kernel starts and leaves at once)
+        "no_border": ("if (i >= n) return;\n  const long hw",
+                      "if (i >= 0) return;\n  const long hw"),
+        # the flatten (it starts and leaves at once)
+        "no_flatten": ("if (i >= n) return;\n  const long base",
+                       "if (i >= 0) return;\n  const long base"),
+        # the local pass's stores of the labels
+        "no_local_store": ("    out[(long)(y0 + i / TILE_COLS)",
+                           "    if (r < 0) out[(long)(y0 + i / TILE_COLS)"),
+        # the local pass's loads of the edges (every edge set instead)
+        "no_edge_loads": [("if (lx > 0) h = ch[y * (W - 1) + x0 + lx - 1];",
+                           "if (lx > 0) h = 1;"),
+                          ("if (ly < ht - 1) v = cv[y * W + x0 + lx];",
+                           "if (ly < ht - 1) v = 1;")],
+        # the run starts' compression before the local labels (each pixel
+        # walks its own chain instead; still exact)
+        "no_compress": ("const int r = L[L[i]];",
+                        "const int r = cc_find(L, i);"),
+    },
 }
 
 
-def _compile(name: str) -> dict:
+def _compile(name: str, against: tuple = ()) -> dict:
     os.makedirs(OUT, exist_ok=True)
     nvcc = _build._nvcc()
     src = os.path.join(_build.CSRC, f"{name}.cu")
     with open(src) as f:
         text = f.read()
     builds = {b: (src, flags) for b, flags in SIZES[name].items()}
+    for other in against:
+        csrc = os.path.join(other, "tpustereo_torch", "csrc")
+        builds[os.path.basename(os.path.normpath(other))] = (
+            os.path.join(csrc, f"{name}.cu"), ["-I", csrc])
     for b, cut in ABLATIONS[name].items():
         cut_text = text
         for old, new in [cut] if isinstance(cut[0], str) else cut:
@@ -184,6 +255,24 @@ def _frames(shape, n: int, disparity: float, dev):
             torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev))
 
 
+def _kitti_speckle(dev):
+    """The speckle graph (conn_h, conn_v) and labels of 4 synthetic KITTI
+    frames: the LR-checked WTA disparity of the `kitti_sgm8` path."""
+    cfg = PRESETS["kitti_sgm8"]
+    L, R = _frames((375, 1242), cfg.frames_per_step, 40.0, dev)
+    D, d0 = cfg.num_disparities, cfg.min_disparity
+    C = kernels.census_cost_volume(L, R, D, cfg.max_census_cost,
+                                   cfg.census_window, d0)
+    S7 = torch.zeros(C.shape, dtype=torch.int16, device=dev)
+    for dy, dx in DIRS_8:
+        if (dy, dx) != (0, -1):
+            kernels.sgm_sweep(C, S7, dy, dx, cfg.p1, cfg.p2)
+    disp, valid, d_r = kernels.sweep_bwd_wta(C, S7, cfg)
+    ok = kernels.dr_consistency(d_r, disp, D, cfg.disp12_max_diff, d0)
+    conn_h, conn_v = speckle_conn(disp, valid & ok, cfg)
+    return conn_h, conn_v, kernels.connected_component_labels(conn_h, conn_v)
+
+
 def _cases(name: str, dev) -> list:
     """[(label, shape, reference outputs, output buffers, launch(lib))] at
     the path's shapes; launch passes the current stream, so that a CUDA
@@ -218,6 +307,49 @@ def _cases(name: str, dev) -> list:
                 lib.census_cost_launch(
                     _build.ptr(L), _build.ptr(R), _build.ptr(outs[0]), B, H,
                     W, D, ch, cw, d0, bits, stream()))))
+    elif name == "bitonic":
+        _, _, lab = _kitti_speckle(dev)
+        F, H, W = lab.shape
+        n = H * W
+        n2 = 1 << padded_log2(n)
+        keys = lab.reshape(F, n)
+        idx = torch.arange(n, dtype=torch.int32, device=dev).expand(F, n)
+        sk, sp = kernels.bitonic_sort(keys, idx)
+        packed = sp * 2 + (sk & 1)
+        for label, k, p in (("pair_F4", keys, idx),
+                            ("keys_F4", packed, None)):
+            src = [torch.full((F, n2), IMAX, dtype=torch.int32, device=dev)]
+            src[0][:, :n] = k
+            if p is not None:
+                src.append(torch.zeros((F, n2), dtype=torch.int32,
+                                       device=dev))
+                src[1][:, :n] = p
+            outs = tuple(torch.empty_like(t) for t in src)
+            ref = tuple(t.clone() for t in src)
+            lib = _build.load("bitonic", _BITONIC_SIGS)
+            _build.check(lib, lib.bitonic_launch(
+                _build.ptr(ref[0]), _build.ptr(ref[1]) if p is not None
+                else None, F, padded_log2(n), stream()), "bitonic_sort")
+
+            def launch(lib, src=src, outs=outs):
+                for o, s in zip(outs, src):
+                    o.copy_(s)
+                return lib.bitonic_launch(
+                    _build.ptr(outs[0]),
+                    _build.ptr(outs[1]) if len(outs) > 1 else None,
+                    F, padded_log2(n), stream())
+
+            def copy(src=src, outs=outs):
+                for o, s in zip(outs, src):
+                    o.copy_(s)
+            cases.append((label, [F, n], ref, outs, launch, copy))
+    elif name == "cc_labels":
+        conn_h, conn_v, lab = _kitti_speckle(dev)
+        F, H, W = lab.shape
+        outs = (torch.empty_like(lab),)
+        cases.append(("kitti_F4", [F, H, W], (lab,), outs, lambda lib: (
+            lib.cc_labels_launch(_build.ptr(conn_h), _build.ptr(conn_v),
+                                 _build.ptr(outs[0]), F, H, W, stream()))))
     elif name == "sad_wta":
         base = PRESETS["tsukuba_sad"]
         L, R = _frames((288, 384), 1, 20.0, dev)
@@ -293,6 +425,26 @@ def _graph_ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
+def _split(fn, reps: int = 20) -> dict:
+    """Mean device ms a call of fn() spends in each kernel, by name
+    (`torch.profiler`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.split("(")[0][:40]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / (
+                1e3 * reps)
+    return out
+
+
 def _ms(fn, reps: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
@@ -305,7 +457,7 @@ def _ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def main(name: str) -> None:
+def main(name: str, against: tuple = ()) -> None:
     if name not in SIGS:
         raise SystemExit(f"kernel_micro: name one of {sorted(SIGS)}")
     if not torch.cuda.is_available():
@@ -316,10 +468,10 @@ def main(name: str) -> None:
     print(card, flush=True)
     dev = torch.device("cuda")
     cases = _cases(name, dev)
-    libs = _compile(name)
+    libs = _compile(name, against)
     shipped = _build.load(name, SIGS[name])
     result = {}
-    for label, shape, ref, outs, launch in cases:
+    for label, shape, ref, outs, launch, *copy in cases:
         def run(lib, launch=launch):
             rc = launch(lib)
             if rc != 0:
@@ -328,7 +480,7 @@ def main(name: str) -> None:
         for b, lib in libs.items():
             run(lib)
             torch.cuda.synchronize()
-            if b in SIZES[name] and not all(
+            if b not in ABLATIONS[name] and not all(
                     torch.equal(o, r) for o, r in zip(outs, ref)):
                 raise SystemExit(f"kernel_micro: {name} build {b} differs "
                                  f"from the shipped kernel ({label})")
@@ -339,9 +491,21 @@ def main(name: str) -> None:
             gres[key] = _graph_ms(lambda lib=lib: run(lib))
         result[label] = {"shape": shape, "ms_per_launch": res,
                          "graph_ms_per_launch": gres}
+        result[label]["profile_ms"] = {
+            key: _split(lambda lib=lib: run(lib))
+            for key, lib in [("shipped", shipped), *libs.items()]}
+        if copy:
+            result[label]["copy_ms"] = _ms(copy[0])
+            result[label]["copy_graph_ms"] = _graph_ms(copy[0])
         print(f"{label}: {json.dumps(result[label])}", flush=True)
     print(json.dumps({"card": card, "kernel": name, "cases": result}))
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else "")
+    args = sys.argv[1:]
+    against = []
+    while "--against" in args:
+        at = args.index("--against")
+        against.append(args[at + 1])
+        del args[at:at + 2]
+    main(args[0] if args else "", tuple(against))

@@ -14,29 +14,60 @@
 // operations and a few dependent loads per pixel; what costs time is the
 // length of the pointer chains that finds walk and the atomics on roots.
 //
-// Design: union-find with atomics (Playne & Hawick 2018; Allegretti et al.
-// 2019), three launches. The TPU kernel iterated segmented min-scans in
-// VMEM to a fixpoint and went banded when an image outgrew VMEM; here the
-// label image is the union-find forest itself, in device memory, at any
-// size.
-//   1. rows:    one warp per image row labels each horizontal run with its
-//               first pixel (a ballot per 32 pixels, the open run carried
-//               from one 32-pixel chunk to the next), so every horizontal
-//               edge is settled without an atomic and every pixel points
-//               straight at its run's root.
-//   2. merge:   each pixel with a vertical edge unites itself with the pixel
-//               below: find both roots, then link the larger root under the
-//               smaller with atomicMin, retrying when another thread moved
-//               the root first. A vertical edge whose left neighbour's
-//               vertical edge joins the same two runs is skipped: that
-//               union is already made. Finds halve the path as they walk.
-//   3. flatten: lab[p] = find(p).
-// Every pointer leads to a smaller pixel of the same component and roots
-// only move to smaller indices, so each component's final root is its
-// minimum index: the result is exact and does not depend on the order in
-// which the atomics land. Settling the runs first is what keeps finds
-// short: uniting every horizontal edge by atomics as well builds chains as
-// long as a run, and on KITTI maps most runs span most of a row.
+// Design: block-based union-find with atomics (Allegretti, Bolelli and
+// Grana, "Optimized Block-Based Algorithms to Label Connected Components
+// on GPUs", IEEE TPDS 2020; Playne & Hawick 2018). The TPU kernel iterated
+// segmented min-scans in VMEM to a fixpoint and went banded when an image
+// outgrew VMEM; here the label image is the union-find forest itself, in
+// device memory, at any size. Three launches:
+//   1. local:   one block a tile of TILE_ROWS x TILE_COLS pixels of one
+//               frame (a tile never crosses a frame), its forest in shared
+//               memory. The tile's edge bytes are copied to shared memory
+//               first, every load issued at once, so that no union waits
+//               on a device load. One
+//               warp a tile row labels each horizontal run inside the tile
+//               with its first pixel (a ballot per 32 pixels, the open run
+//               carried from one chunk to the next), so every horizontal
+//               edge inside the tile is settled without an atomic. Then
+//               each vertical edge inside the tile unites its two pixels by
+//               shared-memory atomicMin, finds halving the path as they
+//               walk. Then every run start takes its tile-local root as its
+//               parent (every parent is a run start, so each pixel's root
+//               is then two reads away), and each pixel's parent in device
+//               memory is the frame-local index of its tile-local root,
+//               whose own parent is itself.
+//   2. border:  one thread an edge that crosses a tile border (horizontal
+//               edges between tile columns, vertical edges between tile
+//               rows) unites the two roots in device memory: find both,
+//               link the larger root under the smaller with atomicMin,
+//               retry when another thread moved the root first.
+//   3. flatten: lab[p] = find(p), a thread a pixel. A chain runs p -> its
+//               tile-local root -> the roots that the border unions linked
+//               it under. (Blocks a tile, walking their pixels' chains in
+//               turn, in lockstep or once a tile-local root, were slower on
+//               an H100: 16-20 us against 13.6 at 4 KITTI frames.)
+// Borders need every tile's local roots, and the flatten every border
+// union, both across the whole grid: hence three launches, not one.
+// Edges that the other three edges of their 2x2 square already join are
+// skipped, which keeps most unions and their atomics off a component's
+// root: a vertical edge whose left neighbour's vertical edge and both
+// rows' edges to the left are set (both phases), and a horizontal border
+// edge whose upper neighbour's horizontal edge and both vertical edges
+// between the two rows are set, except on a tile's first row. A skipped
+// edge leans on edges that are never skipped or whose own chain of skips
+// ends at one (leftwards, or upwards at a tile's first row); the one
+// exception would be a square at a tile corner, where each skip would
+// lean on the other.
+//
+// Exactness: within a tile, row-major local order (ly, lx) is the global
+// order (y = y0 + ly first, then x = x0 + lx; lx < TILE_COLS and every
+// column of the tile is inside the frame), so a tile-local root, the
+// minimum local index of its tile-component, is that tile-component's
+// minimum frame-local index. Every pointer, in shared or device memory,
+// leads to a smaller pixel of the same component and roots only move to
+// smaller indices, so each component's final root is its minimum index:
+// the result is exact and does not depend on the order in which the
+// atomics land.
 //
 // Races, and why they are benign: finds read without atomics, so a read
 // may return an older, larger ancestor, still a valid pointer. Path halving
@@ -44,11 +75,27 @@
 // becomes a root again), which only shortens a path; a concurrent atomicMin
 // on that pixel came from a stale find and returns the pixel's parent, not
 // the pixel, so its union goes on from that parent and relies on no link
-// that the store may replace. Every retry of the merge loop lowers a root,
+// that the store may replace. Every retry of the union loop lowers a root,
 // so the loop ends. Flatten writes lab[p] while other threads walk through
 // p; old and new values are both ancestors of p.
 #include "common.cuh"
 
+#ifndef CC_TILE_ROWS
+#define CC_TILE_ROWS 16
+#endif
+#ifndef CC_TILE_COLS
+#define CC_TILE_COLS 128
+#endif
+
+constexpr int TILE_ROWS = CC_TILE_ROWS;
+constexpr int TILE_COLS = CC_TILE_COLS;
+constexpr int LOCAL_THREADS = 256;  // a tile's block
+constexpr int THREADS = 256;
+static_assert(TILE_COLS % 32 == 0 && TILE_ROWS >= 1 &&
+                  TILE_ROWS * TILE_COLS <= 8192,
+              "tiles of whole warps, at most 32 KB of labels");
+
+// Works on shared and device memory alike (a generic pointer).
 __device__ __forceinline__ int cc_find(const int32_t* L, int p) {
   int q = L[p];
   while (q != p) {
@@ -84,52 +131,128 @@ __device__ __forceinline__ void cc_union(int32_t* L, int a, int b) {
   }
 }
 
-// One warp per image row (F * H rows): lab[p] = the frame-local index of the
-// first pixel of p's horizontal run.
-__global__ void cc_rows_kernel(const uint8_t* __restrict__ conn_h,
-                               int32_t* __restrict__ lab, int rows, int H,
-                               int W) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+// Phase 1: one block a tile; tile index = (f * ncy + ty) * ncx + tx.
+__global__ void __launch_bounds__(LOCAL_THREADS)
+    cc_local_kernel(const uint8_t* __restrict__ conn_h,
+                    const uint8_t* __restrict__ conn_v,
+                    int32_t* __restrict__ lab, int H, int W, int ncy,
+                    int ncx) {
+  constexpr int N = TILE_ROWS * TILE_COLS;
+  __shared__ int32_t L[N];
+  // at tile pixel i = (ly, lx): sh the edge to its left (0 at lx = 0), sv
+  // the edge below it (0 on the tile's last row); both 0 outside the frame
+  __shared__ uint8_t sh[N], sv[N];
+  const long b = blockIdx.x;
+  const int tx = (int)(b % ncx), ty = (int)(b / ncx % ncy);
+  const long f = b / ncx / ncy;
+  const int x0 = tx * TILE_COLS, y0 = ty * TILE_ROWS;
+  const int wt = min(TILE_COLS, W - x0), ht = min(TILE_ROWS, H - y0);
+  const uint8_t* ch = conn_h + f * H * (long)(W - 1);
+  const uint8_t* cv = conn_v + f * (H - 1) * (long)W;
   const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // the whole warp leaves together
-  const uint8_t* ch = conn_h + (long)row * (W - 1);
-  int32_t* out = lab + (long)row * W;
-  const int y0 = (row % H) * W;  // frame-local index of the row's start
   const unsigned upto = FULL_MASK >> (31 - lane);  // lanes 0..lane
-  int open = 0;  // start column of the run open at the chunk's left edge
-  for (int x0 = 0; x0 < W; x0 += 32) {
-    const int x = x0 + lane;
-    const bool left = x < W && x > 0 && ch[x - 1];
-    const unsigned starts = ~__ballot_sync(FULL_MASK, left) & upto;
-    const int start = starts ? x0 + 31 - __clz(starts) : open;
-    if (x < W) out[x] = y0 + start;
-    open = __shfl_sync(FULL_MASK, start, 31);
+
+#pragma unroll
+  for (int it = 0; it < (N + LOCAL_THREADS - 1) / LOCAL_THREADS; ++it) {
+    const int i = it * LOCAL_THREADS + threadIdx.x;
+    const int ly = i / TILE_COLS, lx = i % TILE_COLS;
+    uint8_t h = 0, v = 0;
+    if (i < N && ly < ht && lx < wt) {
+      const long y = y0 + ly;
+      if (lx > 0) h = ch[y * (W - 1) + x0 + lx - 1];
+      if (ly < ht - 1) v = cv[y * W + x0 + lx];
+    }
+    if (i < N) {
+      sh[i] = h;
+      sv[i] = v;
+    }
+  }
+  __syncthreads();
+
+  // runs: one warp a tile row; each pixel points at its run's first pixel
+  for (int ly = threadIdx.x >> 5; ly < ht; ly += LOCAL_THREADS / 32) {
+    int open = 0;  // start column of the run open at the chunk's left edge
+#pragma unroll
+    for (int lx0 = 0; lx0 < TILE_COLS; lx0 += 32) {
+      const int i = ly * TILE_COLS + lx0 + lane;
+      const unsigned starts = ~__ballot_sync(FULL_MASK, sh[i]) & upto;
+      const int start = starts ? lx0 + 31 - __clz(starts) : open;
+      L[i] = ly * TILE_COLS + start;
+      open = __shfl_sync(FULL_MASK, start, 31);
+    }
+  }
+  __syncthreads();
+
+  // vertical edges inside the tile; skipped where the left neighbour's
+  // vertical edge and both rows' edges to the left join the same two runs
+  for (int i = threadIdx.x; i < (ht - 1) * TILE_COLS; i += LOCAL_THREADS) {
+    if (!sv[i]) continue;
+    if (i % TILE_COLS > 0 && sv[i - 1] && sh[i] && sh[i + TILE_COLS])
+      continue;
+    cc_union(L, i, i + TILE_COLS);
+  }
+  __syncthreads();
+
+  // run starts (no edge to their left) to their roots; racing walks read an
+  // old parent or the root, both ancestors
+  for (int i = threadIdx.x; i < ht * TILE_COLS; i += LOCAL_THREADS)
+    if (!sh[i]) L[i] = cc_find(L, i);
+  __syncthreads();
+
+  // each pixel's parent: its tile-local root, as a frame-local index
+  int32_t* out = lab + f * H * (long)W;
+  for (int i = threadIdx.x; i < ht * TILE_COLS; i += LOCAL_THREADS) {
+    const int lx = i % TILE_COLS;
+    if (lx >= wt) continue;
+    const int r = L[L[i]];
+    out[(long)(y0 + i / TILE_COLS) * W + x0 + lx] =
+        (y0 + r / TILE_COLS) * W + x0 + r % TILE_COLS;
   }
 }
 
-__global__ void cc_merge_kernel(const uint8_t* __restrict__ conn_h,
-                                const uint8_t* __restrict__ conn_v,
-                                int32_t* lab, long n, int H, int W) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+// Phase 2: one thread an edge across a tile border. The first n_h threads
+// take the horizontal edges (y, x-1)-(y, x) at x = c * TILE_COLS, in the
+// order (f, y, c); the rest the vertical edges (y-1, x)-(y, x) at
+// y = r * TILE_ROWS, in the order (f, r, x).
+__global__ void cc_border_kernel(const uint8_t* __restrict__ conn_h,
+                                 const uint8_t* __restrict__ conn_v,
+                                 int32_t* lab, int H, int W, int ncy, int ncx,
+                                 long n_h, long n) {
+  const long i = (long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
   const long hw = (long)H * W;
-  const long f = i / hw;
-  const int p = (int)(i - f * hw);
-  const int y = p / W, x = p - y * W;
-  if (y >= H - 1) return;
-  const uint8_t* cv = conn_v + f * (hw - W);
-  if (!cv[p]) return;
-  if (x > 0 && cv[p - 1]) {
-    // the left neighbour's edge joins the same two runs when both rows
-    // continue to the left
-    const uint8_t* ch = conn_h + (f * H + y) * (W - 1);
-    if (ch[x - 1] && ch[W - 1 + x - 1]) return;
+  if (i < n_h) {
+    const int c = (int)(i % (ncx - 1)) + 1;
+    const long fy = i / (ncx - 1);  // f * H + y
+    const int y = (int)(fy % H), x = c * TILE_COLS;
+    const long f = fy / H;
+    const uint8_t* ch = conn_h + fy * (W - 1) + x - 1;
+    const uint8_t* cv = conn_v + (f * (H - 1) + y - 1) * W + x - 1;
+    const bool edge = ch[0];
+    bool skip = false;
+    if (y % TILE_ROWS != 0) skip = ch[-(W - 1)] & cv[0] & cv[1];
+    if (!edge || skip) return;
+    cc_union(lab + f * hw, y * W + x - 1, y * W + x);
+    return;
   }
-  cc_union(lab + f * hw, p, p + W);
+  const long j = i - n_h;
+  const int x = (int)(j % W);
+  const long fr = j / W;  // f * (ncy - 1) + r - 1
+  const long f = fr / (ncy - 1);
+  const int y = (int)(fr % (ncy - 1) + 1) * TILE_ROWS;
+  const uint8_t* cv = conn_v + (f * (H - 1) + y - 1) * W + x;
+  const uint8_t* ch = conn_h + (f * H + y - 1) * (W - 1) + x - 1;
+  // every load at once; the skip rule is phase 1's
+  const bool edge = cv[0];
+  bool skip = false;
+  if (x > 0) skip = cv[-1] & ch[0] & ch[W - 1];
+  if (!edge || skip) return;
+  cc_union(lab + f * hw, (y - 1) * W + x, y * W + x);
 }
 
+// Phase 3.
 __global__ void cc_flatten_kernel(int32_t* lab, long n, int hw) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long i = (long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
   const long base = i - i % hw;
   lab[i] = cc_find(lab + base, (int)(i - base));
@@ -138,14 +261,22 @@ __global__ void cc_flatten_kernel(int32_t* lab, long n, int hw) {
 TPS_EXPORT int cc_labels_launch(const uint8_t* conn_h, const uint8_t* conn_v,
                                 int32_t* lab, int F, int H, int W,
                                 void* stream) {
-  const long n = (long)F * H * W;
-  const int rows = F * H;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  const unsigned row_blocks = (unsigned)((rows * 32L + threads - 1) / threads);
+  if (F < 1 || H < 1 || W < 1 || (long)F * H * W >= (1L << 31))
+    return (int)cudaErrorInvalidValue;
+  const int ncy = (H + TILE_ROWS - 1) / TILE_ROWS;
+  const int ncx = (W + TILE_COLS - 1) / TILE_COLS;
+  const long n_h = (long)F * H * (ncx - 1);
+  const long n_border = n_h + (long)F * (ncy - 1) * W;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cc_rows_kernel<<<row_blocks, threads, 0, s>>>(conn_h, lab, rows, H, W);
-  cc_merge_kernel<<<blocks, threads, 0, s>>>(conn_h, conn_v, lab, n, H, W);
-  cc_flatten_kernel<<<blocks, threads, 0, s>>>(lab, n, H * W);
+  const unsigned tiles = (unsigned)((long)F * ncy * ncx);
+  cc_local_kernel<<<tiles, LOCAL_THREADS, 0, s>>>(conn_h, conn_v, lab, H, W,
+                                                   ncy, ncx);
+  if (n_border > 0)
+    cc_border_kernel<<<(unsigned)((n_border + THREADS - 1) / THREADS),
+                       THREADS, 0, s>>>(conn_h, conn_v, lab, H, W, ncy, ncx,
+                                        n_h, n_border);
+  const long n = (long)F * H * W;
+  cc_flatten_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0,
+                      s>>>(lab, n, H * W);
   return (int)cudaGetLastError();
 }

@@ -10,6 +10,11 @@ kernel's order, not merely in some order. The JAX function sorts one flat
 array; here every leading index is one independent sort. Unlike the TPU
 kernel (`MAX_LOG2_PAIR = 21`, a VMEM and compile-time limit) any length up
 to 2^30 runs.
+
+The kernel works in tiles of 2^TILE_LOG2 elements in shared memory and
+runs the substages at or above the tile GLOBAL_M to a launch (the defaults
+of `BITONIC_TILE_LOG2` and `BITONIC_GLOBAL_M` in the source, mirrored here
+for the tests and `chip_smoke.py`).
 """
 
 from __future__ import annotations
@@ -21,16 +26,27 @@ import torch
 from tpustereo_torch.kernels import _build
 
 IMAX = (1 << 31) - 1  # the pad key: real keys must lie below it
+TILE_LOG2 = 14
+GLOBAL_M = 5
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
     # keys, payload (or null), rows, log2 of the padded length, stream
     "bitonic_launch": ([_P, _P, _I, _I, _P], _I),
+    # log2 of the padded length -> kernel launches of one call
+    "bitonic_launches": ([_I], _I),
 }
 
 
 def padded_log2(n: int) -> int:
     """log2 of the padded length max(256, next_pow2(n))."""
     return max(8, (n - 1).bit_length())
+
+
+def kernel_launches(n: int) -> int:
+    """The CUDA kernel launches that one `bitonic_sort` of rows of n keys
+    makes on the card (the source's own schedule, counted without
+    launching; builds the library)."""
+    return _build.load("bitonic", _SIGS).bitonic_launches(padded_log2(n))
 
 
 def _pad(x: torch.Tensor, n2: int, fill: int) -> torch.Tensor:
@@ -74,7 +90,8 @@ def bitonic_sort(keys: torch.Tensor, payload: torch.Tensor | None = None):
     Returns the sorted keys, or (keys, payload).
 
     CUDA tensors run the kernel (one count per call, which launches its
-    tile and global passes), CPU tensors the plain version."""
+    tile and fused global passes: `kernel_launches(n)` of them), CPU
+    tensors the plain version."""
     if keys.dim() < 1 or keys.numel() == 0 or keys.dtype != torch.int32:
         raise ValueError(f"keys must be a non-empty int32 tensor, got "
                          f"{keys.dtype} {tuple(keys.shape)}")

@@ -2,7 +2,11 @@
 
 Counterpart of the JAX package's `kernels/cc_pallas.py`
 (`connected_component_labels_pallas`). The kernel is `csrc/cc_labels.cu`, a
-union-find with atomics; its plain version is
+block-based union-find: each tile of TILE_ROWS x TILE_COLS pixels of a
+frame is labelled in shared memory, then the edges across tile borders are
+united with atomics in device memory and every pixel is flattened to its
+root (the defaults of `CC_TILE_ROWS` and `CC_TILE_COLS` in the source,
+mirrored here for the tests). Its plain version is
 `ops.postproc.connected_component_labels`. Neither needs the TPU kernel's
 VMEM gate or banded mode: any size with F*H*W < 2**31 runs whole.
 """
@@ -17,6 +21,7 @@ from tpustereo_torch.kernels import _build
 from tpustereo_torch.ops.postproc import (
     connected_component_labels as connected_component_labels_plain)
 
+TILE_ROWS, TILE_COLS = 16, 128
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
     # conn_h, conn_v, lab, F, H, W, stream
@@ -31,7 +36,8 @@ def connected_component_labels(conn_h: torch.Tensor,
     (F, H, W) or (H, W), each the component's minimum linear index within
     its frame (stride W).
 
-    CUDA tensors run the kernel, CPU tensors the plain version."""
+    CUDA tensors run the kernel (one count per call, which launches its
+    local, border and flatten passes), CPU tensors the plain version."""
     if conn_h.dim() not in (2, 3) or conn_v.dim() != conn_h.dim():
         raise ValueError("need conn_h and conn_v of rank 2 or 3 alike")
     if conn_h.dtype != torch.bool or conn_v.dtype != torch.bool:
