@@ -14,9 +14,9 @@ D = 128, 8 frames, 4 per set of kernel launches):
 2. runs each of the path's six kernels and its plain PyTorch version on the
    card at the main path's shapes (the speckle and median kernels on the
    main path's own disparity maps) and requires integer and bool outputs
-   and the median to be equal and the float disparity to agree within 1e-6,
-   and the census kernel also on one 2 x 9,000 frame (past the width its
-   earlier design took);
+   to be equal, the median bit for bit (also on a map of signed zeros) and
+   the float disparity to agree within 1e-6, and the census kernel also on
+   one 2 x 9,000 frame (past the width its earlier design took);
 3. drives `api.match_batch` on 8 synthetic pairs with every launch counter
    set to 0 just before, requires every kernel of the path to have
    launched, and holds the output against the plain PyTorch pipeline (the
@@ -60,7 +60,9 @@ The SGM volume route and the relayout kernels:
    full shapes (4 frames of 1988 x 2964, D = 128: the uint8 C and the int16
    S after the vertical sweeps), and `transpose_sum_hw` and
    `sgm_sweep_bidir` (column shifts (0, 1, -1) and (0,)) at the KITTI
-   path's (4 frames of 375 x 1242), all `torch.equal`;
+   path's (4 frames of 375 x 1242), all `torch.equal`; times
+   `sgm_sweep_bidir` by events and by CUDA-graph replay beside the
+   function's byte bound and the floor of its one launch per shift;
 9. drives `pipeline.sgbm_volume` + `select_and_refine` on 8 synthetic
    1988 x 2964 pairs under the unmodified `PRESETS["middlebury_sgm4"]`
    (4 paths, D = 128, speckle, median, 4 frames per set of launches) with
@@ -74,9 +76,10 @@ The SGM volume route and the relayout kernels:
    alone on one set of 4 frames, and `wta_lr` on the route's S of those
    frames (int16, LR check on), beside their byte bounds;
 10. drives `kitti_sgm8` through `api.match_batch` with
-   `kernels.sgm.BIDIR_VERT = True`, requires `sgm_sweep_bidir`,
-   `transpose_sum_hw` and `transpose_hw` to have launched and the output to
-   equal the default route's (step 3), and times both routes;
+   `kernels.sgm.BIDIR_VERT = True`, requires `sgm_sweep_bidir` (its s16x2
+   build alone), `transpose_sum_hw` and `transpose_hw` to have launched and
+   the output to equal the default route's (step 3), and times both
+   routes;
 11. drives `middlebury_sgm4` with P2 = 1000 (past the fused bound:
    paths * (census_bits + P2) >= 4096) at KITTI size through
    `api.match_batch`, requires the volume route (`transpose_hw` launched,
@@ -731,7 +734,7 @@ def volume_path(card: str, kitti: dict) -> list:
     Ck = kernels.census_cost_volume(kitti["L"][:F], kitti["R"][:F], D,
                                     kcfg.max_census_cost,
                                     kcfg.census_window, kcfg.min_disparity)
-    nk = Ck.numel()
+    nk, Ck_shape = Ck.numel(), Ck.shape
     dxs8 = (0, 1, -1)
     for dxs in ((0,), dxs8):   # the 8-path pair stays for transpose_sum_hw
         Sd, Su = kernels.sgm_sweep_bidir(Ck, dxs, p1, p2)
@@ -768,6 +771,10 @@ def volume_path(card: str, kitti: dict) -> list:
     # Su once (5 bytes per cost); ~9 integer ops per cost and chain
     ms["sgm_sweep_bidir"] = cuda_ms(
         lambda: kernels.sgm_sweep_bidir(Ck, dxs8, p1, p2), 5) / len(dxs8)
+    # one call a replay: each call allocates Sd and Su, and a graph of
+    # several would hold a set of them per call
+    bidir_graph_ms = graph_ms(
+        lambda: kernels.sgm_sweep_bidir(Ck, dxs8, p1, p2), 1) / len(dxs8)
     plain_ms["sgm_sweep_bidir"] = cuda_ms(
         lambda: sgm_sweep_bidir_plain(Ck, dxs8, p1, p2), 1,
         warmup=0) / len(dxs8)
@@ -776,6 +783,19 @@ def volume_path(card: str, kitti: dict) -> list:
     # two int16 volumes read, one written; one add per cost
     bounds["transpose_sum_hw"] = bound(6 * nk, nk)
     bounds["sgm_sweep_bidir"] = bound(5 * nk / len(dxs8), 2 * 9 * nk)
+    # the floor of one launch per dx: the first writes Sd and Su, each
+    # later one also reads them, and each of the two lines reads all of C
+    # (6, then 10 bytes per cost; 5 and 9 if C were read once a launch)
+    def floor_ms(c_reads):
+        return (bound((c_reads + 4) * nk, 0)[0]
+                + (len(dxs8) - 1) * bound((c_reads + 8) * nk, 0)[0]
+                ) / len(dxs8)
+    print(f"[{card}] sgm_sweep_bidir at (B, H, W, D) = {tuple(Ck_shape)}, "
+          f"dxs {dxs8}, ms per launch: events {ms['sgm_sweep_bidir']:.4f}, "
+          f"graph replay {bidir_graph_ms:.4f}; the function's byte bound "
+          f"{bounds['sgm_sweep_bidir'][0]:.4f}, the one-launch-per-dx "
+          f"floor {floor_ms(2):.4f} ({floor_ms(1):.4f} with C read once a "
+          f"launch)", flush=True)
 
     # --- 9. the volume route at full width, through the user's entry points
     def volume_route():
@@ -885,14 +905,19 @@ def volume_path(card: str, kitti: dict) -> list:
         out_b = api.match_batch(kitti["lefts"], kitti["rights"], kcfg)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
+        bidir_builds = dict(kernels.sgm_sweep_bidir.builds)
         bidir_ms = cuda_ms(lambda: sgbm_batched(Lk, Rk, kcfg), 5)
     finally:
         ksgm.BIDIR_VERT = False
     default_ms = cuda_ms(lambda: sgbm_batched(Lk, Rk, kcfg), 5)
-    print(f"kitti_sgm8 BIDIR_VERT route launches: {launches}", flush=True)
+    print(f"kitti_sgm8 BIDIR_VERT route launches: {launches}; "
+          f"sgm_sweep_bidir builds: {bidir_builds}", flush=True)
     for k in ("sgm_sweep_bidir", "transpose_sum_hw", "transpose_hw"):
         require(launches[k] > 0, f"{k} was not launched on the BIDIR_VERT "
                 f"route")
+    require(bidir_builds["s16x2"] == launches["sgm_sweep_bidir"],
+            f"the BIDIR_VERT route did not run the s16x2 build of "
+            f"sgm_sweep_bidir alone: {bidir_builds}")
     require(np.array_equal(out_b, kitti["out"]),
             "the BIDIR_VERT route's output differs from the default route's")
     print(f"[{card}] kitti_sgm8 batch of {BATCH}: BIDIR_VERT route "
@@ -1645,9 +1670,18 @@ def main() -> None:
     med = kernels.median3(med_in)
     med_p = median3(med_in)
     torch.cuda.synchronize()
-    require(torch.equal(med, med_p), "median3 differs from plain")
+    require(torch.equal(med.view(torch.int32), med_p.view(torch.int32)),
+            "median3 differs from plain")
     err["median3"] = (med - med_p).abs().max().item()
-    del med_p
+    # the same shape of +-0.0, +-1 and 2: bit for bit where zeros of both
+    # signs meet
+    zs = torch.tensor([0.0, -0.0, 1.0, -1.0, 2.0], device=dev)[
+        torch.randint(0, 5, med_in.shape, device=dev,
+                      generator=torch.Generator(dev).manual_seed(0))]
+    require(torch.equal(kernels.median3(zs).view(torch.int32),
+                        median3(zs).view(torch.int32)),
+            "median3 differs from plain on signed zeros")
+    del med_p, zs
     for name, e in err.items():
         print(f"check {name}: max abs diff to plain = {e}", flush=True)
 

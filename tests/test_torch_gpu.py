@@ -32,7 +32,8 @@ from tpustereo_torch.kernels.lr import (dr_consistency_hits_plain,
                                         dr_consistency_plain)
 from tpustereo_torch.kernels.median import median3_plain
 from tpustereo_torch.kernels.sad import sad_wta_plain
-from tpustereo_torch.kernels.sgm import (sgm_sweep_bidir_plain,
+from tpustereo_torch.kernels.sgm import (bidir_fits_s16x2,
+                                         sgm_sweep_bidir_plain,
                                          sgm_sweep_plain, sweep_bwd_wta_plain)
 from tpustereo_torch.kernels.transpose import (transpose_hw_plain,
                                                transpose_sum_hw_plain)
@@ -367,19 +368,49 @@ def test_cc_kernel_full_middlebury_frame(cuda):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("shape", [(40, 72), (1, 17), (2, 9), (13, 1),
-                                   (11, 2), (3, 21, 37), (2, 1, 1),
-                                   (4, 375, 1242)])
-def test_median_kernel_matches_plain(cuda, shape):
-    rng = np.random.default_rng(7)
-    d = rng.uniform(0, 60, shape).astype(np.float32)
-    d[rng.random(shape) < 0.3] = -1.0
+def _median_map(kind: str, shape, rng) -> np.ndarray:
+    if kind == "random":  # disparities, 30 % invalid
+        d = rng.uniform(0, 60, shape).astype(np.float32)
+        d[rng.random(shape) < 0.3] = -1.0
+    elif kind == "signed_zeros":  # +-0.0 meet in most windows, and repeats
+        d = rng.choice(np.array([0.0, -0.0, 0.0, -0.0, 1.0, -1.0, 2.0],
+                                dtype=np.float32), shape)
+    elif kind == "constant":
+        d = np.full(shape, 17.25, np.float32)
+    else:  # every pixel invalid
+        d = np.full(shape, -1.0, np.float32)
+    return d
+
+
+# the kernel's tiles are 8 rows x 128 columns, each lane 4 adjacent
+# pixels from where its row's output is 16-byte aligned: widths 1-33 and
+# 1242 put the rows at every alignment and the tiles' edges anywhere
+MEDIAN_SHAPES = ([(40, 72), (1, 17), (2, 9), (13, 1), (11, 2), (3, 21, 37),
+                  (2, 1, 1), (4, 375, 1242)]
+                 + [(2, 5, w) for w in range(1, 34)] + [(3, 9, 1242)])
+
+
+@pytest.mark.parametrize("shape", MEDIAN_SHAPES)
+@pytest.mark.parametrize("kind", ["random", "signed_zeros", "constant",
+                                  "invalid"])
+def test_median_kernel_matches_plain(cuda, shape, kind):
+    d = _median_map(kind, shape, np.random.default_rng(7))
     x = torch.from_numpy(d).to(cuda)
     got = kernels.median3(x)
     ref = median3_plain(x)
     torch.cuda.synchronize()
     assert got.shape == x.shape
-    assert torch.equal(got, ref)
+    # bit for bit: -0.0 and +0.0 differ
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_median_kernel_takes_unaligned_maps(cuda):
+    d = _median_map("signed_zeros", (3, 7, 13), np.random.default_rng(8))
+    x = torch.from_numpy(d).to(cuda)[1:]  # 91 floats in: not 16-byte aligned
+    got = kernels.median3(x)
+    ref = median3_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
 # (d0, uniqueness, subpixel, disp12_max_diff): min_disparity 0/3,
@@ -469,16 +500,40 @@ def test_transpose_sum_kernel_matches_plain(cuda, B, H, W, D):
     assert torch.equal(got, transpose_sum_hw_plain(a, b))
 
 
-@pytest.mark.parametrize("D", [16, 40, 128, 200])
+# (D, P2, the build that must run), at P1 = 10: the s16x2 build where every
+# lane is full (D = 32 K) at the preset's P2, the int32 build elsewhere
+# (D = 37: plain loads into the ring, scalar stores) and past the packed
+# halves' range (P2 = 32,700: 255 + 10 + 32,700 >= 2^15; the sums wrap)
+BIDIR_CASES = [(16, 120, "int32"), (40, 120, "int32"), (128, 120, "s16x2"),
+               (200, 120, "int32"), (64, 120, "s16x2"), (32, 120, "s16x2"),
+               (256, 120, "s16x2"), (512, 120, "s16x2"), (37, 120, "int32"),
+               (128, 32700, "int32")]
+
+
+@pytest.mark.parametrize("D,p2,build", BIDIR_CASES)
 @pytest.mark.parametrize("dxs", [(0, 1, -1), (0,), (1,), (-1, 0)])
 @pytest.mark.parametrize("H,W", [(19, 43), (37, 6), (1, 9)])
-def test_bidir_kernel_matches_plain(cuda, D, dxs, H, W):
+def test_bidir_kernel_matches_plain(cuda, D, p2, build, dxs, H, W):
     C = _volume(cuda, 2, H, W, D, seed=11)
-    Sd, Su = kernels.sgm_sweep_bidir(C, dxs, 10, 120)
-    Sd_p, Su_p = sgm_sweep_bidir_plain(C, dxs, 10, 120)
+    kernels.reset_launch_counts()
+    Sd, Su = kernels.sgm_sweep_bidir(C, dxs, 10, p2)
+    builds = dict(kernels.sgm_sweep_bidir.builds)
+    Sd_p, Su_p = sgm_sweep_bidir_plain(C, dxs, 10, p2)
     torch.cuda.synchronize()
     assert torch.equal(Sd, Sd_p)
     assert torch.equal(Su, Su_p)
+    assert (build == "s16x2") == bidir_fits_s16x2(D, 255, 10, p2)
+    assert builds == {"s16x2": 0, "int32": 0, build: len(dxs)}
+
+
+def test_bidir_kernel_takes_unaligned_volumes(cuda):
+    # the second frame of 19 x 43 x 40 bytes starts 8 bytes off 16
+    C = _volume(cuda, 3, 19, 43, 40, seed=14)[1:]
+    assert C.data_ptr() % 16 == 8
+    Sd, Su = kernels.sgm_sweep_bidir(C, (0, 1, -1), 10, 120)
+    Sd_p, Su_p = sgm_sweep_bidir_plain(C, (0, 1, -1), 10, 120)
+    torch.cuda.synchronize()
+    assert torch.equal(Sd, Sd_p) and torch.equal(Su, Su_p)
 
 
 @pytest.mark.parametrize("paths", [4, 8])

@@ -23,6 +23,7 @@ from tpustereo.kernels import census_cost_volume_pallas, dr_consistency_pallas
 from tpustereo.pipeline import sgbm as j_sgbm
 from tpustereo_torch import PRESETS, Config, api, kernels
 from tpustereo_torch.convert import config_from_jax
+from tpustereo_torch.kernels.sgm import bidir_fits_s16x2
 from tpustereo_torch.pipeline import sgbm, sgbm_batched
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -110,6 +111,33 @@ def test_wrappers_refuse_bad_inputs():
     with pytest.raises(TypeError):
         kernels.dr_consistency(torch.zeros((4, 8), dtype=torch.int64),
                                torch.zeros((4, 8)), 16, 1)
+
+
+# (D, c_max, P1, P2, fits). The s16x2 build of `sgm_sweep_bidir` needs
+# every lane of the warp full, D = 32 K (K = 1, 2, 4, 8 or 16 disparities a
+# lane), and c_max + P1 + P2 < 2^15, the exactness condition of
+# `sgm_step_s16x2` (`csrc/common.cuh`).
+@pytest.mark.parametrize("D,c_max,p1,p2,fits", [
+    (128, 24, 10, 120, True),  # kitti_sgm8: 154
+    (32, 24, 10, 120, True), (64, 24, 10, 120, True),
+    (256, 24, 10, 120, True), (512, 24, 10, 120, True),
+    (96, 24, 10, 120, False),  # 3 a lane: K rounds up to 4, lanes not full
+    (16, 24, 10, 120, False), (40, 24, 10, 120, False),
+    (127, 24, 10, 120, False), (129, 24, 10, 120, False),
+    (200, 24, 10, 120, False), (1024, 24, 10, 120, False),
+    (128, 255, 10, 32502, True),   # 2^15 - 1
+    (128, 255, 10, 32503, False),  # 2^15
+    (64, 24, 0, 32743, True), (64, 24, 0, 32744, False),
+    (32, 0, 16383, 16384, True), (32, 0, 16384, 16384, False),
+])
+def test_bidir_fits_s16x2_at_its_edges(D, c_max, p1, p2, fits):
+    assert bidir_fits_s16x2(D, c_max, p1, p2) is fits
+
+
+def test_reset_launch_counts_clears_the_build_counts():
+    kernels.sgm_sweep_bidir.builds["s16x2"] += 3
+    kernels.reset_launch_counts()
+    assert kernels.sgm_sweep_bidir.builds == {"s16x2": 0, "int32": 0}
 
 
 @pytest.mark.parametrize("name", sorted(JPRESETS))

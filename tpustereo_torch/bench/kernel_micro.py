@@ -7,6 +7,8 @@ card: its compile-time sizes, and the source with one part cut out.
     python3 -m tpustereo_torch.bench.kernel_micro wta_lr
     python3 -m tpustereo_torch.bench.kernel_micro bitonic
     python3 -m tpustereo_torch.bench.kernel_micro cc_labels
+    python3 -m tpustereo_torch.bench.kernel_micro sgm_bidir
+    python3 -m tpustereo_torch.bench.kernel_micro median3
     python3 -m tpustereo_torch.bench.kernel_micro NAME --against DIR
 
 For the kernel named (`csrc/<name>.cu`) this script compiles the source once
@@ -27,11 +29,15 @@ labels of 4 KITTI frames, 4 rows of 465,750 padded to 2^19, as
 `component_big_sorted` makes them (each launch first copies the unsorted
 rows into the buffers it sorts in place: `copy_ms` is that copy alone);
 `cc_labels` on the speckle graph of those 4 frames (the LR-checked WTA
-disparity of the `kitti_sgm8` path). Each `--against DIR` (the option
-may be repeated) makes the same source of another checkout
-(`DIR/tpustereo_torch/csrc/<name>.cu`, the same C interface) one more
-build, named after DIR (a parent commit unpacked into `parent/`, say),
-held to the shipped outputs. It prints the card's name and power limit,
+disparity of the `kitti_sgm8` path); `sgm_bidir` on the census volume of
+those 4 frames, its three launches of column shifts (0, 1, -1) as the
+`BIDIR_VERT` route runs them (s16x2 build); `median3` on the median's
+input of the path, the speckle-filtered disparity of those 4 frames.
+Each `--against DIR` (the option may be repeated) makes the same source
+of another checkout (`DIR/tpustereo_torch/csrc/<name>.cu`, the same C
+interface, or the one `AGAINST_SIGS` names) one more build, named after
+DIR (a parent commit unpacked into `parent/`, say), held to the shipped
+outputs. It prints the card's name and power limit,
 then one JSON line: ms per launch of each build in each case, by CUDA
 events (mean of 20 launches after a warm-up) and by CUDA-graph replay (20
 launches captured in one graph: the device's time without the host's per
@@ -57,9 +63,11 @@ from tpustereo_torch.kernels.bitonic import _SIGS as _BITONIC_SIGS
 from tpustereo_torch.kernels.bitonic import IMAX, padded_log2
 from tpustereo_torch.kernels.cc import _SIGS as _CC_SIGS
 from tpustereo_torch.kernels.cost import _SIGS as _COST_SIGS
+from tpustereo_torch.kernels.median import _SIGS as _MEDIAN_SIGS
 from tpustereo_torch.kernels.sad import _SIGS as _SAD_SIGS
-from tpustereo_torch.kernels.sgm import _BWD_SIGS
+from tpustereo_torch.kernels.sgm import _BIDIR_SIGS, _BWD_SIGS
 from tpustereo_torch.kernels.wta import _SIGS as _WTA_SIGS
+from tpustereo_torch.ops import component_big
 from tpustereo_torch.ops.postproc import speckle_conn
 from tpustereo_torch.ops.sgm import DIRS_8
 from tpustereo_torch.pipeline import sgbm_volume
@@ -68,7 +76,15 @@ OUT = os.path.join(_build.BUILD, "kernel_micro")
 SIGS = {"bwd_wta": _BWD_SIGS, "census_cost": _COST_SIGS,
         "sad_wta": _SAD_SIGS, "wta_lr": _WTA_SIGS,
         "bitonic": {"bitonic_launch": _BITONIC_SIGS["bitonic_launch"]},
-        "cc_labels": _CC_SIGS}
+        "cc_labels": _CC_SIGS, "sgm_bidir": _BIDIR_SIGS,
+        "median3": _MEDIAN_SIGS}
+# an earlier C interface that `--against` builds keep: sgm_bidir_launch
+# before its `packed` argument (one int32 build)
+AGAINST_SIGS = {
+    "sgm_bidir": {"sgm_bidir_launch": (
+        _BIDIR_SIGS["sgm_bidir_launch"][0][:11] + [ctypes.c_void_p],
+        ctypes.c_int)},
+}
 # name: {build name: -D flags}
 SIZES = {
     # columns of C and S7 in flight per warp
@@ -98,6 +114,26 @@ SIZES = {
                                    f"-DCC_TILE_COLS={c}"]
                   for r, c in ((8, 128), (32, 128), (16, 64), (16, 256),
                                (32, 256), (4, 512))},
+    # pixels in flight per warp; warps a block; line pairs a warp; the
+    # int32 build at D = 128; one 2-byte store per int16
+    "sgm_bidir": {
+        **{f"ring{n}": [f"-DBIDIR_RING_DEPTH={n}"] for n in (1, 4, 8, 16)},
+        **{f"warps{n}": [f"-DBIDIR_WARPS={n}"] for n in (2, 8)},
+        "lines2": ["-DBIDIR_LINES=2"],
+        "int32": ["-DBIDIR_S16X2=0"],
+        "scalar_stores": ["-DBIDIR_SCALAR_STORES=1"],
+    },
+    # pixels a lane (the tile's width, 32 of them); the tile's rows; the
+    # taps through a tile staged in shared memory; Paeth's network on
+    # every window
+    "median3": {
+        **{f"px{n}": [f"-DMEDIAN_PX={n}"] for n in (4, 8)},
+        **{f"rows{n}": [f"-DMEDIAN_TY={n}"] for n in (4, 16)},
+        "smem": ["-DMEDIAN_SMEM=1"],
+        "smem_px8": ["-DMEDIAN_SMEM=1", "-DMEDIAN_PX=8"],
+        "paeth": ["-DMEDIAN_PAETH=1"],
+        "paeth_smem": ["-DMEDIAN_PAETH=1", "-DMEDIAN_SMEM=1"],
+    },
 }
 # name: {build name: (statement of the source, what replaces it), or a
 # list of such pairs that cut one part together}
@@ -202,6 +238,32 @@ ABLATIONS = {
         "no_compress": ("const int r = L[L[i]];",
                         "const int r = cc_find(L, i);"),
     },
+    "sgm_bidir": {
+        # the min over D of the packed step (the carry is not renormalised)
+        "no_warp_min": ("const unsigned M = warp_min_s16x2<K>(L);",
+                        "const unsigned M = 0;"),
+        # the wait for the ring's oldest group
+        "no_ring_wait": ("cp_async_wait<RING - 1>();  // pixel t's", "//"),
+        # the stores of both lines' results
+        "no_stores": ("      store_line<K, ACC, ALIGNED>(Sd +",
+                      "      if (t < 0) store_line<K, ACC, ALIGNED>(Sd +"),
+    },
+    "median3": {
+        # the exchanges (each pixel takes its window's centre)
+        "no_network": ("res[p] = paeth_sorted(t);", "res[p] = t[4];"),
+        # the loads of the taps (each takes its column's index)
+        "no_loads": ("      v[r][i] = src[min(max(xs - 1 + i, 0), W - 1)];",
+                     "      v[r][i] = (float)(xs - 1 + i);"),
+        # the blocks start and leave at once: the launch alone
+        "launch_only": ("  const int X0 = blockIdx.x * TX, y0",
+                        "  if (H > 0) return;\n  const int X0 = blockIdx.x "
+                        "* TX, y0"),
+        # no loads and no network: the stores alone
+        "stores_only": [
+            ("      v[r][i] = src[min(max(xs - 1 + i, 0), W - 1)];",
+             "      v[r][i] = (float)(xs - 1 + i);"),
+            ("res[p] = paeth_sorted(t);", "res[p] = t[4];")],
+    },
 }
 
 
@@ -212,10 +274,12 @@ def _compile(name: str, against: tuple = ()) -> dict:
     with open(src) as f:
         text = f.read()
     builds = {b: (src, flags) for b, flags in SIZES[name].items()}
+    others = set()
     for other in against:
         csrc = os.path.join(other, "tpustereo_torch", "csrc")
-        builds[os.path.basename(os.path.normpath(other))] = (
-            os.path.join(csrc, f"{name}.cu"), ["-I", csrc])
+        b = os.path.basename(os.path.normpath(other))
+        builds[b] = (os.path.join(csrc, f"{name}.cu"), ["-I", csrc])
+        others.add(b)
     for b, cut in ABLATIONS[name].items():
         cut_text = text
         for old, new in [cut] if isinstance(cut[0], str) else cut:
@@ -241,7 +305,11 @@ def _compile(name: str, against: tuple = ()) -> dict:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {b}: {line.strip()}")
         lib = ctypes.CDLL(path)
-        for fn, (argtypes, restype) in SIGS[name].items():
+        sigs = SIGS[name]
+        if b in others:
+            sigs = AGAINST_SIGS.get(name, sigs)
+            lib.tps_against = True
+        for fn, (argtypes, restype) in sigs.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
         libs[b] = lib
@@ -256,8 +324,9 @@ def _frames(shape, n: int, disparity: float, dev):
 
 
 def _kitti_speckle(dev):
-    """The speckle graph (conn_h, conn_v) and labels of 4 synthetic KITTI
-    frames: the LR-checked WTA disparity of the `kitti_sgm8` path."""
+    """The speckle graph (conn_h, conn_v), labels and median input of 4
+    synthetic KITTI frames: the LR-checked WTA disparity of the
+    `kitti_sgm8` path, and that disparity with the speckles set to -1."""
     cfg = PRESETS["kitti_sgm8"]
     L, R = _frames((375, 1242), cfg.frames_per_step, 40.0, dev)
     D, d0 = cfg.num_disparities, cfg.min_disparity
@@ -270,7 +339,12 @@ def _kitti_speckle(dev):
     disp, valid, d_r = kernels.sweep_bwd_wta(C, S7, cfg)
     ok = kernels.dr_consistency(d_r, disp, D, cfg.disp12_max_diff, d0)
     conn_h, conn_v = speckle_conn(disp, valid & ok, cfg)
-    return conn_h, conn_v, kernels.connected_component_labels(conn_h, conn_v)
+    lab = kernels.connected_component_labels(conn_h, conn_v)
+    F, H, W = lab.shape
+    lab_off = lab + torch.arange(0, F * H * W, H * W, dtype=torch.int32,
+                                 device=dev).reshape(F, 1, 1)
+    big = component_big(lab_off, cfg.speckle_window_size)
+    return conn_h, conn_v, lab, torch.where(valid & ok & big, disp, -1.0)
 
 
 def _cases(name: str, dev) -> list:
@@ -308,7 +382,7 @@ def _cases(name: str, dev) -> list:
                     _build.ptr(L), _build.ptr(R), _build.ptr(outs[0]), B, H,
                     W, D, ch, cw, d0, bits, stream()))))
     elif name == "bitonic":
-        _, _, lab = _kitti_speckle(dev)
+        _, _, lab, _ = _kitti_speckle(dev)
         F, H, W = lab.shape
         n = H * W
         n2 = 1 << padded_log2(n)
@@ -344,12 +418,42 @@ def _cases(name: str, dev) -> list:
                     o.copy_(s)
             cases.append((label, [F, n], ref, outs, launch, copy))
     elif name == "cc_labels":
-        conn_h, conn_v, lab = _kitti_speckle(dev)
+        conn_h, conn_v, lab, _ = _kitti_speckle(dev)
         F, H, W = lab.shape
         outs = (torch.empty_like(lab),)
         cases.append(("kitti_F4", [F, H, W], (lab,), outs, lambda lib: (
             lib.cc_labels_launch(_build.ptr(conn_h), _build.ptr(conn_v),
                                  _build.ptr(outs[0]), F, H, W, stream()))))
+    elif name == "median3":
+        *_, med_in = _kitti_speckle(dev)
+        F, H, W = med_in.shape
+        outs = (torch.empty_like(med_in),)
+        cases.append(("kitti_F4", [F, H, W], (kernels.median3(med_in),),
+                      outs, lambda lib: lib.median3_launch(
+                          _build.ptr(med_in), _build.ptr(outs[0]), F, H, W,
+                          stream())))
+    elif name == "sgm_bidir":
+        cfg = PRESETS["kitti_sgm8"]
+        L, R = _frames((375, 1242), 4, 40.0, dev)
+        D, p1, p2 = cfg.num_disparities, cfg.p1, cfg.p2
+        C = kernels.census_cost_volume(L, R, D, cfg.max_census_cost,
+                                       cfg.census_window, cfg.min_disparity)
+        B, H, W, _ = C.shape
+        dxs = (0, 1, -1)
+        outs = (torch.empty(C.shape, dtype=torch.int16, device=dev),
+                torch.empty(C.shape, dtype=torch.int16, device=dev))
+
+        def launch(lib):
+            packed = () if getattr(lib, "tps_against", False) else (1,)
+            for i, dx in enumerate(dxs):
+                rc = lib.sgm_bidir_launch(
+                    _build.ptr(C), *map(_build.ptr, outs), B, H, W, D, dx,
+                    p1, p2, int(i > 0), *packed, stream())
+                if rc != 0:
+                    return rc
+            return 0
+        cases.append(("kitti_F4_dx3", [B, H, W, D],
+                      kernels.sgm_sweep_bidir(C, dxs, p1, p2), outs, launch))
     elif name == "sad_wta":
         base = PRESETS["tsukuba_sad"]
         L, R = _frames((288, 384), 1, 20.0, dev)
@@ -401,6 +505,13 @@ def _cases(name: str, dev) -> list:
                     cfg.disp12_max_diff, stream())
             cases.append((label, [B, H, W, D], ref, outs, launch))
     return cases
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal outputs, float32 bit for bit (so -0.0 differs from +0.0)."""
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
 
 
 def _graph_ms(fn, reps: int = 20) -> float:
@@ -481,7 +592,7 @@ def main(name: str, against: tuple = ()) -> None:
             run(lib)
             torch.cuda.synchronize()
             if b not in ABLATIONS[name] and not all(
-                    torch.equal(o, r) for o, r in zip(outs, ref)):
+                    _same(o, r) for o, r in zip(outs, ref)):
                 raise SystemExit(f"kernel_micro: {name} build {b} differs "
                                  f"from the shipped kernel ({label})")
         res, gres = {}, {}

@@ -156,17 +156,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// `load_pixel` without the partial sums.
-template <int K>
-__device__ __forceinline__ void load_cost(const uint8_t* c, int lane, int D,
-                                          int (&cv)[K]) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int d = lane * K + k;
-    cv[k] = d < D ? c[d] : 0;
-  }
-}
-
 template <int K>
 __device__ __forceinline__ int lane_min(const int (&v)[K]) {
   int m = v[0];

@@ -37,5 +37,9 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Set every wrapper's count to 0, and its counts by build where it
+    keeps them (`builds`)."""
     for w in WRAPPERS:
         w.launches = 0
+        if hasattr(w, "builds"):
+            w.builds = dict.fromkeys(w.builds, 0)

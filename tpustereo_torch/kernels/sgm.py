@@ -33,8 +33,8 @@ _SWEEP_SIGS = {
     "sgm_sweep_launch": ([_P, _P] + [_I] * 8 + [_P], _I),
 }
 _BIDIR_SIGS = {
-    # C, Sd, Su, B, H, W, D, dx, p1, p2, accumulate, stream
-    "sgm_bidir_launch": ([_P] * 3 + [_I] * 8 + [_P], _I),
+    # C, Sd, Su, B, H, W, D, dx, p1, p2, accumulate, packed, stream
+    "sgm_bidir_launch": ([_P] * 3 + [_I] * 9 + [_P], _I),
 }
 _BWD_SIGS = {
     # C, S7, disp, valid, d_r, rows, W, D, p1, p2, uniq, subpixel,
@@ -125,13 +125,25 @@ def sgm_sweep_bidir_plain(C: torch.Tensor, dxs, p1: int, p2: int):
     return Sd, Su
 
 
+def bidir_fits_s16x2(D: int, c_max: int, p1: int, p2: int) -> bool:
+    """Whether `sgm_sweep_bidir` runs its s16x2 build, which packs the down
+    and up lines as the two signed 16-bit halves of one word: every lane of
+    the warp full (D = 32 K, K = 1, 2, 4, 8 or 16 disparities a lane) and
+    every half exact, c_max + P1 + P2 < 2^15 (`sgm_step_s16x2` in
+    `csrc/common.cuh`). Otherwise the int32 build runs. The same condition
+    as the C launch's, which the wrapper calls at c_max = 255 (any uint8
+    cost)."""
+    return D in (32, 64, 128, 256, 512) and c_max + p1 + p2 < 1 << 15
+
+
 def sgm_sweep_bidir(C: torch.Tensor, dxs, p1: int, p2: int):
     """(S_down, S_up): the sums of the path costs of the directions (1, dx)
     and (-1, dx) over the column shifts `dxs`, each int16 of C's shape.
 
     C (B, H, W, D) uint8. One launch per dx runs both directions; the first
     writes S_down and S_up, the later ones add to them. CUDA tensors run
-    the kernel, CPU tensors the plain version."""
+    the kernel, its s16x2 or int32 build by `bidir_fits_s16x2` (counted in
+    `sgm_sweep_bidir.builds`), CPU tensors the plain version."""
     dxs = tuple(dxs)
     if not dxs or len(set(dxs)) != len(dxs) or not set(dxs) <= {-1, 0, 1}:
         raise ValueError(f"dxs must be distinct shifts of -1, 0, 1, got "
@@ -141,20 +153,26 @@ def sgm_sweep_bidir(C: torch.Tensor, dxs, p1: int, p2: int):
     _check_cost(C)
     if C.device.type == "cpu":
         return sgm_sweep_bidir_plain(C, dxs, p1, p2)
+    if C.data_ptr() % 16:
+        C = C.clone()  # the kernel's 16-byte copies need an aligned volume
     B, H, W, D = C.shape
+    packed = bidir_fits_s16x2(D, 255, p1, p2)
     Sd = torch.empty(C.shape, dtype=torch.int16, device=C.device)
     Su = torch.empty_like(Sd)
     lib = _build.load("sgm_bidir", _BIDIR_SIGS)
     for i, dx in enumerate(dxs):
         rc = lib.sgm_bidir_launch(_build.ptr(C), _build.ptr(Sd),
                                   _build.ptr(Su), B, H, W, D, dx, p1, p2,
-                                  int(i > 0), _build.stream_ptr(C))
+                                  int(i > 0), int(packed),
+                                  _build.stream_ptr(C))
         _build.check(lib, rc, "sgm_sweep_bidir")
         sgm_sweep_bidir.launches += 1
+        sgm_sweep_bidir.builds["s16x2" if packed else "int32"] += 1
     return Sd, Su
 
 
 sgm_sweep_bidir.launches = 0
+sgm_sweep_bidir.builds = {"s16x2": 0, "int32": 0}
 
 
 # ---------------------------------------------------------------------------
