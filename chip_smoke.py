@@ -15,18 +15,22 @@ D = 128, 8 frames, 4 per set of kernel launches):
    card at the main path's shapes (the speckle and median kernels on the
    main path's own disparity maps) and requires integer and bool outputs
    to be equal, the median bit for bit (also on a map of signed zeros) and
-   the float disparity to agree within 1e-6, and the census kernel also on
-   one 2 x 9,000 frame (past the width its earlier design took);
+   the float disparity to agree within 1e-6, the census kernel also on
+   one 2 x 9,000 frame (past the width its earlier design took), and the
+   sweep in both forms (S = L_r and S += L_r) in all eight directions;
 3. drives `api.match_batch` on 8 synthetic pairs with every launch counter
    set to 0 just before, requires every kernel of the path to have
-   launched, and holds the output against the plain PyTorch pipeline (the
-   JAX package's jnp formulation, ported) run on the card;
+   launched, the sweeps as one write and six adds a set of frames (2 and
+   12 a batch), and holds the output against the plain PyTorch pipeline
+   (the JAX package's jnp formulation, ported) run on the card;
 4. times each kernel, its plain version, `component_big`, the whole path,
    and the whole path with speckle and the median off, with CUDA events,
    and the LR check, labelling and median kernels also by CUDA-graph
-   replay (the device's time, without the host's per launch); counts the
-   labelling's kernel launches a call (profiler); prints them beside the
-   card's name and power limit.
+   replay (the device's time, without the host's per launch), and the
+   sweep in each direction and form by both, beside its byte bound; counts
+   the labelling's kernel launches a call (profiler); requires that no
+   fill of a tensor the size of S7 runs in a batch (profiler, with
+   shapes); prints them beside the card's name and power limit.
 
 The SAD and census_wta modes, each preset as it stands
 (`PRESETS["tsukuba_sad"]` at Tsukuba's 288 x 384, D = 64, block 9;
@@ -106,7 +110,11 @@ The gap fills and the bitonic speckle sort:
    pipeline's output (one volume per set of frames for both fills) and an
    invalid fraction below the unfilled run's; times both beside the
    unfilled path and each fill alone, and prints the fill's share of the
-   batch;
+   batch; then holds the hits kernel against its plain version on 4 rows
+   of 240,000 columns (`WIDE`, past the 232,448 its earlier design took)
+   and drives `kitti_sgm8` with P2 = 1000 and "hirschmuller" on one frame
+   that wide through `match_batch` (the volume route) and the fused
+   route, each equal to the plain pipeline;
 14. drives `tsukuba_sad` with `disp12_max_diff=1, fill_mode="hirschmuller"`
    (its 8 pairs of step 6's size) and `middlebury_sgm4` with P2 = 1000 and
    "hirschmuller" at KITTI size through `api.match_batch`: both take the
@@ -232,6 +240,9 @@ CHAINS = (64, 512)
 # valid-fraction floor, bad-2.0 ceiling), the bar the KITTI path keeps,
 # below the plain pipeline's valid 0.980, bad-2.0 0.0023 on these pairs
 MIDDLEBURY = ((1988, 2964), 60.0, 0.9, 0.05)
+# (rows, columns) past the 232,448 bytes of shared memory a block may use,
+# one byte a column in the hits kernel's earlier design
+WIDE = (4, 240000)
 
 
 def card_line() -> str:
@@ -338,6 +349,25 @@ def device_busy(fn) -> str:
     return (f"span {span_us / 1e3:.3f} ms, kernels {busy_us / 1e3:.3f} ms, "
             f"busy {busy_us / span_us:.4f}; top: "
             + "; ".join(f"{n[:60]} {us / 1e3:.3f} ms" for n, us in top))
+
+
+def volume_fills(fn, numel: int) -> list:
+    """(op, shape) of each fill (`aten::fill_`, `aten::zero_`) that one
+    call of fn() makes of a tensor of `numel` elements, from
+    `torch.profiler`'s CPU ops with their shapes (fn is called once
+    untraced first)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) \
+            as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.input_shapes[0]) for e in prof.events()
+            if e.name in ("aten::fill_", "aten::zero_") and e.input_shapes
+            and e.input_shapes[0]
+            and int(np.prod(e.input_shapes[0])) == numel]
 
 
 def bound(nbytes: float, ops: float):
@@ -704,9 +734,8 @@ def volume_path(card: str, kitti: dict) -> list:
     # the int16 S after the vertical sweeps
     C = kernels.census_cost_volume(L[:F], R[:F], D, cfg.max_census_cost,
                                    cfg.census_window, d0)
-    S = torch.zeros(C.shape, dtype=torch.int16, device=dev)
-    for dy in (1, -1):
-        kernels.sgm_sweep(C, S, dy, 0, cfg.p1, cfg.p2)
+    S = kernels.sgm_sweep(C, None, 1, 0, cfg.p1, cfg.p2)
+    kernels.sgm_sweep(C, S, -1, 0, cfg.p1, cfg.p2)
     tr = {}
     for name, x in (("C", C), ("S", S)):
         got, ref = kernels.transpose_hw(x), transpose_hw_plain(x)
@@ -849,13 +878,13 @@ def volume_path(card: str, kitti: dict) -> list:
             "volume route output is not a good disparity map")
     vol_ms = cuda_ms(volume_route, 3)
     fused_ms = cuda_ms(lambda: sgbm_batched(L, R, cfg), 3)
-    # bytes per cost each route must move: census 1, the S zero fill 2,
-    # 5 per sweep, then the volume route's three transposes (C 2, S 4 + 4)
-    # and wta_lr's read of S (2), or the fused route's bwd+WTA read of C
-    # and S7 (3)
+    # bytes per cost each route must move: census 1, 3 for the first
+    # sweep (it writes S) and 5 for each later one, then the volume
+    # route's three transposes (C 2, S 4 + 4) and wta_lr's read of S (2),
+    # or the fused route's bwd+WTA read of C and S7 (3)
     costs = BATCH * H * W * D
-    vol_bound = bound(costs * (1 + 2 + 4 * 5 + 10 + 2), 0)[0]
-    fused_bound = bound(costs * (1 + 2 + 3 * 5 + 3), 0)[0]
+    vol_bound = bound(costs * (1 + 3 + 3 * 5 + 10 + 2), 0)[0]
+    fused_bound = bound(costs * (1 + 3 + 2 * 5 + 3), 0)[0]
     print(f"[{card}] middlebury_sgm4 {H}x{W}, D={D}, F={F}, batch of "
           f"{BATCH} on device tensors: volume route {vol_ms:.3f} ms "
           f"({BATCH * 1e3 / vol_ms:.2f} frames/s; byte bound "
@@ -877,10 +906,10 @@ def volume_path(card: str, kitti: dict) -> list:
                                           cfg.census_window, d0)
 
     Cm = census_m()
-    S7m = torch.zeros(Cm.shape, dtype=torch.int16, device=dev)
+    S7m = None
     for dy, dx in DIRS_4:
         if (dy, dx) != (0, -1):
-            kernels.sgm_sweep(Cm, S7m, dy, dx, cfg.p1, cfg.p2)
+            S7m = kernels.sgm_sweep(Cm, S7m, dy, dx, cfg.p1, cfg.p2)
     m_census = cuda_ms(census_m, 5)
     m_bwd = cuda_ms(lambda: kernels.sweep_bwd_wta(Cm, S7m, cfg), 3)
     del Cm, S7m
@@ -1003,6 +1032,7 @@ def fills_path(card: str, kitti: dict) -> list:
                                      fill_background, fill_hirschmuller)
     from tpustereo_torch.pipeline import sgbm_batched
     post = importlib.import_module("tpustereo_torch.ops.postproc")
+    psgbm = importlib.import_module("tpustereo_torch.pipeline.sgbm")
 
     t_steps = time.perf_counter()
     dev = torch.device("cuda")
@@ -1173,6 +1203,55 @@ def fills_path(card: str, kitti: dict) -> list:
     hcfg = cfg.replace(fill_mode="hirschmuller")
     print(f"[{card}] kitti_sgm8 hirschmuller profiler, one batch: "
           f"{device_busy(lambda: sgbm_batched(L, R, hcfg))}", flush=True)
+
+    # past the 232,448 columns of shared memory that the hits kernel's
+    # earlier design kept a row in: the kernel on WIDE, then the fill on a
+    # frame that wide through both routes (P2 = 1000 sends match_batch to
+    # the volume route; the fused route runs the same frame)
+    rng = np.random.default_rng(13)
+    d_rw = torch.from_numpy(rng.integers(-3, D + 3, WIDE, dtype=np.int32)
+                            ).to(dev)
+    dispw = torch.from_numpy(rng.uniform(d0 - 0.5, d0 + D - 0.5, WIDE)
+                             .astype(np.float32)).to(dev)
+    okw, hitsw = kernels.dr_consistency_hits(d_rw, dispw, D, md, d0)
+    okw_p, hitsw_p = dr_consistency_hits_plain(d_rw, dispw, D, md, d0)
+    torch.cuda.synchronize()
+    require(torch.equal(okw, okw_p) and torch.equal(hitsw, hitsw_p),
+            f"dr_consistency_hits differs from plain at {WIDE}")
+    wide_g = graph_ms(lambda: kernels.dr_consistency_hits(d_rw, dispw, D,
+                                                          md, d0), 20)
+    print(f"[{card}] dr_consistency_hits at {WIDE}: equal to plain; "
+          f"{wide_g:.4f} ms by graph replay (byte bound "
+          f"{bound(10 * d_rw.numel(), 0)[0]:.4f})", flush=True)
+    del d_rw, dispw, okw, hitsw, okw_p, hitsw_p
+    wcfg = hcfg.replace(p2=1000)
+    lw, rw, _ = synthetic_pairs(WIDE, 40.0, 1)
+    kernels.reset_launch_counts()
+    out_v = api.match_batch(lw, rw, wcfg)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    require(launches["dr_consistency_hits"] > 0 and launches["wta_lr"] > 0
+            and launches["sweep_bwd_wta"] == 0, f"the fill at {WIDE} did "
+            f"not take the volume route with the hits kernel: {launches}")
+    Lw, Rw = torch.from_numpy(lw).to(dev), torch.from_numpy(rw).to(dev)
+    kernels.reset_launch_counts()
+    out_f = psgbm._postproc(*psgbm._select(Lw, Rw, wcfg), wcfg).cpu().numpy()
+    launches = kernels.launch_counts()
+    require(launches["dr_consistency_hits"] > 0
+            and launches["sweep_bwd_wta"] > 0, f"the fill at {WIDE} did not "
+            f"take the fused route with the hits kernel: {launches}")
+    t0 = time.perf_counter()
+    ref = plain_pipeline(Lw, Rw, wcfg).cpu().numpy()
+    plain_s = time.perf_counter() - t0
+    for route, o in (("volume", out_v), ("fused", out_f)):
+        require(np.array_equal(o == -1.0, ref == -1.0), f"the fill at {WIDE} "
+                f"on the {route} route: invalid pattern differs from plain")
+        require(float(np.abs(o - ref).max()) <= DISP_TOL, f"the fill at "
+                f"{WIDE} on the {route} route differs from plain")
+    print(f"kitti_sgm8 P2=1000 hirschmuller at {WIDE}: volume and fused "
+          f"routes equal to the plain pipeline ({plain_s:.1f} s); invalid "
+          f"fraction {float((out_v == -1.0).mean()):.5f}", flush=True)
+    del Lw, Rw
 
     # --- 14. the volume route with the Hirschmueller fill: tsukuba_sad with
     # the LR check, middlebury_sgm4 past the fused bound at KITTI size
@@ -1613,21 +1692,27 @@ def main() -> None:
         "census_cost_volume differs from plain at 9,000 columns")
     del Lw, Rw
 
-    S7 = torch.zeros(C.shape, dtype=torch.int16, device=dev)
+    # both sweep forms in every direction: the write form (S = L_r), then
+    # the add form on the partial sum S7 of the directions before it (on
+    # L_r itself for the first); S7 ends as the sum of all but W
+    S7 = None
     sweep_err = 0
     for dy, dx in DIRS_8:
-        if (dy, dx) == (0, -1):
-            continue
-        S_k = torch.zeros_like(S7)
-        S_p = torch.zeros_like(S7)
-        kernels.sgm_sweep(C, S_k, dy, dx, p1, p2)
-        sgm_sweep_plain(C, S_p, dy, dx, p1, p2)
+        L_k = kernels.sgm_sweep(C, None, dy, dx, p1, p2)
+        L_p = sgm_sweep_plain(C, None, dy, dx, p1, p2)
         torch.cuda.synchronize()
-        require(torch.equal(S_k, S_p), f"sgm_sweep {(dy, dx)} differs")
-        sweep_err = max(sweep_err,
-                        (S_k.int() - S_p.int()).abs().max().item())
-        S7 += S_k
-        del S_k, S_p
+        require(torch.equal(L_k, L_p),
+                f"sgm_sweep {(dy, dx)} write form differs")
+        base = L_k if S7 is None else S7
+        S_k = kernels.sgm_sweep(C, base.clone(), dy, dx, p1, p2)
+        S_p = sgm_sweep_plain(C, base.clone(), dy, dx, p1, p2)
+        torch.cuda.synchronize()
+        require(torch.equal(S_k, S_p), f"sgm_sweep {(dy, dx)} add form "
+                f"differs")
+        sweep_err = max(sweep_err, int_err(L_k, L_p), int_err(S_k, S_p))
+        if (dy, dx) != (0, -1):
+            S7 = L_k if S7 is None else S_k
+        del L_k, L_p, S_k, S_p, base
     err["sgm_sweep"] = sweep_err
 
     disp, valid, d_r = kernels.sweep_bwd_wta(C, S7, cfg)
@@ -1692,12 +1777,18 @@ def main() -> None:
     out = api.match_batch(lefts, rights, cfg)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
+    sweep_forms = dict(kernels.sgm_sweep.builds)
     # the path's own peak, above what the checks above keep allocated
     peak_gib = (torch.cuda.max_memory_allocated() - resident) / 2**30
-    print(f"main path launches: {launches}", flush=True)
+    print(f"main path launches: {launches}; sgm_sweep forms: "
+          f"{sweep_forms}", flush=True)
     for name in KERNELS:
         require(launches[name] > 0, f"{name} was not launched on the main "
                 f"path")
+    # each set of frames' first sweep writes S7 and six add to it
+    require(sweep_forms == {"write": BATCH // F, "add": 6 * BATCH // F},
+            f"the main path's sweeps ran {sweep_forms}, not one write and "
+            f"six adds a set of frames")
     require(out.shape == (BATCH, H, W) and np.isfinite(out).all(),
             "match_batch output has the wrong shape or non-finite values")
 
@@ -1715,14 +1806,16 @@ def main() -> None:
     require(vfrac > 0.9 and bad2 < 0.05,
             "main path output is not a good disparity map")
 
-    # --- 3. timing, at the main path's shapes (sweeps accumulate into a
-    # scratch S, so S7 stays as checked)
+    # --- 3. timing, at the main path's shapes (the add form accumulates
+    # into a scratch S, so S7 stays as checked)
     dirs7 = [r for r in DIRS_8 if r != (0, -1)]
-    S_tmp = torch.zeros_like(S7)
+    S_tmp = S7.clone()
 
     def sweeps():
-        for dy, dx in dirs7:
-            kernels.sgm_sweep(C, S_tmp, dy, dx, p1, p2)
+        # one set of frames' seven sweeps, as `sgm_select` runs them
+        S = kernels.sgm_sweep(C, None, *dirs7[0], p1, p2)
+        for dy, dx in dirs7[1:]:
+            kernels.sgm_sweep(C, S, dy, dx, p1, p2)
 
     ms = {
         "census_cost_volume": cuda_ms(lambda: kernels.census_cost_volume(
@@ -1751,10 +1844,19 @@ def main() -> None:
         lambda: kernels.connected_component_labels(conn_h, conn_v))
     print(f"connected_component_labels: {len(cc_names)} kernel launches a "
           f"call (profiler): {[n[:40] for n in cc_names]}", flush=True)
-    per_dir = {f"{dy},{dx}": cuda_ms(
-        lambda dy=dy, dx=dx: kernels.sgm_sweep(C, S_tmp, dy, dx, p1, p2), 3)
-        for dy, dx in dirs7}
-    print(f"sgm_sweep ms per direction: {per_dir}", flush=True)
+    # each direction in each form, by events and by CUDA-graph replay,
+    # beside its byte bound (3 bytes a cost written, 5 added)
+    for dy, dx in DIRS_8:
+        for form, nbytes in (("write", 3), ("add", 5)):
+            S_in = None if form == "write" else S_tmp
+
+            def one(dy=dy, dx=dx, S_in=S_in):
+                kernels.sgm_sweep(C, S_in, dy, dx, p1, p2)
+            print(f"[{card}] sgm_sweep {dy},{dx} {form}: events "
+                  f"{cuda_ms(one, 5):.4f} ms, graph replay "
+                  f"{graph_ms(one, 5):.4f} ms, bound "
+                  f"{bound(nbytes * n_cost, 9 * n_cost)[0]:.4f} ms",
+                  flush=True)
     plain_ms = {
         "census_cost_volume": cuda_ms(lambda: census_cost_volume_plain(
             Lf, Rf, D, cfg.max_census_cost, cfg.census_window, d0), 2),
@@ -1791,8 +1893,9 @@ def main() -> None:
         # inputs read once, output written once; ops: xor, popcount,
         # compare, select per cost
         "census_cost_volume": bound(2 * n_pix + n_cost, 4 * n_cost),
-        # C read, S read and written; ~9 integer ops per cost
-        "sgm_sweep": bound(5 * n_cost, 9 * n_cost),
+        # C read and S written (the first of the seven), or C and S read
+        # and S written (the other six); ~9 integer ops per cost
+        "sgm_sweep": bound((3 + 5 * 6) / 7 * n_cost, 9 * n_cost),
         # C and S7 read, disp + valid + d_r written; ~17 ops per cost
         "sweep_bwd_wta": bound(3 * n_cost + 9 * n_pix, 17 * n_cost),
         # d_r and disp read, ok written; ~8 ops per pixel
@@ -1830,6 +1933,13 @@ def main() -> None:
           f"{dev_ms - sum(in_kernels.values()):.3f} ms", flush=True)
     busy = device_busy(lambda: sgbm_batched(L, R, cfg))
     print(f"[{card}] profiler, one batch: {busy}", flush=True)
+    fills = volume_fills(lambda: sgbm_batched(L, R, cfg), n_cost)
+    fill_kernels = [k for k in device_kernels(lambda: sgbm_batched(L, R, cfg))
+                    if "fill" in k.lower()]
+    print(f"fills of a (F, H, W, D) volume in one batch: {fills}; fill "
+          f"kernels in the batch (profiler): {len(fill_kernels)} "
+          f"{sorted(set(k[:80] for k in fill_kernels))}", flush=True)
+    require(not fills, "the main path fills a volume the size of S7")
 
     rows = []
     for name, (src, replaces) in KERNELS.items():

@@ -28,7 +28,7 @@ from tpustereo_torch.kernels.bitonic import (GLOBAL_M, TILE_LOG2,
 from tpustereo_torch.kernels.cc import (TILE_COLS, TILE_ROWS,
                                         connected_component_labels_plain)
 from tpustereo_torch.kernels.cost import census_cost_volume_plain
-from tpustereo_torch.kernels.lr import (dr_consistency_hits_plain,
+from tpustereo_torch.kernels.lr import (HITS_TILE, dr_consistency_hits_plain,
                                         dr_consistency_plain)
 from tpustereo_torch.kernels.median import median3_plain
 from tpustereo_torch.kernels.sad import sad_wta_plain
@@ -188,14 +188,56 @@ def test_cost_kernel_matches_plain(cuda, B, H, W, D, d0, window, max_cost):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("D", [16, 40, 128, 200])
+# (B, H, W): lines of every direction shorter than, equal to and one past
+# the ring depth of 8 pixels, frames of 1 and 2 rows or columns, and the
+# KITTI width
+SWEEP_SHAPES = [(2, 19, 43), (1, 1, 1), (1, 1, 2), (1, 2, 1), (2, 2, 2),
+                (2, 7, 9), (2, 8, 8), (3, 9, 7), (1, 3, 1242)]
+
+
+@pytest.mark.parametrize("D", [16, 40, 128, 200, 512])
 @pytest.mark.parametrize("direction", DIRS_8)
-def test_sweep_kernel_matches_plain(cuda, D, direction):
-    C = _volume(cuda, 2, 19, 43, D)
-    got = torch.full(C.shape, 7, dtype=torch.int16, device=cuda)
-    ref = got.clone()
-    kernels.sgm_sweep(C, got, *direction, 10, 120)
-    sgm_sweep_plain(C, ref, *direction, 10, 120)
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
+@pytest.mark.parametrize("form", ["add", "write"])
+def test_sweep_kernel_matches_plain(cuda, D, direction, shape, form):
+    """Both forms: S += L_r on a nonzero S, and S = L_r from S None. D = 40
+    and 200 are not multiples of K, so they take the plain-load fill."""
+    C = _volume(cuda, *shape, D)
+    kernels.reset_launch_counts()
+    if form == "add":
+        got = torch.full(C.shape, 7, dtype=torch.int16, device=cuda)
+        ref = got.clone()
+        assert kernels.sgm_sweep(C, got, *direction, 10, 120) is got
+        sgm_sweep_plain(C, ref, *direction, 10, 120)
+    else:
+        got = kernels.sgm_sweep(C, None, *direction, 10, 120)
+        ref = sgm_sweep_plain(C, None, *direction, 10, 120)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert kernels.sgm_sweep.builds == {"write": 0, "add": 0, form: 1}
+
+
+def _unaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x whose storage starts 8 bytes off 16."""
+    pad = 8 // x.element_size()
+    buf = torch.empty(x.numel() + pad, dtype=x.dtype, device=x.device)
+    out = buf[pad:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 == 8
+    return out
+
+
+@pytest.mark.parametrize("form", ["add", "write"])
+@pytest.mark.parametrize("direction", [(0, 1), (1, 0), (-1, 1)])
+@pytest.mark.parametrize("D", [40, 128])
+def test_sweep_kernel_takes_unaligned_volumes(cuda, form, direction, D):
+    """C (and S) 8 bytes off 16: the plain-load fill and scalar stores."""
+    C = _unaligned(_volume(cuda, 2, 19, 43, D, seed=3))
+    S = (_unaligned(torch.full(C.shape, 5, dtype=torch.int16, device=cuda))
+         if form == "add" else None)
+    ref = sgm_sweep_plain(C, None if S is None else S.clone(), *direction,
+                          10, 120)
+    got = kernels.sgm_sweep(C, S, *direction, 10, 120)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
 
@@ -245,12 +287,20 @@ def test_lr_kernel_matches_plain(cuda, H, W, D, d0, max_diff):
 
 @pytest.mark.parametrize("B,H,W,D", [(2, 40, 72, 32), (2, 6, 20, 32),
                                      (1, 1, 1, 8), (4, 375, 1242, 128),
-                                     (1, 2, 60000, 16)])
+                                     (1, 2, 60000, 16), (3, 5, 1, 8),
+                                     (2, 3, HITS_TILE - 1, 32),
+                                     (2, 3, HITS_TILE, 32),
+                                     (2, 3, HITS_TILE + 1, 128),
+                                     (1, 2, 5000, HITS_TILE + 300),
+                                     (1, 4, 240000, 128)])
 @pytest.mark.parametrize("d0", [0, 5])
-@pytest.mark.parametrize("max_diff", [0, 1, 2])
+@pytest.mark.parametrize("max_diff", [0, 1, 2, 600])
 def test_lr_hits_kernel_matches_plain(cuda, B, H, W, D, d0, max_diff):
-    """The hits kernel, d_r values out of range included; W = 60000 needs
-    more than 48 KB of shared memory."""
+    """The hits kernel, d_r values out of range included: rows of 1 and of
+    the kernel's tile of HITS_TILE pixels and one either side (tiles that
+    span rows), D past the tile (a halo staged in turns), max_diff past D,
+    and 240,000 columns, past the 232,448 bytes of shared memory that its
+    earlier design kept a row in."""
     rng = np.random.default_rng(15)
     d_r = torch.from_numpy(rng.integers(-3, D + 3, (B, H, W),
                                         dtype=np.int32)).to(cuda)
@@ -588,6 +638,8 @@ def test_pipeline_past_fused_bound_cuda_matches_cpu(cuda, paths, d0, p2):
                     transpose_hw=2 * 3, wta_lr=2,
                     connected_component_labels=2, median3=2)
     assert counts == expected
+    # each set of frames' first sweep writes S: no zero fill
+    assert kernels.sgm_sweep.builds == {"write": 2, "add": 2 * (paths - 1)}
 
 
 @pytest.mark.parametrize("mode,paths,d0", [
@@ -603,6 +655,9 @@ def test_pipeline_cuda_matches_cpu(cuda, mode, paths, d0):
     if mode == "sgm":
         expected.update(census_cost_volume=2, sgm_sweep=2 * (paths - 1),
                         sweep_bwd_wta=2, dr_consistency=2)
+        # each set of frames' first sweep writes S7: no zero fill
+        assert kernels.sgm_sweep.builds == {"write": 2,
+                                            "add": 2 * (paths - 2)}
     elif mode == "census_wta":
         expected.update(census_cost_volume=2, wta_lr=2)
     else:
@@ -681,6 +736,24 @@ def test_pipeline_fills_cuda_matches_cpu(cuda, mode, fill, d0, p2):
     assert counts["sad_wta"] == (2 if mode == "sad" and not volume else 0)
     assert counts["sweep_bwd_wta"] == (2 if mode == "sgm" and not volume
                                        else 0)
+
+
+@pytest.mark.parametrize("p2,route", [(120, "fused"), (1000, "volume")])
+def test_hirschmuller_past_232448_columns_cuda_matches_cpu(cuda, p2, route):
+    """The Hirschmueller fill on frames of 240,000 columns, past the widest
+    row the hits kernel's earlier design took, on the fused route and (past
+    the fused bound) the volume route: equal to the CPU's plain pipeline."""
+    L, R = _pairs(1, (2, 240000), seed=21)
+    cfg = Config(num_disparities=16, p2=p2, disp12_max_diff=1,
+                 fill_mode="hirschmuller", speckle_window_size=0)
+    kernels.reset_launch_counts()
+    got = sgbm_batched(L.to(cuda), R.to(cuda), cfg).cpu()
+    counts = kernels.launch_counts()
+    ref = sgbm_batched(L, R, cfg)
+    assert torch.equal(got == -1.0, ref == -1.0)
+    assert (got - ref).abs().max().item() <= 1e-6
+    assert counts["dr_consistency_hits"] == 1
+    assert counts["wta_lr" if route == "volume" else "sweep_bwd_wta"] == 1
 
 
 def test_bitonic_speckle_cuda_matches_default(cuda, monkeypatch):

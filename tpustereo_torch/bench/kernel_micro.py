@@ -9,6 +9,8 @@ card: its compile-time sizes, and the source with one part cut out.
     python3 -m tpustereo_torch.bench.kernel_micro cc_labels
     python3 -m tpustereo_torch.bench.kernel_micro sgm_bidir
     python3 -m tpustereo_torch.bench.kernel_micro median3
+    python3 -m tpustereo_torch.bench.kernel_micro sgm_sweep
+    python3 -m tpustereo_torch.bench.kernel_micro lr_check
     python3 -m tpustereo_torch.bench.kernel_micro NAME --against DIR
 
 For the kernel named (`csrc/<name>.cu`) this script compiles the source once
@@ -32,12 +34,20 @@ rows into the buffers it sorts in place: `copy_ms` is that copy alone);
 disparity of the `kitti_sgm8` path); `sgm_bidir` on the census volume of
 those 4 frames, its three launches of column shifts (0, 1, -1) as the
 `BIDIR_VERT` route runs them (s16x2 build); `median3` on the median's
-input of the path, the speckle-filtered disparity of those 4 frames.
+input of the path, the speckle-filtered disparity of those 4 frames;
+`sgm_sweep` on the census volume of those 4 frames, each of the seven
+directions of `sgm_select` in the write form (S = L_r) and the add form
+(S += L_r, on a partial sum of path costs), and the S direction's add form
+on 4 frames of 1988 x 2964 (`middlebury_sgm4`); `lr_check` (its hits
+kernel) on the d_r and disparity of those 4 KITTI frames, and on 4 rows of
+240,000 columns (D = 128; the shipped builds only: a checkout from before
+the tiled design refuses such rows).
 Each `--against DIR` (the option may be repeated) makes the same source
 of another checkout (`DIR/tpustereo_torch/csrc/<name>.cu`, the same C
 interface, or the one `AGAINST_SIGS` names) one more build, named after
 DIR (a parent commit unpacked into `parent/`, say), held to the shipped
-outputs. It prints the card's name and power limit,
+outputs (a checkout's `sgm_sweep` from before the write form adds L_r to
+a zeroed S in the write cases). It prints the card's name and power limit,
 then one JSON line: ms per launch of each build in each case, by CUDA
 events (mean of 20 launches after a warm-up) and by CUDA-graph replay (20
 launches captured in one graph: the device's time without the host's per
@@ -65,7 +75,8 @@ from tpustereo_torch.kernels.cc import _SIGS as _CC_SIGS
 from tpustereo_torch.kernels.cost import _SIGS as _COST_SIGS
 from tpustereo_torch.kernels.median import _SIGS as _MEDIAN_SIGS
 from tpustereo_torch.kernels.sad import _SIGS as _SAD_SIGS
-from tpustereo_torch.kernels.sgm import _BIDIR_SIGS, _BWD_SIGS
+from tpustereo_torch.kernels.lr import _SIGS as _LR_SIGS
+from tpustereo_torch.kernels.sgm import _BIDIR_SIGS, _BWD_SIGS, _SWEEP_SIGS
 from tpustereo_torch.kernels.wta import _SIGS as _WTA_SIGS
 from tpustereo_torch.ops import component_big
 from tpustereo_torch.ops.postproc import speckle_conn
@@ -77,12 +88,17 @@ SIGS = {"bwd_wta": _BWD_SIGS, "census_cost": _COST_SIGS,
         "sad_wta": _SAD_SIGS, "wta_lr": _WTA_SIGS,
         "bitonic": {"bitonic_launch": _BITONIC_SIGS["bitonic_launch"]},
         "cc_labels": _CC_SIGS, "sgm_bidir": _BIDIR_SIGS,
-        "median3": _MEDIAN_SIGS}
-# an earlier C interface that `--against` builds keep: sgm_bidir_launch
-# before its `packed` argument (one int32 build)
+        "median3": _MEDIAN_SIGS, "sgm_sweep": _SWEEP_SIGS,
+        "lr_check": {"lr_hits_launch": _LR_SIGS["lr_hits_launch"]}}
+# earlier C interfaces that `--against` builds keep: sgm_bidir_launch
+# before its `packed` argument (one int32 build), sgm_sweep_launch before
+# its `accumulate` argument (the add form alone)
 AGAINST_SIGS = {
     "sgm_bidir": {"sgm_bidir_launch": (
         _BIDIR_SIGS["sgm_bidir_launch"][0][:11] + [ctypes.c_void_p],
+        ctypes.c_int)},
+    "sgm_sweep": {"sgm_sweep_launch": (
+        _SWEEP_SIGS["sgm_sweep_launch"][0][:10] + [ctypes.c_void_p],
         ctypes.c_int)},
 }
 # name: {build name: -D flags}
@@ -122,6 +138,18 @@ SIZES = {
         "lines2": ["-DBIDIR_LINES=2"],
         "int32": ["-DBIDIR_S16X2=0"],
         "scalar_stores": ["-DBIDIR_SCALAR_STORES=1"],
+    },
+    # pixels in flight per warp; one 2-byte store per int16; the E and W
+    # sweeps' carry as s16x2 pairs of adjacent disparities (DPX)
+    "sgm_sweep": {
+        **{f"ring{n}": [f"-DSWEEP_RING_DEPTH={n}"] for n in (1, 2, 4, 8, 16)},
+        "scalar_stores": ["-DSWEEP_SCALAR_STORES=1"],
+        "s16x2": ["-DSWEEP_S16X2=1"],
+    },
+    # the hits kernel's tile: groups of 4 pixels a thread, threads a block
+    "lr_check": {
+        **{f"groups{n}": [f"-DLR_GROUPS={n}"] for n in (1, 4)},
+        **{f"threads{n}": [f"-DLR_THREADS={n}"] for n in (128, 512)},
     },
     # pixels a lane (the tile's width, 32 of them); the tile's rows; the
     # taps through a tile staged in shared memory; Paeth's network on
@@ -245,8 +273,25 @@ ABLATIONS = {
         # the wait for the ring's oldest group
         "no_ring_wait": ("cp_async_wait<RING - 1>();  // pixel t's", "//"),
         # the stores of both lines' results
-        "no_stores": ("      store_line<K, ACC, ALIGNED>(Sd +",
-                      "      if (t < 0) store_line<K, ACC, ALIGNED>(Sd +"),
+        "no_stores": ("      store_line<K, ACC, VEC>(Sd +",
+                      "      if (t < 0) store_line<K, ACC, VEC>(Sd +"),
+    },
+    "sgm_sweep": {
+        # the min over D (each lane keeps its own min)
+        "no_warp_min": ("minLp = __reduce_min_sync(FULL_MASK, "
+                        "lane_min<K>(L));", "minLp = lane_min<K>(L);"),
+        # the wait for the ring's oldest group
+        "no_ring_wait": ("cp_async_wait<RING - 1>();  // pixel t's", "//"),
+        # the stores of the line's results
+        "no_stores": ("    store_line<K, ACC, VEC>(S + (p0",
+                      "    if (t < 0) store_line<K, ACC, VEC>(S + (p0"),
+    },
+    "lr_check": {
+        # the hits scatter (the flags stay clear)
+        "no_scatter": ("for (int j = lo; j <= hi; ++j) flag[c + j] = 1;",
+                       ";"),
+        # the staging of d_r (the lookups read whatever is there)
+        "no_staging": ("cp_async<16>(win + (c - a), d_r + i0 + c);", ";"),
     },
     "median3": {
         # the exchanges (each pixel takes its window's centre)
@@ -347,10 +392,93 @@ def _kitti_speckle(dev):
     return conn_h, conn_v, lab, torch.where(valid & ok & big, disp, -1.0)
 
 
+def _sweep_cases(dev) -> list:
+    """The `sgm_sweep` cases: each direction of `sgm_select`'s seven in
+    both forms at KITTI F = 4, and the S direction's add form at
+    Middlebury F = 4. The add form accumulates into its buffer launch after
+    launch (the sums wrap; the time does not depend on them), so the check
+    resets the buffer first (`reset`)."""
+    cases = []
+    for preset, shape, disparity, dirs in (
+            ("kitti_sgm8", (375, 1242), 40.0,
+             [r for r in DIRS_8 if r != (0, -1)]),
+            ("middlebury_sgm4", (1988, 2964), 60.0, [(1, 0)])):
+        cfg = PRESETS[preset]
+        L, R = _frames(shape, cfg.frames_per_step, disparity, dev)
+        D, p1, p2 = cfg.num_disparities, cfg.p1, cfg.p2
+        C = kernels.census_cost_volume(L, R, D, cfg.max_census_cost,
+                                       cfg.census_window, cfg.min_disparity)
+        del L, R
+        B, H, W, _ = C.shape
+        S0 = kernels.sgm_sweep(C, None, 1, 0, p1, p2)  # a partial sum
+        forms = ("write", "add") if preset == "kitti_sgm8" else ("add",)
+        for (dy, dx), form in [(r, f) for r in dirs for f in forms]:
+            acc = form == "add"
+            ref = (kernels.sgm_sweep(C, S0.clone() if acc else None, dy, dx,
+                                     p1, p2),)
+            outs = (torch.empty_like(S0),)
+
+            def launch(lib, C=C, outs=outs, dy=dy, dx=dx, acc=acc, p1=p1,
+                       p2=p2):
+                form = () if getattr(lib, "tps_against", False) else (acc,)
+                return lib.sgm_sweep_launch(
+                    _build.ptr(C), _build.ptr(outs[0]), *C.shape, dy, dx,
+                    p1, p2, *form, _build.stream_ptr(C))
+
+            def reset(outs=outs, acc=acc, S0=S0):
+                if acc:
+                    outs[0].copy_(S0)
+                else:  # a checkout without the write form adds to zeros
+                    outs[0].zero_()
+            label = (f"{'kitti' if preset == 'kitti_sgm8' else 'middlebury'}"
+                     f"_F4_{dy},{dx}_{form}")
+            cases.append((label, [B, H, W, D], ref, outs, launch,
+                          {"reset": reset}))
+    return cases
+
+
+def _hits_cases(dev) -> list:
+    """The hits kernel on the KITTI path's d_r and disparity of 4 frames,
+    and on 4 rows of 240,000 columns."""
+    cfg = PRESETS["kitti_sgm8"]
+    L, R = _frames((375, 1242), cfg.frames_per_step, 40.0, dev)
+    D, d0, md = cfg.num_disparities, cfg.min_disparity, cfg.disp12_max_diff
+    C = kernels.census_cost_volume(L, R, D, cfg.max_census_cost,
+                                   cfg.census_window, d0)
+    disp, _, d_r = kernels.sgm_select(C, cfg)
+    del C
+    rng = np.random.default_rng(5)
+    wide = (torch.from_numpy(rng.integers(-3, D + 3, (4, 240000),
+                                          dtype=np.int32)).to(dev),
+            torch.from_numpy(rng.uniform(d0 - 0.5, d0 + D - 0.5, (4, 240000))
+                             .astype(np.float32)).to(dev))
+    cases = []
+    for label, (dr, dv), extra in (("hits_kitti_F4", (d_r, disp), {}),
+                                   ("hits_4x240000", wide,
+                                    {"skip_against": True})):
+        ref = kernels.dr_consistency_hits(dr, dv, D, md, d0)
+        outs = tuple(torch.empty_like(t) for t in ref)
+        W = dr.shape[-1]
+
+        def launch(lib, dr=dr, dv=dv, outs=outs, W=W):
+            return lib.lr_hits_launch(
+                _build.ptr(dr), _build.ptr(dv), *map(_build.ptr, outs),
+                dr.numel() // W, W, D, md, d0, _build.stream_ptr(dr))
+        cases.append((label, list(dr.shape), ref, outs, launch, extra))
+    return cases
+
+
 def _cases(name: str, dev) -> list:
-    """[(label, shape, reference outputs, output buffers, launch(lib))] at
-    the path's shapes; launch passes the current stream, so that a CUDA
-    graph can capture it."""
+    """[(label, shape, reference outputs, output buffers, launch(lib),
+    optional {"copy": fn, "reset": fn, "skip_against": bool})] at the
+    path's shapes; launch passes the current stream, so that a CUDA graph
+    can capture it. `copy` is a part of each launch timed alone, `reset`
+    runs before each build's check, `skip_against` leaves the `--against`
+    builds out of the case."""
+    if name == "sgm_sweep":
+        return _sweep_cases(dev)
+    if name == "lr_check":
+        return _hits_cases(dev)
     cases = []
 
     def stream():
@@ -416,7 +544,7 @@ def _cases(name: str, dev) -> list:
             def copy(src=src, outs=outs):
                 for o, s in zip(outs, src):
                     o.copy_(s)
-            cases.append((label, [F, n], ref, outs, launch, copy))
+            cases.append((label, [F, n], ref, outs, launch, {"copy": copy}))
     elif name == "cc_labels":
         conn_h, conn_v, lab, _ = _kitti_speckle(dev)
         F, H, W = lab.shape
@@ -582,13 +710,20 @@ def main(name: str, against: tuple = ()) -> None:
     libs = _compile(name, against)
     shipped = _build.load(name, SIGS[name])
     result = {}
-    for label, shape, ref, outs, launch, *copy in cases:
+    for label, shape, ref, outs, launch, *extra in cases:
+        extra = extra[0] if extra else {}
+
         def run(lib, launch=launch):
             rc = launch(lib)
             if rc != 0:
                 raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
-        for b, lib in libs.items():
+        builds = {b: lib for b, lib in libs.items()
+                  if not (extra.get("skip_against")
+                          and getattr(lib, "tps_against", False))}
+        for b, lib in builds.items():
+            if "reset" in extra:
+                extra["reset"]()
             run(lib)
             torch.cuda.synchronize()
             if b not in ABLATIONS[name] and not all(
@@ -596,7 +731,7 @@ def main(name: str, against: tuple = ()) -> None:
                 raise SystemExit(f"kernel_micro: {name} build {b} differs "
                                  f"from the shipped kernel ({label})")
         res, gres = {}, {}
-        for key, lib in [("shipped_first", shipped), *libs.items(),
+        for key, lib in [("shipped_first", shipped), *builds.items(),
                          ("shipped_last", shipped)]:
             res[key] = _ms(lambda lib=lib: run(lib))
             gres[key] = _graph_ms(lambda lib=lib: run(lib))
@@ -604,10 +739,10 @@ def main(name: str, against: tuple = ()) -> None:
                          "graph_ms_per_launch": gres}
         result[label]["profile_ms"] = {
             key: _split(lambda lib=lib: run(lib))
-            for key, lib in [("shipped", shipped), *libs.items()]}
-        if copy:
-            result[label]["copy_ms"] = _ms(copy[0])
-            result[label]["copy_graph_ms"] = _graph_ms(copy[0])
+            for key, lib in [("shipped", shipped), *builds.items()]}
+        if "copy" in extra:
+            result[label]["copy_ms"] = _ms(extra["copy"])
+            result[label]["copy_graph_ms"] = _graph_ms(extra["copy"])
         print(f"{label}: {json.dumps(result[label])}", flush=True)
     print(json.dumps({"card": card, "kernel": name, "cases": result}))
 

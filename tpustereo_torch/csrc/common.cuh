@@ -156,6 +156,79 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The ring helpers of the sweep kernels (`sgm_sweep.cu`, `sgm_bidir.cu`): a
+// lane copies its slice of a pixel into a shared-memory slot, K cost bytes
+// (CB = max(K, 4) bytes: a lane under 4 bytes copies the aligned word that
+// holds its slice, `sub` elements in) and K int16 partial sums (SB =
+// max(2K, 4) bytes), and reads it back as 32-bit words.
+__host__ __device__ constexpr int NWORDS(int K) { return K < 2 ? 1 : K / 2; }
+
+// the lane's K cost bytes of one line, byte k of word k / 4
+template <int K>
+__device__ __forceinline__ void read_costs(const uint8_t* p, int sub,
+                                           unsigned (&w)[(K + 3) / 4]) {
+  if constexpr (K >= 4) {
+    const Words<K> v = *reinterpret_cast<const Words<K>*>(p);
+#pragma unroll
+    for (int i = 0; i < K / 4; ++i) w[i] = v.w[i];
+  } else {
+    w[0] = *reinterpret_cast<const unsigned*>(p) >> (8 * sub);
+  }
+}
+
+// the lane's K partial sums of one line, int16 pairs (the element low);
+// for K = 1 the low half of w[0]
+template <int K>
+__device__ __forceinline__ void read_sums(const uint8_t* p, int sub,
+                                          unsigned (&w)[NWORDS(K)]) {
+  if constexpr (K >= 2) {
+    const Words<2 * K> v = *reinterpret_cast<const Words<2 * K>*>(p);
+#pragma unroll
+    for (int i = 0; i < K / 2; ++i) w[i] = v.w[i];
+  } else {
+    w[0] = *reinterpret_cast<const unsigned*>(p) >> (16 * sub);
+  }
+}
+
+__device__ __forceinline__ int cost_byte(const unsigned* w, int k) {
+  return (w[k / 4] >> (8 * (k % 4))) & 0xff;
+}
+
+// per-half sums of two int16 pairs, each mod 2^16
+__device__ __forceinline__ unsigned add16x2(unsigned a, unsigned b) {
+  return __byte_perm(a + b, a + (b & 0xffff0000u), 0x7610);
+}
+
+// The lane's K int16 results of one line at dst: w holds them as int16
+// pairs (K >= 2) or in its low half (K = 1), s the partial sums as read_sums
+// gave them (added, wrapping as int16 does, when ACC). One vector store
+// (VEC: dst aligned to 2K bytes), or scalar stores.
+template <int K, bool ACC, bool VEC>
+__device__ __forceinline__ void store_line(int16_t* dst,
+                                           unsigned (&w)[NWORDS(K)],
+                                           const unsigned (&s)[NWORDS(K)],
+                                           int d0, int D) {
+  if constexpr (K == 1) {
+    if (d0 < D) dst[0] = (int16_t)(ACC ? s[0] + w[0] : w[0]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < K / 2; ++i)
+      if (ACC) w[i] = add16x2(s[i], w[i]);
+    if constexpr (VEC) {
+      if (d0 < D) {
+        Words<2 * K> v;
+#pragma unroll
+        for (int i = 0; i < K / 2; ++i) v.w[i] = w[i];
+        *reinterpret_cast<Words<2 * K>*>(dst) = v;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (d0 + k < D) dst[k] = (int16_t)(w[k / 2] >> (16 * (k % 2)));
+    }
+  }
+}
+
 template <int K>
 __device__ __forceinline__ int lane_min(const int (&v)[K]) {
   int m = v[0];

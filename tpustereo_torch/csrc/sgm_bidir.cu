@@ -75,73 +75,6 @@ struct Slot {
   static constexpr int bytes = ACC ? 64 * CB + 64 * SB : 64 * CB;
 };
 
-__host__ __device__ constexpr int NWORDS(int K) { return K < 2 ? 1 : K / 2; }
-
-// the lane's K cost bytes of one line, byte k of word k / 4
-template <int K>
-__device__ __forceinline__ void read_costs(const uint8_t* p, int sub,
-                                           unsigned (&w)[(K + 3) / 4]) {
-  if constexpr (K >= 4) {
-    const Words<K> v = *reinterpret_cast<const Words<K>*>(p);
-#pragma unroll
-    for (int i = 0; i < K / 4; ++i) w[i] = v.w[i];
-  } else {
-    w[0] = *reinterpret_cast<const unsigned*>(p) >> (8 * sub);
-  }
-}
-
-// the lane's K partial sums of one line, int16 pairs (the element low);
-// for K = 1 the low half of w[0]
-template <int K>
-__device__ __forceinline__ void read_sums(const uint8_t* p, int sub,
-                                          unsigned (&w)[NWORDS(K)]) {
-  if constexpr (K >= 2) {
-    const Words<2 * K> v = *reinterpret_cast<const Words<2 * K>*>(p);
-#pragma unroll
-    for (int i = 0; i < K / 2; ++i) w[i] = v.w[i];
-  } else {
-    w[0] = *reinterpret_cast<const unsigned*>(p) >> (16 * sub);
-  }
-}
-
-__device__ __forceinline__ int cost_byte(const unsigned* w, int k) {
-  return (w[k / 4] >> (8 * (k % 4))) & 0xff;
-}
-
-// per-half sums of two int16 pairs, each mod 2^16
-__device__ __forceinline__ unsigned add16x2(unsigned a, unsigned b) {
-  return __byte_perm(a + b, a + (b & 0xffff0000u), 0x7610);
-}
-
-// The lane's K int16 results of one line: w holds them as int16 pairs
-// (K >= 2) or in its low half (K = 1), s the partial sums as read_sums gave
-// them. One vector store, or scalar stores.
-template <int K, bool ACC, bool VEC>
-__device__ __forceinline__ void store_line(int16_t* dst,
-                                           unsigned (&w)[NWORDS(K)],
-                                           const unsigned (&s)[NWORDS(K)],
-                                           int d0, int D) {
-  if constexpr (K == 1) {
-    if (d0 < D) dst[0] = (int16_t)(ACC ? s[0] + w[0] : w[0]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < K / 2; ++i)
-      if (ACC) w[i] = add16x2(s[i], w[i]);
-    if constexpr (VEC && !BIDIR_SCALAR_STORES) {
-      if (d0 < D) {
-        Words<2 * K> v;
-#pragma unroll
-        for (int i = 0; i < K / 2; ++i) v.w[i] = w[i];
-        *reinterpret_cast<Words<2 * K>*>(dst) = v;
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        if (d0 + k < D) dst[k] = (int16_t)(w[k / 2] >> (16 * (k % 2)));
-    }
-  }
-}
-
 template <int K, bool ACC, bool PACKED, bool ALIGNED>
 __global__ void __launch_bounds__(32 * WARPS)
     sgm_bidir_kernel(const uint8_t* __restrict__ C, int16_t* __restrict__ Sd,
@@ -149,6 +82,7 @@ __global__ void __launch_bounds__(32 * WARPS)
                      int dx, int p1, int p2) {
   using Sl = Slot<K, ACC>;
   constexpr int NW = NWORDS(K);
+  constexpr bool VEC = ALIGNED && !BIDIR_SCALAR_STORES;
   if (PACKED) D = 32 * K;  // every lane full: the d < D masks fold away
   extern __shared__ __align__(16) uint8_t smem[];
   const int lane = threadIdx.x & 31;
@@ -291,10 +225,10 @@ __global__ void __launch_bounds__(32 * WARPS)
           Lpu[k] = Lu[k];
         }
       }
-      store_line<K, ACC, ALIGNED>(Sd + (pd + t * step_d) * D + d0, od, sd,
-                                  d0, D);
-      store_line<K, ACC, ALIGNED>(Su + (pu + t * step_u) * D + d0, ou, su,
-                                  d0, D);
+      store_line<K, ACC, VEC>(Sd + (pd + t * step_d) * D + d0, od, sd, d0,
+                              D);
+      store_line<K, ACC, VEC>(Su + (pu + t * step_u) * D + d0, ou, su, d0,
+                              D);
     }
   }
 }

@@ -1,112 +1,272 @@
-// One directional SGM sweep, accumulated into the partial sum S.
+// One directional SGM sweep: writes L_r, or adds it to the partial sum S.
 //
 // Replaces: tpustereo/kernels/sgm_pallas.py, sgm_sweep (kernel body
-// `_sweep_kernel`), which the JAX pipeline calls for the down, up and
-// forward-E sweeps.
+// `_sweep_kernel`), which the JAX pipeline calls for the down, up, diagonal
+// and horizontal sweeps; its first sweep of a schedule takes S_in = None and
+// writes S, the later ones accumulate.
 //
-// For direction r = (dy, dx) it adds L_r to S in place, where
+// For direction r = (dy, dx) it computes
 //   L_r(p) = C(p) + min(Lp, Lp(d-1) + P1, Lp(d+1) + P1, minLp + P2) - minLp
 // over the predecessor p - r, and L_r(p) = C(p) where p - r lies outside
-// the image (the JAX `has_prev` restart rule). C is (B, H, W, D) uint8 and
-// S (B, H, W, D) int16; S stays exact because every sum of path costs is
-// below paths * (census_bits + P2) < 2^15 (the pipeline refuses
-// configurations where it is not).
+// the image (the JAX `has_prev` restart rule), and writes S = L_r
+// (accumulate == 0) or adds it, S += L_r (accumulate == 1). C is
+// (B, H, W, D) uint8 and S (B, H, W, D) int16; int16 sums wrap, as the
+// plain version's do. The pipeline keeps every sum of paths below 2^15
+// (`check_slice`), so its sums never wrap.
 //
-// Bound on this card: bytes. Each launch reads C once and reads and writes
-// S once, 5 bytes per cost, against about 8 integer operations per cost.
+// Bound on this card: bytes. The write form reads C and writes S, 3 bytes
+// a cost; the add form also reads S, 5 bytes a cost; about 9 integer
+// operations a cost. The horizontal (E, W) sweeps have only B * H lines of
+// W steps (1,500 warps at KITTI F = 4, 11 an SM), each step a dependent
+// chain of two shuffles and a warp min: there a warp must keep several
+// pixels' bytes in flight, or the chain's latency shows.
 //
 // Design (after the GPU SGM of arXiv 1610.04121): a path is a line of
 // pixels whose recurrence reads only the previous pixel on the same line,
 // so one warp walks one line: the rows for E/W, the columns for N/S and the
-// W+H-1 diagonal lines for each diagonal. Each lane keeps K = D/32 (rounded
-// up to a power of two) disparities of the carry in registers; Lp(d+-1)
-// across lanes comes by shuffle and minLp by one warp min-reduce. Lines
-// start at the image boundary with L = C, which is the restart rule. The
-// next pixel's C and S are loaded before the current pixel's step, so the
-// loads overlap the step's shuffle and reduce latency. Each pixel lies on
-// exactly one line of a direction, so the read-modify-write of S needs no
-// atomics.
+// W + H - 1 diagonal lines (most shorter than H) for each diagonal. Each
+// lane keeps K = D/32 (rounded up to a power of two) contiguous
+// disparities of the int32 carry in registers; Lp(d+-1) across lanes comes
+// by shuffle and minLp by one __reduce_min_sync. A zero carry makes the
+// first step L = C, the restart rule. Each pixel lies on exactly one line
+// of a direction, so no atomics.
+//   * Loads run RING pixels ahead: each lane copies its own K costs (and,
+//     in the add form, its K partial sums) of a pixel into its slot of a
+//     per-warp shared-memory ring by cp.async, one group a pixel, and reads
+//     back only what it copied, so the ring needs no barrier. A line
+//     shorter than the ring fills only its own pixels. Where D is not a
+//     multiple of 4 and of K, or a base pointer is not 16-byte aligned, the
+//     lane fills its slot by plain loads.
+//   * A slot is the lane's fields side by side (`Slot`): the costs, then
+//     the partial sums of the add form. A per-pixel P2 would join it as
+//     one more field, copied in the same group.
+//   * Each lane writes its K int16 with one vector store (2K bytes; 8 at
+//     D = 128), the add form's partial sums added per 16-bit half. Where
+//     the slice is not aligned, scalar stores.
+//   * D = 32 K (the presets' 128) has a build with every lane full.
 #include "common.cuh"
 
-template <int K>
-__global__ void sgm_sweep_kernel(const uint8_t* __restrict__ C,
-                                 int16_t* __restrict__ S, int B, int H, int W,
-                                 int D, int dy, int dx, int p1, int p2) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+#ifndef SWEEP_RING_DEPTH
+#define SWEEP_RING_DEPTH 8  // pixels in flight per warp (a power of two)
+#endif
+#ifndef SWEEP_WARPS
+#define SWEEP_WARPS 4  // warps a block
+#endif
+#ifndef SWEEP_SCALAR_STORES
+#define SWEEP_SCALAR_STORES 0  // 1: one 2-byte store per int16 (measurement)
+#endif
+#ifndef SWEEP_S16X2
+#define SWEEP_S16X2 0  // 1: the E/W sweeps' carry as s16x2 pairs (measurement)
+#endif
+constexpr int RING = SWEEP_RING_DEPTH;
+constexpr int WARPS = SWEEP_WARPS;
+static_assert((RING & (RING - 1)) == 0, "ring depth must be a power of two");
+
+// One ring slot of a warp: the lanes' costs (CB bytes a lane), then, in the
+// add form, their partial sums (SB bytes a lane).
+template <int K, bool ACC>
+struct Slot {
+  static constexpr int CB = K < 4 ? 4 : K;
+  static constexpr int SB = 2 * K < 4 ? 4 : 2 * K;
+  static constexpr int s = 32 * CB;
+  static constexpr int bytes = ACC ? 32 * (CB + SB) : 32 * CB;
+};
+
+// `sgm_step` with the carry as s16x2 words of adjacent disparities (word i
+// holds d0 + 2i low and d0 + 2i + 1 high), renormalised, q = Lp - min Lp,
+// every lane full (D = 32 K, K >= 2). L = C + min(q, q(d-1) + P1,
+// q(d+1) + P1, P2) per half in Hopper's DPX instructions; d = -1 and d = D
+// have no path, so the other neighbour stands in for them. Exact while
+// c_max + P1 + P2 < 2^15, the condition of `sgm_step_s16x2`.
+template <int NW>
+__device__ __forceinline__ void sgm_step_pairs(const unsigned (&c)[NW],
+                                               const unsigned (&q)[NW],
+                                               int lane, unsigned p1x2,
+                                               unsigned p2x2,
+                                               unsigned (&L)[NW]) {
+  const unsigned left = __shfl_up_sync(FULL_MASK, q[NW - 1], 1);
+  const unsigned right = __shfl_down_sync(FULL_MASK, q[0], 1);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    unsigned dn = __byte_perm(i == 0 ? left : q[i - 1], q[i], 0x5432);
+    unsigned up = __byte_perm(q[i], i == NW - 1 ? right : q[i + 1], 0x5432);
+    if (i == 0 && lane == 0) dn = __byte_perm(dn, up, 0x3254);
+    if (i == NW - 1 && lane == 31) up = __byte_perm(up, dn, 0x7610);
+    L[i] = c[i] + __vimin3_s16x2(q[i], __viaddmin_s16x2(up, p1x2, dn + p1x2),
+                                 p2x2);
+  }
+}
+
+template <int K, bool ACC, bool ALIGNED, bool FULL, bool PACKED>
+__global__ void __launch_bounds__(32 * WARPS)
+    sgm_sweep_kernel(const uint8_t* __restrict__ C, int16_t* __restrict__ S,
+                     int B, int H, int W, int D, int dy, int dx, int p1,
+                     int p2) {
+  using Sl = Slot<K, ACC>;
+  constexpr int NW = NWORDS(K);
+  constexpr bool VEC = ALIGNED && !SWEEP_SCALAR_STORES;
+  if (FULL) D = 32 * K;  // every lane full: the d < D masks fold away
+  extern __shared__ __align__(16) uint8_t smem[];
   const int lane = threadIdx.x & 31;
   const int nlines = dy == 0 ? H : (dx == 0 ? W : W + H - 1);
-  if (warp >= B * nlines) return;  // the whole warp leaves together
-  const int b = warp / nlines, li = warp % nlines;
-  int y, x;
+  const long line = (long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (line >= (long)B * nlines) return;  // the whole warp leaves together
+  uint8_t* ring = smem + (threadIdx.x >> 5) * RING * Sl::bytes;
+  const int b = (int)(line / nlines), li = (int)(line % nlines);
+  int y, x, n;  // start pixel and length of the line
   if (dy == 0) {
     y = li;
     x = dx > 0 ? 0 : W - 1;
+    n = W;
   } else if (dx == 0 || li < W) {
     y = dy > 0 ? 0 : H - 1;
     x = li;
-  } else {  // diagonal lines that start on the first column
+    n = dx == 0 ? H : min(H, dx > 0 ? W - x : x + 1);
+  } else {  // diagonal lines that start on the first (dx > 0) or last column
     const int j = li - W;
     y = dy > 0 ? 1 + j : H - 2 - j;
     x = dx > 0 ? 0 : W - 1;
+    n = min(H - 1 - j, W);
   }
-  const size_t base = (size_t)b * H * W;
-  const size_t step = (ptrdiff_t)dy * W + dx;
+  const ptrdiff_t step = (ptrdiff_t)dy * W + dx;
+  const size_t p0 = (size_t)b * H * W + (size_t)y * W + x;
+  const int d0 = lane * K;
+  const bool mine = d0 < D;
+  // where the lane's chunks start in a pixel's costs (bytes) and sums
+  // (elements), and where its own slice starts in them
+  const int c_sub = ALIGNED ? (d0 & 3) : 0, s_sub = ALIGNED ? (d0 & 1) : 0;
+  const int c_at = d0 - c_sub, s_at = d0 - s_sub;
+  uint8_t* my_c = ring + lane * Sl::CB;
+  uint8_t* my_s = ring + Sl::s + lane * Sl::SB;
 
-  size_t pix = base + (size_t)y * W + x;
-  int cv[K], sv[K], Lp[K], L[K];
-  load_pixel<K>(C + pix * D, S + pix * D, lane, D, cv, sv);
+  // pixel t of the line into ring slot t % RING
+  auto fill = [&](int t) {
+    if (!mine) return;
+    const int o = (t & (RING - 1)) * Sl::bytes;
+    const size_t a = (p0 + t * step) * D;
+    if constexpr (ALIGNED) {
+      cp_async<Sl::CB>(my_c + o, C + a + c_at);
+      if constexpr (ACC) cp_async<Sl::SB>(my_s + o, S + a + s_at);
+    } else {
 #pragma unroll
-  for (int k = 0; k < K; ++k) L[k] = lane * K + k < D ? cv[k] : SGM_BIG;
+      for (int k = 0; k < K; ++k) {
+        const bool real = d0 + k < D;
+        my_c[o + k] = real ? C[a + d0 + k] : 0;
+        if constexpr (ACC)
+          reinterpret_cast<int16_t*>(my_s + o)[k] = real ? S[a + d0 + k] : 0;
+      }
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < RING; ++i) {
+    if (i < n) fill(i);
+    cp_async_commit();
+  }
+  // a zero carry makes the first step L = C, the restart rule
+  int Lp[K];
+  unsigned q[NW];  // PACKED: the renormalised carry, s16x2 pairs
   int minLp = 0;
-  bool first = true;
-  while (true) {
-    const int yn = y + dy, xn = x + dx;
-    const bool more = yn >= 0 && yn < H && xn >= 0 && xn < W;
-    int cn[K], sn[K];
-    if (more) load_pixel<K>(C + (pix + step) * D, S + (pix + step) * D, lane,
-                            D, cn, sn);
-    if (!first) sgm_step<K>(cv, Lp, minLp, lane, D, p1, p2, L);
-    int16_t* s = S + pix * D;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int d = lane * K + k;
-      if (d < D) s[d] = (int16_t)(sv[k] + L[k]);
-      Lp[k] = L[k];
-    }
-    if (!more) break;
-    minLp = __reduce_min_sync(FULL_MASK, lane_min<K>(L));
+  for (int k = 0; k < K; ++k) Lp[k] = 0;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      cv[k] = cn[k];
-      sv[k] = sn[k];
+  for (int i = 0; i < NW; ++i) q[i] = 0;
+  const unsigned p1x2 = (unsigned)p1 * 0x10001u, p2x2 = (unsigned)p2 * 0x10001u;
+
+  for (int t = 0; t < n; ++t) {
+    cp_async_wait<RING - 1>();  // pixel t's group has landed
+    const int o = (t & (RING - 1)) * Sl::bytes;
+    unsigned wc[(K + 3) / 4], sv[NW] = {};
+    read_costs<K>(my_c + o, c_sub, wc);
+    if constexpr (ACC) read_sums<K>(my_s + o, s_sub, sv);
+    // the slot is read: refill it RING pixels ahead
+    if (t + RING < n) fill(t + RING);
+    cp_async_commit();
+
+    unsigned out[NW];  // this pixel's L, int16 pairs (K = 1: the low half)
+    if constexpr (PACKED) {
+      unsigned c[NW], L[NW];
+#pragma unroll
+      for (int i = 0; i < NW; ++i)
+        c[i] = __byte_perm(wc[i / 2], 0, i % 2 ? 0x4342 : 0x4140);
+      sgm_step_pairs<NW>(c, q, lane, p1x2, p2x2, L);
+      const unsigned m = warp_min_s16x2<NW>(L);
+      const unsigned M = min(m & 0xffffu, m >> 16) * 0x10001u;
+#pragma unroll
+      for (int i = 0; i < NW; ++i) {
+        out[i] = L[i];
+        q[i] = L[i] - M;  // no half borrows
+      }
+    } else {
+      int cv[K], L[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) cv[k] = cost_byte(wc, k);
+      sgm_step<K>(cv, Lp, minLp, lane, D, p1, p2, L);
+      if constexpr (K == 1) {
+        out[0] = (unsigned)L[0];
+      } else {
+#pragma unroll
+        for (int i = 0; i < NW; ++i)
+          out[i] = __byte_perm(L[2 * i], L[2 * i + 1], 0x5410);
+      }
+      minLp = __reduce_min_sync(FULL_MASK, lane_min<K>(L));
+#pragma unroll
+      for (int k = 0; k < K; ++k) Lp[k] = L[k];
     }
-    first = false;
-    pix += step;
-    y = yn;
-    x = xn;
+    store_line<K, ACC, VEC>(S + (p0 + t * step) * D + d0, out, sv, d0, D);
   }
 }
 
-template <int K>
-static void launch(const uint8_t* C, int16_t* S, int B, int H, int W, int D,
-                   int dy, int dx, int p1, int p2, cudaStream_t s) {
-  const int nlines = dy == 0 ? H : (dx == 0 ? W : W + H - 1);
-  const long warps = (long)B * nlines;
-  const int threads = 128;
-  const long blocks = (warps * 32 + threads - 1) / threads;
-  sgm_sweep_kernel<K><<<(unsigned)blocks, threads, 0, s>>>(C, S, B, H, W, D,
-                                                           dy, dx, p1, p2);
+template <int K, bool ACC, bool ALIGNED, bool FULL, bool PACKED>
+static int launch_one(const uint8_t* C, int16_t* S, int B, int H, int W,
+                      int D, int dy, int dx, int p1, int p2,
+                      cudaStream_t s) {
+  auto kernel = sgm_sweep_kernel<K, ACC, ALIGNED, FULL, PACKED>;
+  const int smem = WARPS * RING * Slot<K, ACC>::bytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long lines = (long)B * (dy == 0 ? H : (dx == 0 ? W : W + H - 1));
+  const unsigned blocks = (unsigned)((lines + WARPS - 1) / WARPS);
+  kernel<<<blocks, 32 * WARPS, smem, s>>>(C, S, B, H, W, D, dy, dx, p1, p2);
+  return (int)cudaGetLastError();
 }
 
+template <int K, bool ACC>
+static int launch(const uint8_t* C, int16_t* S, int B, int H, int W, int D,
+                  int dy, int dx, int p1, int p2, cudaStream_t s) {
+#define TPS_ONE(ALIGNED, FULL, PACKED)                                     \
+  return launch_one<K, ACC, ALIGNED, FULL, PACKED>(C, S, B, H, W, D, dy, dx, \
+                                                   p1, p2, s)
+  const bool aligned = D % K == 0 && D % 4 == 0 &&
+                       ((uintptr_t)C | (uintptr_t)S) % 16 == 0;
+  if (aligned && D == 32 * K) {
+#if SWEEP_S16X2
+    if constexpr (K >= 2)
+      if (dy == 0 && 255 + p1 + p2 < 1 << 15) TPS_ONE(true, true, true);
+#endif
+    TPS_ONE(true, true, false);
+  }
+  if (aligned) TPS_ONE(true, false, false);
+  TPS_ONE(false, false, false);
+#undef TPS_ONE
+}
+
+// accumulate == 0 writes S = L_r and reads no S; 1 adds L_r to S.
 TPS_EXPORT int sgm_sweep_launch(const uint8_t* C, int16_t* S, int B, int H,
                                 int W, int D, int dy, int dx, int p1, int p2,
-                                void* stream) {
+                                int accumulate, void* stream) {
+  if (dy < -1 || dy > 1 || dx < -1 || dx > 1 || (dy == 0 && dx == 0) ||
+      D < 1 || D > 512 || p1 < 0 || p2 < p1)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32) launch<1>(C, S, B, H, W, D, dy, dx, p1, p2, s);
-  else if (D <= 64) launch<2>(C, S, B, H, W, D, dy, dx, p1, p2, s);
-  else if (D <= 128) launch<4>(C, S, B, H, W, D, dy, dx, p1, p2, s);
-  else if (D <= 256) launch<8>(C, S, B, H, W, D, dy, dx, p1, p2, s);
-  else if (D <= 512) launch<16>(C, S, B, H, W, D, dy, dx, p1, p2, s);
-  else return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+#define TPS_LAUNCH(KK)                                                     \
+  return accumulate ? launch<KK, true>(C, S, B, H, W, D, dy, dx, p1, p2, s) \
+                    : launch<KK, false>(C, S, B, H, W, D, dy, dx, p1, p2, s)
+  if (D <= 32) TPS_LAUNCH(1);
+  if (D <= 64) TPS_LAUNCH(2);
+  if (D <= 128) TPS_LAUNCH(4);
+  if (D <= 256) TPS_LAUNCH(8);
+  TPS_LAUNCH(16);
+#undef TPS_LAUNCH
 }

@@ -17,6 +17,9 @@ import torch
 from tpustereo_torch.kernels import _build
 
 _BIG = 1 << 20
+# pixels of the flattened (rows, W) map a block of the hits kernel takes:
+# LR_THREADS * LR_GROUPS * 4 in `csrc/lr_check.cu`
+HITS_TILE = 2048
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
     # d_r, disp, ok, n, W, D, max_diff, d_start, stream
@@ -102,7 +105,7 @@ def dr_consistency_hits(d_r: torch.Tensor, disp: torch.Tensor,
     """`dr_consistency` and the epipolar-intersection map in one pass:
     -> (ok, hits), both bool of d_r's shape, with hits[x] iff some
     j < min(D, W) has x - j >= d_start and |d_r[x - j] - j| <= max_diff.
-    Rows of W must fit the kernel's shared memory (one byte per column).
+    Any W runs: the kernel takes tiles of `HITS_TILE` pixels.
 
     CUDA tensors run the kernel, CPU tensors the plain version."""
     _check(d_r, disp, num_disp, d_start)
@@ -110,9 +113,9 @@ def dr_consistency_hits(d_r: torch.Tensor, disp: torch.Tensor,
         return dr_consistency_hits_plain(d_r, disp, num_disp, max_diff,
                                          d_start)
     W = d_r.shape[-1]
-    if W > _build.SMEM_MAX:
-        raise ValueError(f"row width {W} exceeds the kernel's shared memory "
-                         f"({_build.SMEM_MAX} bytes, one per column)")
+    # the kernel's 16-byte loads need aligned maps
+    d_r = d_r.clone() if d_r.data_ptr() % 16 else d_r
+    disp = disp.clone() if disp.data_ptr() % 16 else disp
     ok = torch.empty(d_r.shape, dtype=torch.bool, device=d_r.device)
     hits = torch.empty_like(ok)
     lib = _build.load("lr_check", _SIGS)

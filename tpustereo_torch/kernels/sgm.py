@@ -29,8 +29,8 @@ from tpustereo_torch.ops.wta import wta
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SWEEP_SIGS = {
-    # C, S, B, H, W, D, dy, dx, p1, p2, stream
-    "sgm_sweep_launch": ([_P, _P] + [_I] * 8 + [_P], _I),
+    # C, S, B, H, W, D, dy, dx, p1, p2, accumulate, stream
+    "sgm_sweep_launch": ([_P, _P] + [_I] * 9 + [_P], _I),
 }
 _BIDIR_SIGS = {
     # C, Sd, Su, B, H, W, D, dx, p1, p2, accumulate, packed, stream
@@ -78,37 +78,51 @@ def _check_volume(C: torch.Tensor, S: torch.Tensor, name: str) -> None:
 # one directional sweep
 # ---------------------------------------------------------------------------
 
-def sgm_sweep_plain(C: torch.Tensor, S: torch.Tensor, dy: int, dx: int,
-                    p1: int, p2: int) -> torch.Tensor:
+def sgm_sweep_plain(C: torch.Tensor, S: torch.Tensor | None, dy: int,
+                    dx: int, p1: int, p2: int) -> torch.Tensor:
     """The kernel's function in plain PyTorch (`ops.sgm`)."""
-    S += path_costs(C, dy, dx, p1, p2)
+    L = path_costs(C, dy, dx, p1, p2)
+    if S is None:
+        return L
+    S += L
     return S
 
 
-def sgm_sweep(C: torch.Tensor, S: torch.Tensor, dy: int, dx: int, p1: int,
-              p2: int) -> torch.Tensor:
-    """S += L_r for direction r = (dy, dx), in place; returns S.
+def sgm_sweep(C: torch.Tensor, S: torch.Tensor | None, dy: int, dx: int,
+              p1: int, p2: int) -> torch.Tensor:
+    """L_r for direction r = (dy, dx): with S None a new int16 volume
+    S = L_r (the JAX `sgm_sweep(C, None, ...)`, which reads no S); else
+    S += L_r in place, returning S (the pipeline's one accumulator of the
+    seven sweeps: it saves a volume).
 
-    C (B, H, W, D) uint8, S int16 of the same shape. In place because S is
-    the pipeline's one accumulator of the seven sweeps (it saves a volume).
-    CUDA tensors run the kernel, CPU tensors the plain version."""
-    _check_volume(C, S, "S")
+    C (B, H, W, D) uint8, S int16 of the same shape. CUDA tensors run the
+    kernel, its write or add form counted in `sgm_sweep.builds`; CPU
+    tensors the plain version."""
+    if S is None:
+        _check_cost(C)
+    else:
+        _check_volume(C, S, "S")
     if (dy, dx) not in DIRS_8:
         raise ValueError(f"direction {(dy, dx)} is not one of {DIRS_8}")
     if not 0 <= p1 <= p2:
         raise ValueError("need 0 <= p1 <= p2")
     if C.device.type == "cpu":
         return sgm_sweep_plain(C, S, dy, dx, p1, p2)
+    add = S is not None
+    if not add:
+        S = torch.empty(C.shape, dtype=torch.int16, device=C.device)
     B, H, W, D = C.shape
     lib = _build.load("sgm_sweep", _SWEEP_SIGS)
     rc = lib.sgm_sweep_launch(_build.ptr(C), _build.ptr(S), B, H, W, D, dy,
-                              dx, p1, p2, _build.stream_ptr(C))
+                              dx, p1, p2, int(add), _build.stream_ptr(C))
     _build.check(lib, rc, "sgm_sweep")
     sgm_sweep.launches += 1
+    sgm_sweep.builds["add" if add else "write"] += 1
     return S
 
 
 sgm_sweep.launches = 0
+sgm_sweep.builds = {"write": 0, "add": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -247,10 +261,10 @@ def sgm_select(C: torch.Tensor, cfg: Config):
         S7 = transpose_hw(St)
         del St
     else:
-        S7 = torch.zeros(C.shape, dtype=torch.int16, device=C.device)
+        S7 = None   # the first sweep writes S7, the others add to it
         for dy, dx in (DIRS_4 if cfg.paths == 4 else DIRS_8):
             if (dy, dx) != (0, -1):
-                sgm_sweep(C, S7, dy, dx, p1, p2)
+                S7 = sgm_sweep(C, S7, dy, dx, p1, p2)
     return sweep_bwd_wta(C, S7, cfg)
 
 
@@ -264,10 +278,10 @@ def aggregate_volume(C: torch.Tensor, cfg: Config) -> torch.Tensor:
     next step has what it needs, so besides C at most two int16 volumes,
     or one and the transposed C, are alive at a time."""
     p1, p2 = cfg.p1, cfg.p2
-    S = torch.zeros(C.shape, dtype=torch.int16, device=C.device)
+    S = None    # the first sweep writes S, the others add to it
     for dy, dx in (DIRS_4 if cfg.paths == 4 else DIRS_8):
         if dy != 0:
-            sgm_sweep(C, S, dy, dx, p1, p2)
+            S = sgm_sweep(C, S, dy, dx, p1, p2)
     St = transpose_hw(S)
     del S
     Ct = transpose_hw(C)
