@@ -142,15 +142,38 @@ The SAD route past `sad_wta`'s limits and the width micro-benchmarks:
    form, held `torch.equal` to the kernel. Prints the share of the run
    both steps take (`steps 16-17: ... s`).
 
+Adaptive P2 (`adaptive_p2=True`, the per-pixel P2' of the left image):
+
+18. holds the adaptive `sgm_sweep` (both forms, all eight directions) and
+   the adaptive `sweep_bwd_wta` against their plain versions at the KITTI
+   path's shapes (`torch.equal`; disparity within 1e-6); drives
+   `kitti_sgm8` with `adaptive_p2=True` through `api.match_batch` on step
+   3's 8 pairs with the counters set to 0 just before, and again under
+   `BIDIR_VERT`: requires the six kernels, the adaptive builds alone (2
+   adaptive writes and 12 adaptive adds of `sgm_sweep`, 2 adaptive
+   `sweep_bwd_wta`) and no `sgm_sweep_bidir` or transpose in either run,
+   the same output, the plain pipeline's output and step 3's bar against
+   the synthetic truth (valid > 0.9, bad-2.0 < 0.05, which the plain
+   pipeline meets); times each direction and form by CUDA-graph replay,
+   adaptive beside scalar (in turns) and beside its byte bound with the
+   image byte, `sweep_bwd_wta` adaptive and scalar at KITTI and Middlebury
+   F = 4, and the batch of 8 both ways; drives `middlebury_sgm4` with
+   `adaptive_p2=True` on step 9's 8 frames of 1988 x 2964 through
+   `sgbm_volume` + `select_and_refine` (adaptive builds alone, E and W on
+   the transposed image), against the fused route on the same frames and
+   the plain pipeline on one, with `MIDDLEBURY`'s bar, and times both
+   routes adaptive and scalar. Prints `step 18: ... s`.
+
 Prints a `{"kernels": [...]}` line with all eighteen kernels, every TPU
 kernel's port (the launches of the KITTI six from step 3, those of
 `sad_wta` and `wta_lr` from their presets' runs in step 6,
 `transpose_hw`'s from step 9, `transpose_sum_hw`'s and `sgm_sweep_bidir`'s
 from step 10, `dr_consistency_hits`'s from step 13, `bitonic_sort`'s from
-step 15 and kernel 13's five from step 17), then `{"ok": true, "device":
-...}` as the last line. Exits non-zero, with
-no result, on any failure or when CUDA is absent. Needs no network;
-imports nothing of JAX.
+step 15 and kernel 13's five from step 17; `sgm_sweep` and
+`sweep_bwd_wta` also carry `adaptive_launches` and `adaptive_ms` from
+step 18), then `{"ok": true, "device": ...}` as the last line. Exits
+non-zero, with no result, on any failure or when CUDA is absent. Needs no
+network; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -428,7 +451,7 @@ def plain_pipeline(L, R, cfg, fills=None):
         S = census_cost_volume_plain(L, R, D, cfg.max_census_cost,
                                      cfg.census_window, d0)
         if cfg.mode == "sgm":
-            S = aggregate(S, cfg)
+            S = aggregate(S, cfg, L)
     disp, _, valid = wta(S, cfg)
     valid &= lr_check(S, disp, cfg)
     modes = (cfg.fill_mode,) if fills is None else fills
@@ -724,6 +747,7 @@ def volume_path(card: str, kitti: dict) -> list:
     lefts, rights, gts = synthetic_pairs((H, W), d_true, BATCH)
     print(f"{BATCH} synthetic {H}x{W} pairs made in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    kitti["middlebury"] = (lefts, rights, gts)   # for step 18
     L = torch.from_numpy(lefts).to(dev)
     R = torch.from_numpy(rights).to(dev)
     n = F * H * W * D
@@ -1631,6 +1655,289 @@ def micro_path(card: str) -> list:
     return rows
 
 
+def adaptive_path(card: str, kitti: dict) -> dict:
+    """Step 18: adaptive P2. Holds the adaptive sweep (both forms, all
+    eight directions) and the adaptive `sweep_bwd_wta` against their plain
+    versions at the KITTI path's shapes; drives `kitti_sgm8` with
+    `adaptive_p2=True` through `api.match_batch` on step 3's 8 pairs, with
+    the counters set to 0 just before, also under `BIDIR_VERT`, against
+    the plain pipeline and the synthetic truth; times each adaptive launch
+    beside the scalar one and its byte bound, and the batch beside the
+    scalar batch; drives `middlebury_sgm4` with `adaptive_p2=True` at full
+    size through `sgbm_volume` + `select_and_refine`, against the fused
+    route and the plain pipeline. `kitti` holds the KITTI path's frames,
+    ground truth, census volume of the first set of frames (step 1) and
+    the Middlebury frames of step 9. Returns {kernel: (launches on the
+    adaptive path, ms per adaptive launch by events)} for `sgm_sweep` and
+    `sweep_bwd_wta`."""
+    import importlib
+
+    import torch
+    from tpustereo_torch import PRESETS, api, kernels
+    from tpustereo_torch.kernels.sgm import (sgm_sweep_plain,
+                                             sweep_bwd_wta_plain)
+    from tpustereo_torch.ops.sgm import DIRS_4, DIRS_8
+    from tpustereo_torch.pipeline import (select_and_refine, sgbm_batched,
+                                          sgbm_volume)
+    ksgm = importlib.import_module("tpustereo_torch.kernels.sgm")
+
+    t_step = time.perf_counter()
+    cfg_s = PRESETS["kitti_sgm8"]
+    cfg = cfg_s.replace(adaptive_p2=True)
+    D, F, p1, p2 = cfg.num_disparities, cfg.frames_per_step, cfg.p1, cfg.p2
+    H, W = SHAPE
+    L, R, C = kitti["L"], kitti["R"], kitti["C"]
+    Lf = L[:F].contiguous()
+    n_pix = F * H * W
+    n_cost = n_pix * D
+    forms0 = dict.fromkeys(kernels.sgm_sweep.builds, 0)
+
+    # --- the adaptive kernels against their plain versions: each direction
+    # in both forms (the add form on the adaptive S7 of the directions
+    # before it), then sweep_bwd_wta on the adaptive S7 of all but W
+    S7 = None
+    sweep_err = 0
+    for dy, dx in DIRS_8:
+        L_k = kernels.sgm_sweep(C, None, dy, dx, p1, p2, Lf)
+        L_p = sgm_sweep_plain(C, None, dy, dx, p1, p2, Lf)
+        torch.cuda.synchronize()
+        require(torch.equal(L_k, L_p),
+                f"adaptive sgm_sweep {(dy, dx)} write form differs")
+        base = L_k if S7 is None else S7
+        S_k = kernels.sgm_sweep(C, base.clone(), dy, dx, p1, p2, Lf)
+        S_p = sgm_sweep_plain(C, base.clone(), dy, dx, p1, p2, Lf)
+        torch.cuda.synchronize()
+        require(torch.equal(S_k, S_p),
+                f"adaptive sgm_sweep {(dy, dx)} add form differs")
+        sweep_err = max(sweep_err, int_err(L_k, L_p), int_err(S_k, S_p))
+        if (dy, dx) != (0, -1):
+            S7 = L_k if S7 is None else S_k
+        del L_k, L_p, S_k, S_p, base
+    disp, valid, d_r = kernels.sweep_bwd_wta(C, S7, cfg, Lf)
+    disp_p, valid_p, d_r_p = sweep_bwd_wta_plain(C, S7, cfg, Lf)
+    torch.cuda.synchronize()
+    require(torch.equal(valid, valid_p) and torch.equal(d_r, d_r_p),
+            "adaptive sweep_bwd_wta valid or d_r differs")
+    bwd_err = (disp - disp_p).abs().max().item()
+    require(bwd_err <= DISP_TOL, "adaptive sweep_bwd_wta disp differs")
+    del disp, valid, d_r, disp_p, valid_p, d_r_p
+    print(f"check adaptive sgm_sweep (8 directions, both forms): max abs "
+          f"diff to plain = {sweep_err}; adaptive sweep_bwd_wta: {bwd_err}",
+          flush=True)
+
+    # --- the path, through the user's entry point, also under BIDIR_VERT
+    runs = {}
+    for bidir in (False, True):
+        ksgm.BIDIR_VERT = bidir
+        try:
+            kernels.reset_launch_counts()
+            out = api.match_batch(kitti["lefts"], kitti["rights"], cfg)
+            torch.cuda.synchronize()
+            runs[bidir] = (out, kernels.launch_counts(),
+                           dict(kernels.sgm_sweep.builds),
+                           dict(kernels.sweep_bwd_wta.builds))
+        finally:
+            ksgm.BIDIR_VERT = False
+    out, launches, forms, bwd_builds = runs[False]
+    print(f"kitti_sgm8 + adaptive_p2 launches: {launches}; sgm_sweep forms: "
+          f"{forms}; sweep_bwd_wta builds: {bwd_builds}", flush=True)
+    for bidir, (o, la, fo, bb) in runs.items():
+        for name in KERNELS:
+            require(la[name] > 0, f"{name} was not launched on the adaptive "
+                    f"path (BIDIR_VERT {bidir})")
+        require(fo == dict(forms0, write_adaptive=BATCH // F,
+                           add_adaptive=6 * BATCH // F),
+                f"the adaptive path's sweeps ran {fo}, not one adaptive "
+                f"write and six adaptive adds a set of frames (BIDIR_VERT "
+                f"{bidir})")
+        require(bb == {"scalar": 0, "adaptive": BATCH // F},
+                f"the adaptive path's sweep_bwd_wta ran {bb} (BIDIR_VERT "
+                f"{bidir})")
+        require(la["sgm_sweep_bidir"] == 0 and la["transpose_hw"] == 0,
+                f"the adaptive path ran sgm_sweep_bidir or a transpose "
+                f"(BIDIR_VERT {bidir})")
+        require(np.array_equal(o, out), "the adaptive path's output differs "
+                "under BIDIR_VERT")
+    require(out.shape == (BATCH, H, W) and np.isfinite(out).all(),
+            "adaptive match_batch output has the wrong shape or non-finite "
+            "values")
+    ref = np.concatenate([plain_pipeline(L[i:i + F], R[i:i + F], cfg)
+                          .cpu().numpy() for i in range(0, BATCH, F)])
+    require(np.array_equal(out == -1.0, ref == -1.0),
+            "adaptive invalid pattern differs from the plain pipeline")
+    path_err = float(np.abs(out - ref).max())
+    require(path_err <= DISP_TOL, "adaptive disparity differs from the plain "
+            "pipeline")
+    require(not np.array_equal(out, kitti["out"]),
+            "the adaptive path gave the scalar path's output")
+    vfrac, bad2 = quality(out, kitti["gts"])
+    p_vfrac, p_bad2 = quality(ref, kitti["gts"])
+    print(f"kitti_sgm8 + adaptive_p2 vs plain pipeline: max abs diff "
+          f"{path_err}; valid fraction {vfrac:.4f}, bad-2.0 {bad2:.4f} "
+          f"(plain pipeline {p_vfrac:.4f}, {p_bad2:.4f})", flush=True)
+    # step 3's bar, which the plain pipeline meets on these pairs
+    require(vfrac > 0.9 and bad2 < 0.05,
+            "adaptive path output is not a good disparity map")
+
+    # --- each launch by CUDA-graph replay beside the scalar one and its
+    # byte bound (the image adds one byte a pixel)
+    S_tmp = S7.clone()
+    for dy, dx in DIRS_8:
+        for form, nbytes in (("write", 3), ("add", 5)):
+            S_in = None if form == "write" else S_tmp
+            g = {}
+            for kind, img in (("scalar", None), ("adaptive", Lf),
+                              ("adaptive2", Lf), ("scalar2", None)):
+                g[kind] = graph_ms(
+                    lambda dy=dy, dx=dx, S_in=S_in, img=img:
+                    kernels.sgm_sweep(C, S_in, dy, dx, p1, p2, img), 5)
+            b_s = bound(nbytes * n_cost, 9 * n_cost)[0]
+            b_a = bound(nbytes * n_cost + n_pix, 9 * n_cost)[0]
+            ratio = ((g["adaptive"] + g["adaptive2"])
+                     / (g["scalar"] + g["scalar2"]))
+            print(f"[{card}] sgm_sweep {dy},{dx} {form}, graph replay: "
+                  f"adaptive {g['adaptive']:.4f}, {g['adaptive2']:.4f} ms "
+                  f"(bound {b_a:.4f}); scalar {g['scalar']:.4f}, "
+                  f"{g['scalar2']:.4f} ms (bound {b_s:.4f}); adaptive / "
+                  f"scalar {ratio:.4f}", flush=True)
+    del S_tmp
+    dirs7 = [r for r in DIRS_8 if r != (0, -1)]
+
+    def sweeps(img):
+        S = kernels.sgm_sweep(C, None, *dirs7[0], p1, p2, img)
+        for dy, dx in dirs7[1:]:
+            kernels.sgm_sweep(C, S, dy, dx, p1, p2, img)
+
+    set_ms = {k: cuda_ms(lambda img=img: sweeps(img), 3) / len(dirs7)
+              for k, img in (("scalar", None), ("adaptive", Lf))}
+    S7s = None
+    for dy, dx in dirs7:
+        S7s = kernels.sgm_sweep(C, S7s, dy, dx, p1, p2)
+    bwd = {}
+    for kind, S, img in (("scalar", S7s, None), ("adaptive", S7, Lf),
+                         ("adaptive2", S7, Lf), ("scalar2", S7s, None)):
+        c = cfg if img is not None else cfg_s
+        bwd[kind] = (
+            graph_ms(lambda S=S, c=c, img=img:
+                     kernels.sweep_bwd_wta(C, S, c, img), 5),
+            cuda_ms(lambda S=S, c=c, img=img:
+                    kernels.sweep_bwd_wta(C, S, c, img), 10))
+    del S7s
+    print(f"[{card}] sgm_sweep at KITTI F={F}, the set's mean by events: "
+          f"adaptive {set_ms['adaptive']:.4f} ms, scalar "
+          f"{set_ms['scalar']:.4f} ms", flush=True)
+    print(f"[{card}] sweep_bwd_wta at KITTI F={F}, (graph replay, events) "
+          f"ms: {bwd}; byte bound scalar "
+          f"{bound(3 * n_cost + 9 * n_pix, 0)[0]:.4f}, adaptive "
+          f"{bound(3 * n_cost + 10 * n_pix, 0)[0]:.4f}", flush=True)
+
+    # --- the batch of 8, scalar and adaptive in turns
+    bt = {}
+    for kind, c in (("scalar", cfg_s), ("adaptive", cfg), ("adaptive2", cfg),
+                    ("scalar2", cfg_s)):
+        bt[kind] = cuda_ms(lambda c=c: sgbm_batched(L, R, c), 5)
+    print(f"[{card}] kitti_sgm8 batch of {BATCH} on device tensors: "
+          f"adaptive {bt['adaptive']:.3f}, {bt['adaptive2']:.3f} ms "
+          f"({2 * BATCH * 1e3 / (bt['adaptive'] + bt['adaptive2']):.2f} "
+          f"frames/s); scalar {bt['scalar']:.3f}, {bt['scalar2']:.3f} ms "
+          f"({2 * BATCH * 1e3 / (bt['scalar'] + bt['scalar2']):.2f} "
+          f"frames/s)", flush=True)
+    print(f"[{card}] adaptive batch profiler: "
+          f"{device_busy(lambda: sgbm_batched(L, R, cfg))}", flush=True)
+    del S7
+
+    # --- middlebury_sgm4 + adaptive_p2 at full size: the volume route
+    mcfg_s = PRESETS["middlebury_sgm4"]
+    mcfg = mcfg_s.replace(adaptive_p2=True)
+    Fm = mcfg.frames_per_step
+    (Hm, Wm), _, v_min, bad_max = MIDDLEBURY
+    m_lefts, m_rights, m_gts = kitti["middlebury"]
+    Lm = torch.from_numpy(m_lefts).cuda()
+    Rm = torch.from_numpy(m_rights).cuda()
+
+    def volume_route(c):
+        return torch.cat([select_and_refine(
+            sgbm_volume(Lm[i:i + Fm], Rm[i:i + Fm], c), c)
+            for i in range(0, BATCH, Fm)])
+
+    kernels.reset_launch_counts()
+    vol = volume_route(mcfg)
+    torch.cuda.synchronize()
+    launches_m = kernels.launch_counts()
+    forms_m = dict(kernels.sgm_sweep.builds)
+    print(f"middlebury_sgm4 + adaptive_p2 volume route launches: "
+          f"{launches_m}; sgm_sweep forms: {forms_m}", flush=True)
+    require(forms_m == dict(forms0, write_adaptive=BATCH // Fm,
+                            add_adaptive=3 * BATCH // Fm),
+            f"the adaptive volume route's sweeps ran {forms_m}")
+    require(launches_m["transpose_hw"] == 3 * BATCH // Fm
+            and launches_m["wta_lr"] > 0
+            and launches_m["sweep_bwd_wta"] == 0,
+            "the adaptive volume route did not run its kernels")
+    vol = vol.cpu().numpy()
+    require(vol.shape == (BATCH, Hm, Wm) and np.isfinite(vol).all(),
+            "adaptive volume route output has the wrong shape or non-finite "
+            "values")
+    kernels.reset_launch_counts()
+    fused = sgbm_batched(Lm, Rm, mcfg).cpu().numpy()
+    require(kernels.sweep_bwd_wta.builds == {"scalar": 0,
+                                             "adaptive": BATCH // Fm},
+            "the adaptive fused route did not run the adaptive bwd build")
+    require(np.array_equal(vol, fused),
+            "adaptive volume route differs from the fused route")
+    del fused
+    t0 = time.perf_counter()
+    ref = plain_pipeline(Lm[:1], Rm[:1], mcfg).cpu().numpy()
+    plain_s = time.perf_counter() - t0
+    require(np.array_equal(vol[:1] == -1.0, ref == -1.0),
+            "adaptive volume route invalid pattern differs from the plain "
+            "pipeline")
+    m_err = float(np.abs(vol[:1] - ref).max())
+    require(m_err <= DISP_TOL, "adaptive volume route disparity differs "
+            "from the plain pipeline")
+    m_vfrac, m_bad2 = quality(vol, m_gts)
+    print(f"middlebury_sgm4 + adaptive_p2 volume route: equal to the fused "
+          f"route; vs plain pipeline (1 frame, {plain_s:.1f} s): {m_err}; "
+          f"valid fraction {m_vfrac:.4f}, bad-2.0 {m_bad2:.4f} (plain "
+          f"pipeline's frame: {quality(ref, m_gts[:1])})", flush=True)
+    require(m_vfrac > v_min and m_bad2 < bad_max,
+            "adaptive volume route output is not a good disparity map")
+    mt = {}
+    for kind, c in (("scalar", mcfg_s), ("adaptive", mcfg),
+                    ("adaptive2", mcfg), ("scalar2", mcfg_s)):
+        mt[kind] = (cuda_ms(lambda c=c: volume_route(c), 3),
+                    cuda_ms(lambda c=c: sgbm_batched(Lm, Rm, c), 3))
+    print(f"[{card}] middlebury_sgm4 {Hm}x{Wm} batch of {BATCH}, (volume "
+          f"route, fused route) ms: {mt}", flush=True)
+
+    # sweep_bwd_wta alone on one set of 4 Middlebury frames, S7 from the
+    # other three paths, scalar and adaptive
+    Lmf = Lm[:Fm].contiguous()
+    Cm = kernels.census_cost_volume(Lmf, Rm[:Fm], D, mcfg.max_census_cost,
+                                    mcfg.census_window, mcfg.min_disparity)
+    nm_pix = Lmf.numel()
+    mb = {}
+    for kind, c, img in (("scalar", mcfg_s, None), ("adaptive", mcfg, Lmf),
+                         ("adaptive2", mcfg, Lmf), ("scalar2", mcfg_s, None)):
+        S7m = None
+        for dy, dx in DIRS_4:
+            if (dy, dx) != (0, -1):
+                S7m = kernels.sgm_sweep(Cm, S7m, dy, dx, c.p1, c.p2, img)
+        mb[kind] = graph_ms(lambda S7m=S7m, c=c, img=img:
+                            kernels.sweep_bwd_wta(Cm, S7m, c, img), 2)
+        del S7m
+    del Cm
+    print(f"[{card}] sweep_bwd_wta at Middlebury F={Fm}, graph replay ms: "
+          f"{mb}; byte bound scalar "
+          f"{bound(3 * nm_pix * D + 9 * nm_pix, 0)[0]:.4f}, adaptive "
+          f"{bound(3 * nm_pix * D + 10 * nm_pix, 0)[0]:.4f}", flush=True)
+    print(f"step 18: {time.perf_counter() - t_step:.1f} s", flush=True)
+    return {"sgm_sweep": (forms["write_adaptive"] + forms["add_adaptive"],
+                          set_ms["adaptive"]),
+            "sweep_bwd_wta": (bwd_builds["adaptive"],
+                              (bwd["adaptive"][1] + bwd["adaptive2"][1]) / 2)}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1786,7 +2093,8 @@ def main() -> None:
         require(launches[name] > 0, f"{name} was not launched on the main "
                 f"path")
     # each set of frames' first sweep writes S7 and six add to it
-    require(sweep_forms == {"write": BATCH // F, "add": 6 * BATCH // F},
+    require(sweep_forms == dict(dict.fromkeys(sweep_forms, 0),
+                                write=BATCH // F, add=6 * BATCH // F),
             f"the main path's sweeps ran {sweep_forms}, not one write and "
             f"six adds a set of frames")
     require(out.shape == (BATCH, H, W) and np.isfinite(out).all(),
@@ -1954,7 +2262,8 @@ def main() -> None:
                      "plain_ms": plain_ms[name], "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": library_ms[name]})
     rows += modes_path(card)
-    kitti = dict(lefts=lefts, rights=rights, gts=gts, L=L, R=R, out=out)
+    kitti = dict(lefts=lefts, rights=rights, gts=gts, L=L, R=R, out=out,
+                 C=C)
     rows += volume_path(card, kitti)
     rows += fills_path(card, dict(kitti, d_r=d_r, disp=disp, lab=lab,
                                   gaps=med_in))
@@ -1962,6 +2271,10 @@ def main() -> None:
     sad_wide_path(card)
     rows += micro_path(card)
     print(f"steps 16-17: {time.perf_counter() - t_steps:.1f} s", flush=True)
+    # rows 2 and 3 also carry the adaptive path's launches and ms a launch
+    for name, (n, a_ms) in adaptive_path(card, kitti).items():
+        row = next(r for r in rows if r["name"] == name)
+        row.update(adaptive_launches=n, adaptive_ms=a_ms)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -214,7 +214,56 @@ def test_sweep_kernel_matches_plain(cuda, D, direction, shape, form):
         ref = sgm_sweep_plain(C, None, *direction, 10, 120)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
-    assert kernels.sgm_sweep.builds == {"write": 0, "add": 0, form: 1}
+    assert kernels.sgm_sweep.builds == dict(FORMS, **{form: 1})
+
+
+FORMS = {"write": 0, "add": 0, "write_adaptive": 0, "add_adaptive": 0}
+
+
+def _image(cuda, B, H, W, seed=0):
+    """A left image of random bytes: gradients of every size, 0 included
+    (a fifth of the pixels repeat their left neighbour)."""
+    rng = np.random.default_rng(seed + 100)
+    img = rng.integers(0, 256, (B, H, W), dtype=np.uint8)
+    rep = rng.random((B, H, W)) < 0.2
+    rep[..., 0] = False
+    img[rep] = np.roll(img, 1, axis=-1)[rep]
+    return torch.from_numpy(img).to(cuda)
+
+
+@pytest.mark.parametrize("D", [16, 40, 128, 200, 512])
+@pytest.mark.parametrize("direction", DIRS_8)
+@pytest.mark.parametrize("shape", SWEEP_SHAPES + [(1, 70, 70)])
+@pytest.mark.parametrize("form", ["add", "write"])
+def test_sweep_kernel_adaptive_matches_plain(cuda, D, direction, shape,
+                                             form):
+    """Adaptive P2: the kernel's per-pixel P2' from the left image, in both
+    forms, against the plain version; lines of 1 to 70 pixels (more than
+    two groups of 32)."""
+    C = _volume(cuda, *shape, D)
+    img = _image(cuda, *shape)
+    kernels.reset_launch_counts()
+    S = (torch.full(C.shape, 7, dtype=torch.int16, device=cuda)
+         if form == "add" else None)
+    ref = sgm_sweep_plain(C, None if S is None else S.clone(), *direction,
+                          10, 120, img)
+    got = kernels.sgm_sweep(C, S, *direction, 10, 120, img)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert kernels.sgm_sweep.builds == dict(FORMS, **{form + "_adaptive": 1})
+
+
+@pytest.mark.parametrize("direction", DIRS_8)
+@pytest.mark.parametrize("p1,p2", [(40, 40), (0, 0), (3, 4000)])
+def test_sweep_kernel_adaptive_p2_edges(cuda, direction, p1, p2):
+    """P1 = P2 (every P2' is P1 + 1, above P2), P2 = 0, and a P2 whose
+    quotients span 15 to 4000."""
+    C = _volume(cuda, 2, 19, 43, 128, seed=4)
+    img = _image(cuda, 2, 19, 43, seed=4)
+    got = kernels.sgm_sweep(C, None, *direction, p1, p2, img)
+    ref = sgm_sweep_plain(C, None, *direction, p1, p2, img)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 def _unaligned(x: torch.Tensor) -> torch.Tensor:
@@ -238,6 +287,13 @@ def test_sweep_kernel_takes_unaligned_volumes(cuda, form, direction, D):
     ref = sgm_sweep_plain(C, None if S is None else S.clone(), *direction,
                           10, 120)
     got = kernels.sgm_sweep(C, S, *direction, 10, 120)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    img = _image(cuda, 2, 19, 43, seed=3)
+    S = None if S is None else torch.full_like(S, 5)
+    ref = sgm_sweep_plain(C, None if S is None else S.clone(), *direction,
+                          10, 120, img)
+    got = kernels.sgm_sweep(C, S, *direction, 10, 120, img)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
 
@@ -268,6 +324,45 @@ def test_bwd_wta_kernel_matches_plain(cuda, W, D, uniq, subpixel, d0, p2):
     assert torch.equal(valid, valid_p)
     assert torch.equal(d_r, d_r_p)
     assert (disp - disp_p).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("W", [1, 2, 31, 32, 33, 41, 64, 65, 1242])
+@pytest.mark.parametrize("D,d0,p1,p2", [
+    (16, 0, 7, 90), (40, 3, 7, 90), (128, 0, 10, 120), (128, 2, 40, 40),
+    (200, 2, 7, 90), (3, 0, 7, 90), (256, 1, 10, 120), (512, 0, 10, 120),
+    (128, 0, 7, 487), (41, 0, 7, 90)])
+def test_bwd_wta_kernel_adaptive_matches_plain(cuda, W, D, d0, p1, p2):
+    """Adaptive P2 in the W sweep: the chunks' image bytes across chunk
+    edges (W past 32 and 64), every build, and P1 = P2; S7 from the other
+    seven adaptive sweeps."""
+    C = _volume(cuda, 2, 17, W, D, seed=5)
+    img = _image(cuda, 2, 17, W, seed=5)
+    cfg = Config(num_disparities=D, min_disparity=d0, p1=p1, p2=p2,
+                 adaptive_p2=True)
+    S7 = torch.zeros(C.shape, dtype=torch.int16, device=cuda)
+    for dy, dx in DIRS_8:
+        if (dy, dx) != (0, -1):
+            sgm_sweep_plain(C, S7, dy, dx, p1, p2, img)
+    kernels.reset_launch_counts()
+    disp, valid, d_r = kernels.sweep_bwd_wta(C, S7, cfg, img)
+    assert kernels.sweep_bwd_wta.builds == {"scalar": 0, "adaptive": 1}
+    disp_p, valid_p, d_r_p = sweep_bwd_wta_plain(C, S7, cfg, img)
+    torch.cuda.synchronize()
+    assert torch.equal(valid, valid_p)
+    assert torch.equal(d_r, d_r_p)
+    assert (disp - disp_p).abs().max().item() <= 1e-6
+
+
+def test_bwd_wta_refuses_adaptive_sums_past_int16(cuda):
+    """Under adaptive P2 the refusal bounds P2 by max(P2, P1 + 1): P1 = P2
+    = 3840 runs scalar (8 * (255 + 3840) < 2^15) and is refused adaptive."""
+    C = _volume(cuda, 1, 4, 40, 16)
+    img = _image(cuda, 1, 4, 40)
+    S7 = torch.zeros(C.shape, dtype=torch.int16, device=cuda)
+    cfg = Config(num_disparities=16, p1=3840, p2=3840)
+    kernels.sweep_bwd_wta(C, S7, cfg)
+    with pytest.raises(ValueError, match="2\\^15"):
+        kernels.sweep_bwd_wta(C, S7, cfg.replace(adaptive_p2=True), img)
 
 
 @pytest.mark.parametrize("H,W,D", [(40, 72, 32), (6, 20, 32)])
@@ -639,7 +734,8 @@ def test_pipeline_past_fused_bound_cuda_matches_cpu(cuda, paths, d0, p2):
                     connected_component_labels=2, median3=2)
     assert counts == expected
     # each set of frames' first sweep writes S: no zero fill
-    assert kernels.sgm_sweep.builds == {"write": 2, "add": 2 * (paths - 1)}
+    assert kernels.sgm_sweep.builds == dict(FORMS, write=2,
+                                            add=2 * (paths - 1))
 
 
 @pytest.mark.parametrize("mode,paths,d0", [
@@ -656,8 +752,8 @@ def test_pipeline_cuda_matches_cpu(cuda, mode, paths, d0):
         expected.update(census_cost_volume=2, sgm_sweep=2 * (paths - 1),
                         sweep_bwd_wta=2, dr_consistency=2)
         # each set of frames' first sweep writes S7: no zero fill
-        assert kernels.sgm_sweep.builds == {"write": 2,
-                                            "add": 2 * (paths - 2)}
+        assert kernels.sgm_sweep.builds == dict(FORMS, write=2,
+                                                add=2 * (paths - 2))
     elif mode == "census_wta":
         expected.update(census_cost_volume=2, wta_lr=2)
     else:
@@ -923,3 +1019,76 @@ def test_width_micro_refuses_bad_cuda_inputs(cuda):
     with pytest.raises(ValueError, match="2048"):
         wm.roll_chain_micro(torch.zeros((2049, 1), dtype=torch.int32,
                                         device=cuda), axis=0)
+
+
+# ---------------------------------------------------------------------------
+# adaptive P2 through the compositions and the pipeline
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("paths", [4, 8])
+def test_aggregate_volume_adaptive_cuda_matches_plain(cuda, paths):
+    """The volume route's sweeps with the image, E and W on the transposed
+    image."""
+    C = _volume(cuda, 2, 23, 57, 48, seed=12)
+    img = _image(cuda, 2, 23, 57, seed=12)
+    cfg = Config(num_disparities=48, paths=paths, p1=7, p2=90,
+                 adaptive_p2=True)
+    kernels.reset_launch_counts()
+    got = kernels.aggregate_volume(C, cfg, img)
+    assert kernels.sgm_sweep.builds == dict(
+        FORMS, write_adaptive=1, add_adaptive=paths - 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aggregate(C, cfg, img))
+
+
+@pytest.mark.parametrize("paths,d0,p1,p2,fill", [
+    (8, 0, 10, 120, "off"), (4, 0, 10, 120, "off"),
+    (8, 3, 10, 120, "hirschmuller"), (8, 0, 40, 40, "background"),
+    (4, 2, 10, 1000, "off"), (8, 0, 10, 600, "hirschmuller")])
+def test_pipeline_adaptive_cuda_matches_cpu(cuda, paths, d0, p1, p2, fill):
+    """Adaptive P2 through `sgbm_batched` on both routes (P2 past the fused
+    bound takes the volume route), against the CPU's plain pipeline."""
+    cfg = Config(num_disparities=32, paths=paths, min_disparity=d0, p1=p1,
+                 p2=p2, adaptive_p2=True, fill_mode=fill,
+                 speckle_window_size=100, speckle_range=2,
+                 frames_per_step=2)
+    counts = _run_on_both(cfg)
+    volume = paths * (cfg.max_census_cost + p2) >= 4096
+    n_sweeps = paths if volume else paths - 1
+    assert counts["sgm_sweep"] == 2 * n_sweeps
+    assert kernels.sgm_sweep.builds == dict(
+        FORMS, write_adaptive=2, add_adaptive=2 * (n_sweeps - 1))
+    assert counts["sweep_bwd_wta"] == (0 if volume else 2)
+    assert kernels.sweep_bwd_wta.builds == {"scalar": 0,
+                                            "adaptive": 0 if volume else 2}
+    assert counts["transpose_hw"] == (6 if volume else 0)
+
+
+def test_bidir_vert_adaptive_cuda_takes_the_default_schedule(cuda,
+                                                             monkeypatch):
+    L, R = _pairs(4, (33, 49), seed=13)
+    L, R = L.to(cuda), R.to(cuda)
+    cfg = Config(num_disparities=32, speckle_window_size=100,
+                 speckle_range=2, frames_per_step=2, adaptive_p2=True)
+    ref = sgbm_batched(L, R, cfg)
+    monkeypatch.setattr(importlib.import_module(
+        "tpustereo_torch.kernels.sgm"), "BIDIR_VERT", True)
+    kernels.reset_launch_counts()
+    got = sgbm_batched(L, R, cfg)
+    counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert counts["sgm_sweep_bidir"] == 0 and counts["transpose_hw"] == 0
+    assert kernels.sgm_sweep.builds == dict(FORMS, write_adaptive=2,
+                                            add_adaptive=12)
+
+
+def test_volume_route_adaptive_cuda_matches_fused(cuda):
+    L, R = _pairs(2, (41, 67), seed=15)
+    L, R = L.to(cuda), R.to(cuda)
+    cfg = Config(num_disparities=32, paths=4, adaptive_p2=True,
+                 speckle_window_size=100, speckle_range=2)
+    fused = sgbm_batched(L, R, cfg)
+    volume = select_and_refine(sgbm_volume(L, R, cfg), cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(volume, fused)

@@ -195,7 +195,7 @@ def test_entry_points_need_cuda_unless_told_cpu(small_pair, monkeypatch):
 
 @pytest.mark.parametrize("change", [
     dict(mode="census_wta", num_disparities=640),
-    dict(adaptive_p2=True), dict(num_disparities=640),
+    dict(num_disparities=640),
     dict(p2=5000)], ids=lambda c: ",".join(f"{k}={v}" for k, v in c.items()))
 def test_out_of_slice_configs_raise(change):
     img = torch.zeros((1, 8, 16), dtype=torch.uint8)
@@ -205,7 +205,8 @@ def test_out_of_slice_configs_raise(change):
 
 @pytest.mark.parametrize("change", [
     dict(mode="sad", fill_mode="background"),
-    dict(fill_mode="background"), dict(fill_mode="hirschmuller")],
+    dict(fill_mode="background"), dict(fill_mode="hirschmuller"),
+    dict(adaptive_p2=True)],
     ids=lambda c: ",".join(f"{k}={v}" for k, v in c.items()))
 def test_out_of_slice_configs_raise_no_more(small_pair, change):
     """Configurations that earlier slices refused now run, equal to the JAX

@@ -66,11 +66,15 @@ def test_forms_match_path_costs(rng, direction):
     assert torch.equal(S, S0 + L)
 
 
+FORMS = {"write": 0, "add": 0, "write_adaptive": 0, "add_adaptive": 0}
+
+
 def test_reset_launch_counts_clears_the_sweep_forms():
     kernels.sgm_sweep.builds["write"] += 2
     kernels.sgm_sweep.builds["add"] += 5
+    kernels.sgm_sweep.builds["add_adaptive"] += 1
     kernels.reset_launch_counts()
-    assert kernels.sgm_sweep.builds == {"write": 0, "add": 0}
+    assert kernels.sgm_sweep.builds == FORMS
 
 
 def test_cpu_forms_count_no_launch(rng):
@@ -79,4 +83,4 @@ def test_cpu_forms_count_no_launch(rng):
     S = kernels.sgm_sweep(C, None, 1, 0, P1, P2)
     kernels.sgm_sweep(C, S, -1, 0, P1, P2)
     assert kernels.sgm_sweep.launches == 0
-    assert kernels.sgm_sweep.builds == {"write": 0, "add": 0}
+    assert kernels.sgm_sweep.builds == FORMS

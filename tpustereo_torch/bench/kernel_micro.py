@@ -37,8 +37,11 @@ those 4 frames, its three launches of column shifts (0, 1, -1) as the
 input of the path, the speckle-filtered disparity of those 4 frames;
 `sgm_sweep` on the census volume of those 4 frames, each of the seven
 directions of `sgm_select` in the write form (S = L_r) and the add form
-(S += L_r, on a partial sum of path costs), and the S direction's add form
-on 4 frames of 1988 x 2964 (`middlebury_sgm4`); `lr_check` (its hits
+(S += L_r, on a partial sum of path costs), each with the scalar P2 and
+with adaptive P2 (the left image of those frames, `kitti_sgm8` with
+`adaptive_p2=True`), and the S direction's add form on 4 frames of
+1988 x 2964 (`middlebury_sgm4`); `bwd_wta` with the scalar and the
+adaptive P2 the same way; `lr_check` (its hits
 kernel) on the d_r and disparity of those 4 KITTI frames, and on 4 rows of
 240,000 columns (D = 128; the shipped builds only: a checkout from before
 the tiled design refuses such rows).
@@ -46,8 +49,9 @@ Each `--against DIR` (the option may be repeated) makes the same source
 of another checkout (`DIR/tpustereo_torch/csrc/<name>.cu`, the same C
 interface, or the one `AGAINST_SIGS` names) one more build, named after
 DIR (a parent commit unpacked into `parent/`, say), held to the shipped
-outputs (a checkout's `sgm_sweep` from before the write form adds L_r to
-a zeroed S in the write cases). It prints the card's name and power limit,
+outputs in the cases it takes (a checkout's `sgm_sweep` and `bwd_wta`
+from before adaptive P2 take the scalar cases alone). It prints the
+card's name and power limit,
 then one JSON line: ms per launch of each build in each case, by CUDA
 events (mean of 20 launches after a warm-up) and by CUDA-graph replay (20
 launches captured in one graph: the device's time without the host's per
@@ -91,14 +95,17 @@ SIGS = {"bwd_wta": _BWD_SIGS, "census_cost": _COST_SIGS,
         "median3": _MEDIAN_SIGS, "sgm_sweep": _SWEEP_SIGS,
         "lr_check": {"lr_hits_launch": _LR_SIGS["lr_hits_launch"]}}
 # earlier C interfaces that `--against` builds keep: sgm_bidir_launch
-# before its `packed` argument (one int32 build), sgm_sweep_launch before
-# its `accumulate` argument (the add form alone)
+# before its `packed` argument (one int32 build), sgm_sweep_launch and
+# bwd_wta_launch before their image argument (scalar P2 alone)
 AGAINST_SIGS = {
     "sgm_bidir": {"sgm_bidir_launch": (
         _BIDIR_SIGS["sgm_bidir_launch"][0][:11] + [ctypes.c_void_p],
         ctypes.c_int)},
     "sgm_sweep": {"sgm_sweep_launch": (
-        _SWEEP_SIGS["sgm_sweep_launch"][0][:10] + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+        ctypes.c_int)},
+    "bwd_wta": {"bwd_wta_launch": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
         ctypes.c_int)},
 }
 # name: {build name: -D flags}
@@ -182,6 +189,12 @@ ABLATIONS = {
                             "lane_min<K>(L));", "minLp = lane_min<K>(L);"),
         # the wait for the ring's oldest group
         "no_ring_wait": ("cp_async_wait<RING - 1>();", ""),
+        # adaptive P2 from the image bytes of the column and its
+        # predecessor loaded in each step, on the carry's chain (the same
+        # outputs), not a chunk ahead
+        "p2_each_step": ("p2t = __shfl_sync(FULL_MASK, p2v, x - lo);",
+                         "p2t = max(p1 + 1, p2 / max(1, abs(image(x) - "
+                         "image(x + 1))));"),
     },
     "census_cost": {
         # the census words (the output phase reads whatever is there)
@@ -285,6 +298,15 @@ ABLATIONS = {
         # the stores of the line's results
         "no_stores": ("    store_line<K, ACC, VEC>(S + (p0",
                       "    if (t < 0) store_line<K, ACC, VEC>(S + (p0"),
+        # adaptive P2 from the image bytes of the pixel and its predecessor
+        # loaded in each step, on the carry's chain (the same outputs), not
+        # a group of 32 pixels ahead
+        "p2_each_step": ("p2t = __shfl_sync(FULL_MASK, p2v, t & 31);",
+                         "p2t = max(p1 + 1, p2 / max(1, abs(image(t) - "
+                         "image(max(t - 1, 0)))));"),
+        # a group's loads and P2' (every P2' stays the scalar P2)
+        "p2_no_group": ("if ((t & 31) == 0) {  // a group starts",
+                        "if (false) {  // a group starts"),
     },
     "lr_check": {
         # the hits scatter (the flags stay clear)
@@ -394,10 +416,12 @@ def _kitti_speckle(dev):
 
 def _sweep_cases(dev) -> list:
     """The `sgm_sweep` cases: each direction of `sgm_select`'s seven in
-    both forms at KITTI F = 4, and the S direction's add form at
+    both forms at KITTI F = 4, with the scalar P2 and with adaptive P2
+    (the frames' left images), and the S direction's add form at
     Middlebury F = 4. The add form accumulates into its buffer launch after
     launch (the sums wrap; the time does not depend on them), so the check
-    resets the buffer first (`reset`)."""
+    resets the buffer first (`reset`). `--against` builds take the scalar
+    cases."""
     cases = []
     for preset, shape, disparity, dirs in (
             ("kitti_sgm8", (375, 1242), 40.0,
@@ -408,32 +432,34 @@ def _sweep_cases(dev) -> list:
         D, p1, p2 = cfg.num_disparities, cfg.p1, cfg.p2
         C = kernels.census_cost_volume(L, R, D, cfg.max_census_cost,
                                        cfg.census_window, cfg.min_disparity)
-        del L, R
+        del R
         B, H, W, _ = C.shape
         S0 = kernels.sgm_sweep(C, None, 1, 0, p1, p2)  # a partial sum
-        forms = ("write", "add") if preset == "kitti_sgm8" else ("add",)
-        for (dy, dx), form in [(r, f) for r in dirs for f in forms]:
+        kitti = preset == "kitti_sgm8"
+        forms = ("write", "add") if kitti else ("add",)
+        imgs = (None, L) if kitti else (None,)
+        for (dy, dx), form, img in [(r, f, i) for r in dirs for f in forms
+                                    for i in imgs]:
             acc = form == "add"
             ref = (kernels.sgm_sweep(C, S0.clone() if acc else None, dy, dx,
-                                     p1, p2),)
+                                     p1, p2, img),)
             outs = (torch.empty_like(S0),)
 
             def launch(lib, C=C, outs=outs, dy=dy, dx=dx, acc=acc, p1=p1,
-                       p2=p2):
-                form = () if getattr(lib, "tps_against", False) else (acc,)
+                       p2=p2, img=img):
+                im = (() if getattr(lib, "tps_against", False)
+                      else (None if img is None else _build.ptr(img),))
                 return lib.sgm_sweep_launch(
-                    _build.ptr(C), _build.ptr(outs[0]), *C.shape, dy, dx,
-                    p1, p2, *form, _build.stream_ptr(C))
+                    _build.ptr(C), _build.ptr(outs[0]), *im, *C.shape, dy,
+                    dx, p1, p2, int(acc), _build.stream_ptr(C))
 
             def reset(outs=outs, acc=acc, S0=S0):
                 if acc:
                     outs[0].copy_(S0)
-                else:  # a checkout without the write form adds to zeros
-                    outs[0].zero_()
-            label = (f"{'kitti' if preset == 'kitti_sgm8' else 'middlebury'}"
-                     f"_F4_{dy},{dx}_{form}")
+            label = (f"{'kitti' if kitti else 'middlebury'}_F4_{dy},{dx}_"
+                     f"{form}{'' if img is None else '_adaptive'}")
             cases.append((label, [B, H, W, D], ref, outs, launch,
-                          {"reset": reset}))
+                          {"reset": reset, "skip_against": img is not None}))
     return cases
 
 
@@ -492,17 +518,28 @@ def _cases(name: str, dev) -> list:
         C = kernels.census_cost_volume(L, R, D, bits, (ch, cw), d0)
         B, H, W, _ = C.shape
         if name == "bwd_wta":
-            S7 = torch.zeros(C.shape, dtype=torch.int16, device=dev)
-            for dy, dx in DIRS_8:
-                if (dy, dx) != (0, -1):
-                    kernels.sgm_sweep(C, S7, dy, dx, cfg.p1, cfg.p2)
-            ref = kernels.sweep_bwd_wta(C, S7, cfg)
-            outs = tuple(torch.empty_like(t) for t in ref)
-            cases.append(("kitti_F4", [B, H, W, D], ref, outs, lambda lib: (
-                lib.bwd_wta_launch(
-                    _build.ptr(C), _build.ptr(S7), *map(_build.ptr, outs),
-                    B * H, W, D, cfg.p1, cfg.p2, cfg.uniqueness_ratio,
-                    int(cfg.subpixel), d0, stream()))))
+            # the scalar and the adaptive P2 (`kitti_sgm8` with
+            # adaptive_p2=True: its S7 and the left images)
+            for label, img in (("kitti_F4", None),
+                               ("kitti_F4_adaptive", L)):
+                S7 = None
+                for dy, dx in DIRS_8:
+                    if (dy, dx) != (0, -1):
+                        S7 = kernels.sgm_sweep(C, S7, dy, dx, cfg.p1,
+                                               cfg.p2, img)
+                ref = kernels.sweep_bwd_wta(C, S7, cfg, img)
+                outs = tuple(torch.empty_like(t) for t in ref)
+
+                def launch(lib, S7=S7, outs=outs, img=img):
+                    im = (() if getattr(lib, "tps_against", False)
+                          else (None if img is None else _build.ptr(img),))
+                    return lib.bwd_wta_launch(
+                        _build.ptr(C), _build.ptr(S7), *im,
+                        *map(_build.ptr, outs), B * H, W, D, cfg.p1, cfg.p2,
+                        cfg.uniqueness_ratio, int(cfg.subpixel), d0,
+                        stream())
+                cases.append((label, [B, H, W, D], ref, outs, launch,
+                              {"skip_against": img is not None}))
         else:
             outs = (torch.empty_like(C),)
             cases.append(("kitti_F4", [B, H, W, D], (C,), outs, lambda lib: (

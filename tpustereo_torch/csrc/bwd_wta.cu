@@ -2,11 +2,15 @@
 // right-view disparity.
 //
 // Replaces: tpustereo/kernels/sgm_pallas.py, sweep_bwd_wta (kernel body
-// `_bwd_wta_kernel`, WTA step `_wta_from_S`) and its float decode.
+// `_bwd_wta_kernel`, WTA step `_wta_from_S`, its `p2_maps` operand) and its
+// float decode.
 //
 // For each pixel it completes S = S7 + L_W, where S7 holds the other seven
 // (or three) directions and L_W is the W path (predecessor x + 1), and never
-// stores S to device memory. From S it takes:
+// stores S to device memory. The W path's P2 is the scalar, or, given the
+// left image I (B, H, W) uint8, P2'(x) = max(P1 + 1, P2 // max(1,
+// |I(x) - I(x + 1)|)), unread at x = W - 1, where the path starts. From S it
+// takes:
 //   * d* by one packed min (S * next_pow2(D) + d), ties to the lowest d;
 //   * valid = !(second * 100 < best * (100 + ratio)), second the min over
 //     |d - d*| > 1 (when the ratio is > 0);
@@ -49,6 +53,13 @@
 //     the lanes' reads of one index hit 32 banks. The sweep over a chunk
 //     has no branch, so the compiler interleaves one column's selection
 //     work with the next column's chain.
+//   * Adaptive P2 (I given, the ADAPT build) follows the chunks: lane c
+//     holds the image byte of column lo + c of the current chunk and,
+//     loaded when that chunk starts, of the next chunk's column (a plain
+//     load a chunk ahead). At a chunk's start each lane takes the byte of
+//     its column's predecessor x + 1 by one shuffle (lane 31 the previous
+//     chunk's first) and computes its column's P2'; each step takes its
+//     column's P2' by one shuffle off the carry's chain.
 #include "common.cuh"
 
 #ifndef BWD_RING_DEPTH
@@ -108,10 +119,11 @@ __device__ __forceinline__ void select_column(const int* lm,
   dv = subpixel_disp(j, d_start, D, subpixel, sm, best, sp);
 }
 
-template <int K, bool ASYNC, bool FULL>
+template <int K, bool ASYNC, bool FULL, bool ADAPT>
 __global__ void __launch_bounds__(32 * Layout<K>::warps)
     bwd_wta_kernel(const uint8_t* __restrict__ C,
-                   const int16_t* __restrict__ S7, float* __restrict__ disp,
+                   const int16_t* __restrict__ S7,
+                   const uint8_t* __restrict__ I, float* __restrict__ disp,
                    uint8_t* __restrict__ valid, int32_t* __restrict__ d_r,
                    int rows, int W, int D, int p1, int p2, int uniq,
                    int subpixel, int d_start) {
@@ -170,16 +182,36 @@ __global__ void __launch_bounds__(32 * Layout<K>::warps)
     Lp[k] = 0;
   }
   int minLp = 0;
+  // adaptive P2: the image byte of column lo + c of the chunk that starts
+  // next (lane c), the first byte of the chunk before, the lane's P2'. The
+  // next chunk's byte is loaded as the last use of the current one ends,
+  // clamped into the row rather than predicated, so that it lands in the
+  // register it is read from a chunk later: a copy or a select of it
+  // would wait for the load where it is issued.
+  auto image = [&](int x) {
+    return (int)I[row_pix + min(max(x, 0), W - 1)];
+  };
+  int ibyte = 0, iedge = 0, p2v = p2, p2t = p2;
+  if constexpr (ADAPT) ibyte = image(((W - 1) & ~(CHUNK - 1)) + lane);
   for (int hi = W - 1; hi >= 0;) {
     const int lo = hi & ~(CHUNK - 1);  // chunk of columns lo .. hi
+    if constexpr (ADAPT) {
+      // column W - 1 restarts: its predecessor's byte is never read
+      int iright = __shfl_down_sync(FULL_MASK, ibyte, 1);
+      if (lane == 31) iright = iedge;
+      iedge = __shfl_sync(FULL_MASK, ibyte, 0);
+      p2v = max(p1 + 1, p2 / max(1, abs(ibyte - iright)));
+      ibyte = image(lo - CHUNK + lane);
+    }
 #pragma unroll 2
     for (int x = hi; x >= lo; --x) {
+      if constexpr (ADAPT) p2t = __shfl_sync(FULL_MASK, p2v, x - lo);
       cp_async_wait<RING - 1>();  // column x's group has landed
       const int slot = (W - 1 - x) & (RING - 1);
       int cv[K], sv[K], L[K];
       load_slice<K>(ring_c + slot * DP + d0, ring_s + slot * DP + d0, cv,
                     sv);
-      sgm_step<K>(cv, Lp, minLp, lane, D, p1, p2, L);
+      sgm_step<K>(cv, Lp, minLp, lane, D, p1, p2t, L);
       int St[K];
 #pragma unroll
       for (int k = 0; k < K; ++k) St[k] = sv[k] + L[k];
@@ -237,39 +269,45 @@ __global__ void __launch_bounds__(32 * Layout<K>::warps)
   }
 }
 
-template <int K>
-static int launch(const uint8_t* C, const int16_t* S7, float* disp,
-                  uint8_t* valid, int32_t* d_r, int rows, int W, int D,
-                  int p1, int p2, int uniq, int subpixel, int d_start,
+template <int K, bool ADAPT>
+static int launch(const uint8_t* C, const int16_t* S7, const uint8_t* I,
+                  float* disp, uint8_t* valid, int32_t* d_r, int rows, int W,
+                  int D, int p1, int p2, int uniq, int subpixel, int d_start,
                   cudaStream_t s) {
   using Lay = Layout<K>;
   const int smem = (int)(Lay::warps * Lay::warp_bytes);
   const unsigned blocks = (unsigned)((rows + Lay::warps - 1) / Lay::warps);
   const bool aligned = D % K == 0 && (uintptr_t)C % 16 == 0 &&
                        (uintptr_t)S7 % 16 == 0;
-  auto kernel = !aligned       ? bwd_wta_kernel<K, false, false>
-                : D == Lay::DP ? bwd_wta_kernel<K, true, true>
-                               : bwd_wta_kernel<K, true, false>;
+  auto kernel = !aligned       ? bwd_wta_kernel<K, false, false, ADAPT>
+                : D == Lay::DP ? bwd_wta_kernel<K, true, true, ADAPT>
+                               : bwd_wta_kernel<K, true, false, ADAPT>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<blocks, 32 * Lay::warps, smem, s>>>(
-      C, S7, disp, valid, d_r, rows, W, D, p1, p2, uniq, subpixel, d_start);
+  kernel<<<blocks, 32 * Lay::warps, smem, s>>>(C, S7, I, disp, valid, d_r,
+                                               rows, W, D, p1, p2, uniq,
+                                               subpixel, d_start);
   return (int)cudaGetLastError();
 }
 
+// I, the left image (rows, W) uint8, null for the scalar P2.
 TPS_EXPORT int bwd_wta_launch(const uint8_t* C, const int16_t* S7,
-                              float* disp, uint8_t* valid, int32_t* d_r,
-                              int rows, int W, int D, int p1, int p2,
-                              int uniq, int subpixel, int d_start,
+                              const uint8_t* I, float* disp, uint8_t* valid,
+                              int32_t* d_r, int rows, int W, int D, int p1,
+                              int p2, int uniq, int subpixel, int d_start,
                               void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TPS_LAUNCH(KK)                                                     \
-  return launch<KK>(C, S7, disp, valid, d_r, rows, W, D, p1, p2, uniq,     \
-                    subpixel, d_start, s)
-  if (D <= 128) TPS_LAUNCH(4);
-  if (D <= 256) TPS_LAUNCH(8);
-  if (D <= 512) TPS_LAUNCH(16);
+#define TPS_ONE(KK, ADAPT)                                                 \
+  return launch<KK, ADAPT>(C, S7, I, disp, valid, d_r, rows, W, D, p1, p2, \
+                           uniq, subpixel, d_start, s)
+#define TPS_LAUNCH(KK)     \
+  if (I) TPS_ONE(KK, true); \
+  TPS_ONE(KK, false)
+  if (D <= 128) { TPS_LAUNCH(4); }
+  if (D <= 256) { TPS_LAUNCH(8); }
+  if (D <= 512) { TPS_LAUNCH(16); }
 #undef TPS_LAUNCH
+#undef TPS_ONE
   return (int)cudaErrorInvalidValue;
 }

@@ -3,12 +3,15 @@
 // Replaces: tpustereo/kernels/sgm_pallas.py, sgm_sweep (kernel body
 // `_sweep_kernel`), which the JAX pipeline calls for the down, up, diagonal
 // and horizontal sweeps; its first sweep of a schedule takes S_in = None and
-// writes S, the later ones accumulate.
+// writes S, the later ones accumulate; with `p2_maps` (adaptive P2) each
+// pixel has its own P2.
 //
 // For direction r = (dy, dx) it computes
 //   L_r(p) = C(p) + min(Lp, Lp(d-1) + P1, Lp(d+1) + P1, minLp + P2) - minLp
 // over the predecessor p - r, and L_r(p) = C(p) where p - r lies outside
-// the image (the JAX `has_prev` restart rule), and writes S = L_r
+// the image (the JAX `has_prev` restart rule). P2 is the scalar, or, given
+// the left image I (B, H, W) uint8, P2'(p) = max(P1 + 1, P2 // max(1,
+// |I(p) - I(p - r)|)) (the JAX `ops.sgm.p2_map`). It writes S = L_r
 // (accumulate == 0) or adds it, S += L_r (accumulate == 1). C is
 // (B, H, W, D) uint8 and S (B, H, W, D) int16; int16 sums wrap, as the
 // plain version's do. The pipeline keeps every sum of paths below 2^15
@@ -38,8 +41,18 @@
 //     multiple of 4 and of K, or a base pointer is not 16-byte aligned, the
 //     lane fills its slot by plain loads.
 //   * A slot is the lane's fields side by side (`Slot`): the costs, then
-//     the partial sums of the add form. A per-pixel P2 would join it as
-//     one more field, copied in the same group.
+//     the partial sums of the add form.
+//   * Adaptive P2 (I given) keeps the image off the ring and off the
+//     step's dependent chain: lane j holds the image byte of pixel t0 + j
+//     of the line's current group of 32 pixels and, loaded when that group
+//     starts, the byte of the next group's pixel (a plain load 32 to 63
+//     pixels ahead; cp.async copies no single byte). At a group's start
+//     each lane takes its predecessor's byte by one shuffle and computes
+//     its pixel's P2' (one integer division a lane per 32 pixels); each
+//     step takes its pixel's P2' from the lane that holds it by one more
+//     shuffle, which depends on nothing of the carry. The image adds 1
+//     byte a pixel against 3 or 5 a cost, 0.26 % or 0.16 % of the bytes at
+//     D = 128. The scalar build has none of it (ADAPT is a template flag).
 //   * Each lane writes its K int16 with one vector store (2K bytes; 8 at
 //     D = 128), the add form's partial sums added per 16-bit half. Where
 //     the slice is not aligned, scalar stores.
@@ -97,11 +110,11 @@ __device__ __forceinline__ void sgm_step_pairs(const unsigned (&c)[NW],
   }
 }
 
-template <int K, bool ACC, bool ALIGNED, bool FULL, bool PACKED>
+template <int K, bool ACC, bool ALIGNED, bool FULL, bool PACKED, bool ADAPT>
 __global__ void __launch_bounds__(32 * WARPS)
     sgm_sweep_kernel(const uint8_t* __restrict__ C, int16_t* __restrict__ S,
-                     int B, int H, int W, int D, int dy, int dx, int p1,
-                     int p2) {
+                     const uint8_t* __restrict__ I, int B, int H, int W,
+                     int D, int dy, int dx, int p1, int p2) {
   using Sl = Slot<K, ACC>;
   constexpr int NW = NWORDS(K);
   constexpr bool VEC = ALIGNED && !SWEEP_SCALAR_STORES;
@@ -171,9 +184,30 @@ __global__ void __launch_bounds__(32 * WARPS)
   for (int k = 0; k < K; ++k) Lp[k] = 0;
 #pragma unroll
   for (int i = 0; i < NW; ++i) q[i] = 0;
-  const unsigned p1x2 = (unsigned)p1 * 0x10001u, p2x2 = (unsigned)p2 * 0x10001u;
+  const unsigned p1x2 = (unsigned)p1 * 0x10001u;
+  unsigned p2x2 = (unsigned)p2 * 0x10001u;
+  // adaptive P2: the image byte of pixel t0 + j of the group of 32 pixels
+  // that starts next (lane j), the last byte of the group before, the
+  // lane's P2'. The next group's byte is loaded as the last use of the
+  // current one ends, clamped into the line rather than predicated, so
+  // that it lands in the register it is read from a group later: a copy
+  // or a select of it would wait for the load where it is issued.
+  auto image = [&](int t) { return (int)I[p0 + min(t, n - 1) * step]; };
+  int ibyte = 0, ilast = 0, p2v = p2, p2t = p2;
+  if constexpr (ADAPT) ibyte = image(lane);
 
   for (int t = 0; t < n; ++t) {
+    if constexpr (ADAPT) {
+      if ((t & 31) == 0) {  // a group starts: its P2', one pixel a lane
+        int iprev = __shfl_up_sync(FULL_MASK, ibyte, 1);
+        if (lane == 0) iprev = ilast;  // pixel 0 of a line restarts: unread
+        ilast = __shfl_sync(FULL_MASK, ibyte, 31);
+        p2v = max(p1 + 1, p2 / max(1, abs(ibyte - iprev)));
+        ibyte = image(t + 32 + lane);
+      }
+      p2t = __shfl_sync(FULL_MASK, p2v, t & 31);
+      if constexpr (PACKED) p2x2 = (unsigned)p2t * 0x10001u;
+    }
     cp_async_wait<RING - 1>();  // pixel t's group has landed
     const int o = (t & (RING - 1)) * Sl::bytes;
     unsigned wc[(K + 3) / 4], sv[NW] = {};
@@ -201,7 +235,7 @@ __global__ void __launch_bounds__(32 * WARPS)
       int cv[K], L[K];
 #pragma unroll
       for (int k = 0; k < K; ++k) cv[k] = cost_byte(wc, k);
-      sgm_step<K>(cv, Lp, minLp, lane, D, p1, p2, L);
+      sgm_step<K>(cv, Lp, minLp, lane, D, p1, p2t, L);
       if constexpr (K == 1) {
         out[0] = (unsigned)L[0];
       } else {
@@ -217,33 +251,39 @@ __global__ void __launch_bounds__(32 * WARPS)
   }
 }
 
-template <int K, bool ACC, bool ALIGNED, bool FULL, bool PACKED>
-static int launch_one(const uint8_t* C, int16_t* S, int B, int H, int W,
-                      int D, int dy, int dx, int p1, int p2,
+template <int K, bool ACC, bool ALIGNED, bool FULL, bool PACKED, bool ADAPT>
+static int launch_one(const uint8_t* C, int16_t* S, const uint8_t* I, int B,
+                      int H, int W, int D, int dy, int dx, int p1, int p2,
                       cudaStream_t s) {
-  auto kernel = sgm_sweep_kernel<K, ACC, ALIGNED, FULL, PACKED>;
+  auto kernel = sgm_sweep_kernel<K, ACC, ALIGNED, FULL, PACKED, ADAPT>;
   const int smem = WARPS * RING * Slot<K, ACC>::bytes;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const long lines = (long)B * (dy == 0 ? H : (dx == 0 ? W : W + H - 1));
   const unsigned blocks = (unsigned)((lines + WARPS - 1) / WARPS);
-  kernel<<<blocks, 32 * WARPS, smem, s>>>(C, S, B, H, W, D, dy, dx, p1, p2);
+  kernel<<<blocks, 32 * WARPS, smem, s>>>(C, S, I, B, H, W, D, dy, dx, p1,
+                                          p2);
   return (int)cudaGetLastError();
 }
 
-template <int K, bool ACC>
-static int launch(const uint8_t* C, int16_t* S, int B, int H, int W, int D,
-                  int dy, int dx, int p1, int p2, cudaStream_t s) {
+template <int K, bool ACC, bool ADAPT>
+static int launch(const uint8_t* C, int16_t* S, const uint8_t* I, int B,
+                  int H, int W, int D, int dy, int dx, int p1, int p2,
+                  cudaStream_t s) {
 #define TPS_ONE(ALIGNED, FULL, PACKED)                                     \
-  return launch_one<K, ACC, ALIGNED, FULL, PACKED>(C, S, B, H, W, D, dy, dx, \
-                                                   p1, p2, s)
+  return launch_one<K, ACC, ALIGNED, FULL, PACKED, ADAPT>(                 \
+      C, S, I, B, H, W, D, dy, dx, p1, p2, s)
   const bool aligned = D % K == 0 && D % 4 == 0 &&
                        ((uintptr_t)C | (uintptr_t)S) % 16 == 0;
   if (aligned && D == 32 * K) {
 #if SWEEP_S16X2
+    // the s16x2 halves hold c_max + P1 + the largest P2 (P1 + 1 under
+    // adaptive P2 with P1 = P2)
     if constexpr (K >= 2)
-      if (dy == 0 && 255 + p1 + p2 < 1 << 15) TPS_ONE(true, true, true);
+      if (dy == 0 &&
+          255 + p1 + (ADAPT && p1 + 1 > p2 ? p1 + 1 : p2) < 1 << 15)
+        TPS_ONE(true, true, true);
 #endif
     TPS_ONE(true, true, false);
   }
@@ -252,21 +292,30 @@ static int launch(const uint8_t* C, int16_t* S, int B, int H, int W, int D,
 #undef TPS_ONE
 }
 
-// accumulate == 0 writes S = L_r and reads no S; 1 adds L_r to S.
-TPS_EXPORT int sgm_sweep_launch(const uint8_t* C, int16_t* S, int B, int H,
-                                int W, int D, int dy, int dx, int p1, int p2,
+// accumulate == 0 writes S = L_r and reads no S; 1 adds L_r to S. I, the
+// left image (B, H, W) uint8, null for the scalar P2.
+TPS_EXPORT int sgm_sweep_launch(const uint8_t* C, int16_t* S,
+                                const uint8_t* I, int B, int H, int W, int D,
+                                int dy, int dx, int p1, int p2,
                                 int accumulate, void* stream) {
   if (dy < -1 || dy > 1 || dx < -1 || dx > 1 || (dy == 0 && dx == 0) ||
       D < 1 || D > 512 || p1 < 0 || p2 < p1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TPS_LAUNCH(KK)                                                     \
-  return accumulate ? launch<KK, true>(C, S, B, H, W, D, dy, dx, p1, p2, s) \
-                    : launch<KK, false>(C, S, B, H, W, D, dy, dx, p1, p2, s)
-  if (D <= 32) TPS_LAUNCH(1);
-  if (D <= 64) TPS_LAUNCH(2);
-  if (D <= 128) TPS_LAUNCH(4);
-  if (D <= 256) TPS_LAUNCH(8);
+#define TPS_ACC(KK, ADAPT)                                                 \
+  return accumulate                                                         \
+             ? launch<KK, true, ADAPT>(C, S, I, B, H, W, D, dy, dx, p1, p2, \
+                                       s)                                   \
+             : launch<KK, false, ADAPT>(C, S, I, B, H, W, D, dy, dx, p1,    \
+                                        p2, s)
+#define TPS_LAUNCH(KK)   \
+  if (I) TPS_ACC(KK, true); \
+  TPS_ACC(KK, false)
+  if (D <= 32) { TPS_LAUNCH(1); }
+  if (D <= 64) { TPS_LAUNCH(2); }
+  if (D <= 128) { TPS_LAUNCH(4); }
+  if (D <= 256) { TPS_LAUNCH(8); }
   TPS_LAUNCH(16);
 #undef TPS_LAUNCH
+#undef TPS_ACC
 }

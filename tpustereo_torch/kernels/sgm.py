@@ -12,6 +12,15 @@ The default `sgm_select` needs no transpose: its sweeps read (B, H, W, D)
 directly. `aggregate_volume` and the `BIDIR_VERT` route of `sgm_select`
 keep the JAX package's schedule, horizontal sweeps as column sweeps of the
 transposed pair (`kernels.transpose`), so they run its relayout kernels.
+
+Adaptive P2 (the JAX `p2_maps` operand of `sgm_sweep` and `sweep_bwd_wta`):
+`sgm_sweep` and `sweep_bwd_wta` take the left image `img` (B, H, W) uint8
+and compute each pixel's P2' = max(P1 + 1, P2 // max(1, |I(p) - I(p - r)|))
+in the kernel, from the image bytes; no map is materialised. The
+compositions pass the image under `cfg.adaptive_p2`, the horizontal sweeps
+of `aggregate_volume` the transposed image. `sgm_sweep_bidir` stays
+scalar-only: under adaptive P2 `sgm_select` runs the default schedule even
+with `BIDIR_VERT`, as the JAX `sgm_select_pallas` does.
 """
 
 from __future__ import annotations
@@ -24,22 +33,24 @@ from tpustereo_torch.config import Config
 from tpustereo_torch.kernels import _build
 from tpustereo_torch.kernels.transpose import transpose_hw, transpose_sum_hw
 from tpustereo_torch.ops.postproc import _right_disparity
-from tpustereo_torch.ops.sgm import DIRS_4, DIRS_8, path_costs
+from tpustereo_torch.ops.sgm import (DIRS_4, DIRS_8, check_image, path_costs,
+                                    sweep_image)
 from tpustereo_torch.ops.wta import wta
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SWEEP_SIGS = {
-    # C, S, B, H, W, D, dy, dx, p1, p2, accumulate, stream
-    "sgm_sweep_launch": ([_P, _P] + [_I] * 9 + [_P], _I),
+    # C, S, img (null: scalar P2), B, H, W, D, dy, dx, p1, p2, accumulate,
+    # stream
+    "sgm_sweep_launch": ([_P] * 3 + [_I] * 9 + [_P], _I),
 }
 _BIDIR_SIGS = {
     # C, Sd, Su, B, H, W, D, dx, p1, p2, accumulate, packed, stream
     "sgm_bidir_launch": ([_P] * 3 + [_I] * 9 + [_P], _I),
 }
 _BWD_SIGS = {
-    # C, S7, disp, valid, d_r, rows, W, D, p1, p2, uniq, subpixel,
-    # d_start, stream
-    "bwd_wta_launch": ([_P] * 5 + [_I] * 8 + [_P], _I),
+    # C, S7, img (null: scalar P2), disp, valid, d_r, rows, W, D, p1, p2,
+    # uniq, subpixel, d_start, stream
+    "bwd_wta_launch": ([_P] * 6 + [_I] * 8 + [_P], _I),
 }
 MAX_D = 512  # 32 lanes x 16 registers of carry per warp
 
@@ -74,14 +85,29 @@ def _check_volume(C: torch.Tensor, S: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_img(C: torch.Tensor, img: torch.Tensor | None) -> None:
+    if img is None:
+        return
+    check_image(img, C)
+    if C.device.type == "cuda" and not img.is_contiguous():
+        raise ValueError("img must be contiguous")
+
+
+def p2_max(p1: int, p2: int, adaptive: bool) -> int:
+    """The largest P2 a sweep can add: P2, or under adaptive P2
+    max(P2, P1 + 1), which P1 = P2 reaches."""
+    return max(p2, p1 + 1) if adaptive else p2
+
+
 # ---------------------------------------------------------------------------
 # one directional sweep
 # ---------------------------------------------------------------------------
 
 def sgm_sweep_plain(C: torch.Tensor, S: torch.Tensor | None, dy: int,
-                    dx: int, p1: int, p2: int) -> torch.Tensor:
+                    dx: int, p1: int, p2: int,
+                    img: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch (`ops.sgm`)."""
-    L = path_costs(C, dy, dx, p1, p2)
+    L = path_costs(C, dy, dx, p1, p2, img)
     if S is None:
         return L
     S += L
@@ -89,40 +115,49 @@ def sgm_sweep_plain(C: torch.Tensor, S: torch.Tensor | None, dy: int,
 
 
 def sgm_sweep(C: torch.Tensor, S: torch.Tensor | None, dy: int, dx: int,
-              p1: int, p2: int) -> torch.Tensor:
+              p1: int, p2: int,
+              img: torch.Tensor | None = None) -> torch.Tensor:
     """L_r for direction r = (dy, dx): with S None a new int16 volume
     S = L_r (the JAX `sgm_sweep(C, None, ...)`, which reads no S); else
     S += L_r in place, returning S (the pipeline's one accumulator of the
     seven sweeps: it saves a volume).
 
-    C (B, H, W, D) uint8, S int16 of the same shape. CUDA tensors run the
-    kernel, its write or add form counted in `sgm_sweep.builds`; CPU
+    C (B, H, W, D) uint8, S int16 of the same shape. With img, the left
+    image (B, H, W) uint8, each pixel's P2 is the adaptive P2' of the
+    gradient along r (`ops.sgm.adaptive_p2_map`), else the scalar p2. CUDA
+    tensors run the kernel, its form counted in `sgm_sweep.builds`
+    ("write", "add", and "write_adaptive", "add_adaptive" with img); CPU
     tensors the plain version."""
     if S is None:
         _check_cost(C)
     else:
         _check_volume(C, S, "S")
+    _check_img(C, img)
     if (dy, dx) not in DIRS_8:
         raise ValueError(f"direction {(dy, dx)} is not one of {DIRS_8}")
     if not 0 <= p1 <= p2:
         raise ValueError("need 0 <= p1 <= p2")
     if C.device.type == "cpu":
-        return sgm_sweep_plain(C, S, dy, dx, p1, p2)
+        return sgm_sweep_plain(C, S, dy, dx, p1, p2, img)
     add = S is not None
     if not add:
         S = torch.empty(C.shape, dtype=torch.int16, device=C.device)
     B, H, W, D = C.shape
     lib = _build.load("sgm_sweep", _SWEEP_SIGS)
-    rc = lib.sgm_sweep_launch(_build.ptr(C), _build.ptr(S), B, H, W, D, dy,
-                              dx, p1, p2, int(add), _build.stream_ptr(C))
+    img_p = None if img is None else _build.ptr(img)
+    rc = lib.sgm_sweep_launch(_build.ptr(C), _build.ptr(S), img_p, B, H, W,
+                              D, dy, dx, p1, p2, int(add),
+                              _build.stream_ptr(C))
     _build.check(lib, rc, "sgm_sweep")
     sgm_sweep.launches += 1
-    sgm_sweep.builds["add" if add else "write"] += 1
+    sgm_sweep.builds[("add" if add else "write")
+                     + ("" if img is None else "_adaptive")] += 1
     return S
 
 
 sgm_sweep.launches = 0
-sgm_sweep.builds = {"write": 0, "add": 0}
+sgm_sweep.builds = {"write": 0, "add": 0, "write_adaptive": 0,
+                    "add_adaptive": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -193,33 +228,41 @@ sgm_sweep_bidir.builds = {"s16x2": 0, "int32": 0}
 # backward (W) sweep fused with WTA + uniqueness + subpixel + d_R
 # ---------------------------------------------------------------------------
 
-def sweep_bwd_wta_plain(C: torch.Tensor, S7: torch.Tensor, cfg: Config):
+def sweep_bwd_wta_plain(C: torch.Tensor, S7: torch.Tensor, cfg: Config,
+                        img: torch.Tensor | None = None):
     """The kernel's function in plain PyTorch (`ops.sgm`, `ops.wta`,
     `ops.postproc._right_disparity` at d_start 0, which is the shifted-column
     index map)."""
-    S = S7.to(torch.int32) + path_costs(C, 0, -1, cfg.p1, cfg.p2)
+    S = S7.to(torch.int32) + path_costs(C, 0, -1, cfg.p1, cfg.p2, img)
     disp, _, valid = wta(S, cfg)
     return disp, valid, _right_disparity(S, 0)
 
 
-def sweep_bwd_wta(C: torch.Tensor, S7: torch.Tensor, cfg: Config):
+def sweep_bwd_wta(C: torch.Tensor, S7: torch.Tensor, cfg: Config,
+                  img: torch.Tensor | None = None):
     """Complete S = S7 + L_W and select: -> (disp float32, valid bool,
     d_r int32), each (B, H, W).
 
     disp is in true units (`cfg.min_disparity` added); valid is the
     uniqueness test; d_r[x] = argmin_k S(x + k, k) is the right-view index
     map in the shifted-column convention of the JAX `sweep_bwd_wta`, for
-    `kernels.lr.dr_consistency`. CUDA tensors run the kernel, CPU tensors
+    `kernels.lr.dr_consistency`. With img, the left image (B, H, W)
+    uint8, the W sweep takes the adaptive P2' of the gradient
+    |I(x) - I(x + 1)| (as `sgm_sweep`). CUDA tensors run the kernel, its
+    scalar or adaptive build counted in `sweep_bwd_wta.builds`; CPU tensors
     the plain version.
 
     S7 is the sum of the other seven (or three) path costs, each at most
-    255 + P2. The kernel holds S = S7 + L_W as int16, so it takes
-    8 * (255 + P2) < 2^15, far above the fused route's bound."""
+    255 + P2 (`p2_max` under adaptive P2). The kernel holds S = S7 + L_W as
+    int16, so it takes 8 * (255 + P2) < 2^15, far above the fused route's
+    bound."""
     _check_volume(C, S7, "S7")
+    _check_img(C, img)
     if C.device.type == "cpu":
-        return sweep_bwd_wta_plain(C, S7, cfg)
-    if 8 * (255 + cfg.p2) >= 1 << 15:
-        raise ValueError(f"P2 = {cfg.p2} unsupported: S = S7 + L_W must stay "
+        return sweep_bwd_wta_plain(C, S7, cfg, img)
+    p2_top = p2_max(cfg.p1, cfg.p2, img is not None)
+    if 8 * (255 + p2_top) >= 1 << 15:
+        raise ValueError(f"P2 = {p2_top} unsupported: S = S7 + L_W must stay "
                          f"below 2^15")
     B, H, W, D = C.shape
     dev = C.device
@@ -227,32 +270,40 @@ def sweep_bwd_wta(C: torch.Tensor, S7: torch.Tensor, cfg: Config):
     valid = torch.empty((B, H, W), dtype=torch.bool, device=dev)
     d_r = torch.empty((B, H, W), dtype=torch.int32, device=dev)
     lib = _build.load("bwd_wta", _BWD_SIGS)
+    img_p = None if img is None else _build.ptr(img)
     rc = lib.bwd_wta_launch(
-        _build.ptr(C), _build.ptr(S7), _build.ptr(disp), _build.ptr(valid),
-        _build.ptr(d_r), B * H, W, D, cfg.p1, cfg.p2, cfg.uniqueness_ratio,
-        int(cfg.subpixel), cfg.min_disparity, _build.stream_ptr(C))
+        _build.ptr(C), _build.ptr(S7), img_p, _build.ptr(disp),
+        _build.ptr(valid), _build.ptr(d_r), B * H, W, D, cfg.p1, cfg.p2,
+        cfg.uniqueness_ratio, int(cfg.subpixel), cfg.min_disparity,
+        _build.stream_ptr(C))
     _build.check(lib, rc, "sweep_bwd_wta")
     sweep_bwd_wta.launches += 1
+    sweep_bwd_wta.builds["scalar" if img is None else "adaptive"] += 1
     return disp, valid, d_r
 
 
 sweep_bwd_wta.launches = 0
+sweep_bwd_wta.builds = {"scalar": 0, "adaptive": 0}
 
 
 # ---------------------------------------------------------------------------
 # composition
 # ---------------------------------------------------------------------------
 
-def sgm_select(C: torch.Tensor, cfg: Config):
+def sgm_select(C: torch.Tensor, cfg: Config,
+               img: torch.Tensor | None = None):
     """Aggregation + WTA + uniqueness + subpixel + right-view disparity.
 
     The sweeps of every direction but W make one int16 S7; the backward
     sweep completes S column by column and selects, so the full S is never
     stored. C (B, H, W, D) uint8 -> (disp, valid, d_r) as in
-    `sweep_bwd_wta`. `BIDIR_VERT` picks how S7 is made (the JAX
-    `sgm_select_pallas` schedules)."""
+    `sweep_bwd_wta`; img (B, H, W) uint8, the left image, is read under
+    `cfg.adaptive_p2`, which needs it. `BIDIR_VERT` picks how S7 is made
+    (the JAX `sgm_select_pallas` schedules); adaptive P2 always takes the
+    default one, as there."""
     p1, p2 = cfg.p1, cfg.p2
-    if BIDIR_VERT:
+    img = sweep_image(cfg, img)
+    if BIDIR_VERT and img is None:
         dxs = (0, 1, -1) if cfg.paths == 8 else (0,)
         Sd, Su = sgm_sweep_bidir(C, dxs, p1, p2)
         St = transpose_sum_hw(Sd, Su)
@@ -264,28 +315,33 @@ def sgm_select(C: torch.Tensor, cfg: Config):
         S7 = None   # the first sweep writes S7, the others add to it
         for dy, dx in (DIRS_4 if cfg.paths == 4 else DIRS_8):
             if (dy, dx) != (0, -1):
-                S7 = sgm_sweep(C, S7, dy, dx, p1, p2)
-    return sweep_bwd_wta(C, S7, cfg)
+                S7 = sgm_sweep(C, S7, dy, dx, p1, p2, img)
+    return sweep_bwd_wta(C, S7, cfg, img)
 
 
-def aggregate_volume(C: torch.Tensor, cfg: Config) -> torch.Tensor:
+def aggregate_volume(C: torch.Tensor, cfg: Config,
+                     img: torch.Tensor | None = None) -> torch.Tensor:
     """S = the sum of the 4 or 8 path costs: (B, H, W, D) uint8 -> int16,
-    equal to `ops.aggregate`.
+    equal to `ops.aggregate`; img as in `sgm_select`.
 
     The JAX `aggregate_pallas` schedule: the vertical and diagonal sweeps
     into S, then S and C transposed so that E and W run as column sweeps of
-    the pair, then S transposed back. Each intermediate is freed once the
-    next step has what it needs, so besides C at most two int16 volumes,
-    or one and the transposed C, are alive at a time."""
+    the pair (with the transposed image under adaptive P2, as the JAX
+    `_p2_stack` transposes its maps), then S transposed back. Each
+    intermediate is freed once the next step has what it needs, so besides
+    C at most two int16 volumes, or one and the transposed C, are alive at
+    a time."""
     p1, p2 = cfg.p1, cfg.p2
+    img = sweep_image(cfg, img)
     S = None    # the first sweep writes S, the others add to it
     for dy, dx in (DIRS_4 if cfg.paths == 4 else DIRS_8):
         if dy != 0:
-            S = sgm_sweep(C, S, dy, dx, p1, p2)
+            S = sgm_sweep(C, S, dy, dx, p1, p2, img)
     St = transpose_hw(S)
     del S
     Ct = transpose_hw(C)
-    sgm_sweep(Ct, St, 1, 0, p1, p2)    # E
-    sgm_sweep(Ct, St, -1, 0, p1, p2)   # W
+    imgt = None if img is None else img.transpose(-1, -2).contiguous()
+    sgm_sweep(Ct, St, 1, 0, p1, p2, imgt)    # E
+    sgm_sweep(Ct, St, -1, 0, p1, p2, imgt)   # W
     del Ct
     return transpose_hw(St)

@@ -45,10 +45,15 @@ exact at every height, so here such a configuration keeps the fused route
 and reaches the volume route only through `sgbm_volume` +
 `select_and_refine`.
 
+Adaptive P2 (`cfg.adaptive_p2`) runs on both SGM routes: the left image
+goes to the sweeps (`sgm_select`, `aggregate_volume`), as the JAX pipeline
+hands `left` to both; the fused-route gate stays on the scalar P2, as in
+the JAX `sgbm`.
+
 Out of this slice (each raises `NotImplementedError` naming its ROADMAP
-item): adaptive P2, and configurations outside the kernels' limits
-(D > 512; for SGM, paths * (census_bits + P2) >= 2^15, which int16 S
-cannot hold).
+item): configurations outside the kernels' limits (D > 512; for SGM,
+paths * (census_bits + P2) >= 2^15, which int16 S cannot hold, with
+max(P2, P1 + 1) under adaptive P2).
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from tpustereo_torch.kernels import (aggregate_volume, bitonic_sort,
                                      dr_consistency, dr_consistency_hits,
                                      median3, sad_wta, sgm_select, wta_lr)
 from tpustereo_torch.kernels.sad import sad_wta_fits
+from tpustereo_torch.kernels.sgm import p2_max
 from tpustereo_torch.ops import (fill_background, fill_hirschmuller,
                                  sad_volume)
 from tpustereo_torch.ops.postproc import speckle_frames
@@ -75,8 +81,16 @@ FUSED_BOUND = 4096
 S16_BOUND = 1 << 15  # ... that int16 S holds
 
 
-def _sgm_bound(cfg: Config) -> int:
+def _fused_bound(cfg: Config) -> int:
+    """The JAX `sgbm`'s fused-route gate term, on the scalar P2."""
     return cfg.paths * (cfg.max_census_cost + cfg.p2)
+
+
+def _sgm_bound(cfg: Config) -> int:
+    """The largest S any sum of paths reaches: under adaptive P2 a path
+    adds up to max(P2, P1 + 1)."""
+    return cfg.paths * (cfg.max_census_cost
+                        + p2_max(cfg.p1, cfg.p2, cfg.adaptive_p2))
 
 
 def check_slice(cfg: Config) -> None:
@@ -84,8 +98,6 @@ def check_slice(cfg: Config) -> None:
     yet (ROADMAP.md, "Modules still to port"). Census windows over 64 bits
     need no check here: `Config` refuses them."""
     todo = []
-    if cfg.mode == "sgm" and cfg.adaptive_p2:
-        todo.append("adaptive_p2 (ROADMAP: adaptive P2 maps)")
     if cfg.num_disparities > 512:
         todo.append("num_disparities > 512 (ROADMAP: wide configs)")
     if cfg.mode == "sgm" and _sgm_bound(cfg) >= S16_BOUND:
@@ -114,7 +126,7 @@ def _select(left: torch.Tensor, right: torch.Tensor, cfg: Config):
         C = _census(left, right, cfg)
         if cfg.mode == "census_wta":
             return (*wta_lr(C, cfg), None)
-        disp, valid, d_r = sgm_select(C, cfg)
+        disp, valid, d_r = sgm_select(C, cfg, left)
     hits = None
     if cfg.disp12_max_diff >= 0:
         if cfg.fill_mode == "hirschmuller":
@@ -165,7 +177,7 @@ def sgbm_volume(left: torch.Tensor, right: torch.Tensor,
                           cfg.min_disparity)
     if cfg.mode == "census_wta":
         return _census(left, right, cfg).to(torch.int16)
-    return aggregate_volume(_census(left, right, cfg), cfg)
+    return aggregate_volume(_census(left, right, cfg), cfg, left)
 
 
 def select_and_refine(S: torch.Tensor, cfg: Config) -> torch.Tensor:
@@ -197,7 +209,7 @@ def sgbm_frames(left: torch.Tensor, right: torch.Tensor,
                 cfg: Config) -> torch.Tensor:
     """(F, H, W) uint8 x2 -> (F, H, W) float32 disparity, invalid = -1."""
     check_slice(cfg)
-    if ((cfg.mode == "sgm" and _sgm_bound(cfg) >= FUSED_BOUND)
+    if ((cfg.mode == "sgm" and _fused_bound(cfg) >= FUSED_BOUND)
             or (cfg.mode != "sgm" and cfg.fill_mode == "hirschmuller")
             or (cfg.mode == "sad"
                 and not sad_wta_fits(left.shape[-1], cfg.sad_block))):
