@@ -164,6 +164,26 @@ Adaptive P2 (`adaptive_p2=True`, the per-pixel P2' of the left image):
    the plain pipeline on one, with `MIDDLEBURY`'s bar, and times both
    routes adaptive and scalar. Prints `step 18: ... s`.
 
+Stereo odometry over `PRESETS["kitti_odometry"]` with `strips=1` (D = 128,
+8 paths, speckle 100, range 2, the median) at KITTI odometry size,
+376 x 1241, with sequence 00's focal length and baseline:
+
+19. drives `api.run_sequence` over a straight 32-frame synthetic sequence
+   with the counters set to 0 just before, requires the six kernels' counts
+   of one set of frames (step 3) times the 32 matcher calls and no other
+   kernel, and the JAX unit test's bars (final position error < 0.2 x the
+   distance travelled, final x > 0.6 x the true x); repeats the JAX
+   out-and-back loop-closure test at this size (a closure with a gap of at
+   least 6 keyframes, and an endpoint within max(0.05, 1.05 x) of the run
+   without closures); holds `fused_track_from_disp` on the card against
+   the CPU on 3 frames (the same inputs: corners to 1e-6 px, descriptors
+   1e-5, T 1e-4, equal match counts), `optimize_poses` on the straight
+   run's graph, and `fused_track_frames` at F = 4 against 4 single steps;
+   counts the host synchronisations of one tracked step (none from
+   `odometry/` but its one transfer); times a tracked frame (matcher and
+   tracking core), the run's host clock, `fused_track_frames` per frame,
+   one `PoseGraph.optimize` and the busy share. Prints `step 19: ... s`.
+
 Prints a `{"kernels": [...]}` line with all eighteen kernels, every TPU
 kernel's port (the launches of the KITTI six from step 3, those of
 `sad_wta` and `wta_lr` from their presets' runs in step 6,
@@ -171,9 +191,10 @@ kernel's port (the launches of the KITTI six from step 3, those of
 from step 10, `dr_consistency_hits`'s from step 13, `bitonic_sort`'s from
 step 15 and kernel 13's five from step 17; `sgm_sweep` and
 `sweep_bwd_wta` also carry `adaptive_launches` and `adaptive_ms` from
-step 18), then `{"ok": true, "device": ...}` as the last line. Exits
-non-zero, with no result, on any failure or when CUDA is absent. Needs no
-network; imports nothing of JAX.
+step 18, and the KITTI six `odometry_launches` from step 19), then
+`{"ok": true, "device": ...}` as the last line. Exits non-zero, with no
+result, on any failure or when CUDA is absent. Needs no network; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -266,6 +287,18 @@ MIDDLEBURY = ((1988, 2964), 60.0, 0.9, 0.05)
 # (rows, columns) past the 232,448 bytes of shared memory a block may use,
 # one byte a column in the hits kernel's earlier design
 WIDE = (4, 240000)
+# step 19: KITTI odometry sequences 00-02's frame size, sequence 00's focal
+# length and baseline (calib.txt P0/P1), over a textured plane 8 m away and
+# slanted by 0.35, so true disparities run about 33-62 px, inside D = 128;
+# the camera moves 8 cm a frame along x
+ODO_SHAPE = (376, 1241)
+ODO_CAM = dict(depth=8.0, fx=718.856, baseline=0.537, slant=0.35)
+ODO_STEP = 0.08
+ODO_FRAMES = 32
+# card against CPU on the same inputs: corners (the same elementwise float32
+# operations and a stable sort on both), descriptors (a mean and a norm
+# reduced in another order), T and 3D points (m and rad)
+ODO_TOL = dict(pts=1e-6, desc=1e-5, X=1e-4, T=1e-4)
 
 
 def card_line() -> str:
@@ -1938,6 +1971,267 @@ def adaptive_path(card: str, kitti: dict) -> dict:
                               (bwd["adaptive"][1] + bwd["adaptive2"][1]) / 2)}
 
 
+def sync_sources(fn) -> list:
+    """The host synchronisations of one call of fn(), as reported by
+    `torch.cuda.set_sync_debug_mode("warn")`: for each, the innermost frame
+    of the package's own code that made it, "path:line" (or "outside: ..."
+    with the frames where it surfaced, when none did)."""
+    import traceback
+    import warnings
+
+    import torch
+    found: list = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # one warning a synchronising call; the mode's own notice that it
+        # is a prototype is not one
+        if "called a synchronizing" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        own = [f for f in stack if "tpustereo_torch" in f.filename]
+        if own:
+            found.append(f"{own[-1].filename.split('tpustereo_torch/')[-1]}"
+                         f":{own[-1].lineno}")
+        else:   # where the warning surfaced, for the record
+            found.append("outside: " + " < ".join(
+                f"{f.filename.split('/')[-1]}:{f.lineno}"
+                for f in stack[::-1] if "warnings" not in f.filename)[:200])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return found
+
+
+def odometry_path(card: str, per_set: dict, dev: str = "cuda") -> dict:
+    """Step 19: stereo odometry at KITTI odometry size (see the module's
+    docstring). `per_set` holds the six KITTI kernels' launches of one set
+    of frames (step 3). Returns {kernel: launches on the straight run}."""
+    import torch
+    from tpustereo_torch import PRESETS, api, kernels
+    from tpustereo_torch.data import synthetic_sequence
+    from tpustereo_torch.eval import ate, rpe
+    from tpustereo_torch.odometry import (OdometryConfig, PoseGraph,
+                                          StereoOdometry, optimize_poses)
+    from tpustereo_torch.odometry.features import (describe, detect_corners,
+                                                   match_descriptors)
+    from tpustereo_torch.odometry.fused import (backproject,
+                                                fused_track_frames,
+                                                fused_track_from_disp,
+                                                fused_track_step)
+    from tpustereo_torch.odometry.pnp import gauss_newton_pose
+    from tpustereo_torch.pipeline import sgbm
+
+    t_step = time.perf_counter()
+    cfg = PRESETS["kitti_odometry"].replace(strips=1)
+    ocfg = OdometryConfig()
+    calib, frames, gt = synthetic_sequence(
+        n_frames=ODO_FRAMES, shape=ODO_SHAPE, step_x=ODO_STEP, seed=0,
+        **ODO_CAM)
+    print(f"step 19: {len(frames)} frames of {ODO_SHAPE} made in "
+          f"{time.perf_counter() - t_step:.1f} s", flush=True)
+
+    # --- the straight run, through the user's entry point
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    traj = api.run_sequence(frames, calib, cfg, ocfg, device=dev)
+    cold_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    expected = dict.fromkeys(launches, 0)
+    expected.update({k: n * len(frames) for k, n in per_set.items()})
+    print(f"odometry launches: {launches}", flush=True)
+    require(launches == expected, f"the odometry run's launches {launches} "
+            f"are not {len(frames)} matcher calls of {per_set}")
+    err = np.linalg.norm(traj[:, :3, 3] - gt[:, :3, 3], axis=-1)
+    dist = float(np.linalg.norm(gt[-1, :3, 3]))
+    a, r = ate(traj, gt), rpe(traj, gt, delta=1)
+    print(f"straight run: final error {err[-1]:.4f} m over {dist:.2f} m, "
+          f"final x {traj[-1, 0, 3]:.4f} (true {gt[-1, 0, 3]:.4f}); ATE "
+          f"rmse {a['rmse']:.6f} m, max {a['max']:.6f}; RPE trans "
+          f"{r['trans_rmse']:.6f} m, rot {r['rot_rmse_deg']:.6f} deg",
+          flush=True)
+    require(np.isfinite(traj).all() and traj.shape == (len(frames), 4, 4),
+            "run_sequence gave a trajectory of the wrong shape or non-finite")
+    # the JAX unit test's bars (tests/test_odometry_units.py)
+    require(err[-1] < 0.2 * dist and traj[-1, 0, 3] > 0.6 * gt[-1, 0, 3],
+            "the straight run misses the JAX test's trajectory bars")
+
+    # the same run again, warm, through StereoOdometry: its host clock, its
+    # keyframes and its graph
+    torch.cuda.synchronize()
+    odo = StereoOdometry(calib, cfg, ocfg, device=dev)
+    t0 = time.perf_counter()
+    for L, R in frames:
+        odo.step(L, R)
+    warm_s = time.perf_counter() - t0
+    print(f"[{card}] run_sequence host clock: {len(frames) / cold_s:.2f} "
+          f"frames/s cold ({cold_s:.3f} s, the first run of the step), "
+          f"{len(frames) / warm_s:.2f} frames/s warm ({warm_s:.3f} s); "
+          f"{len(odo.kfs)} keyframes, closures {odo.closures}; warm "
+          f"trajectory vs the first: max diff "
+          f"{np.abs(odo.trajectory() - traj).max():.3e}", flush=True)
+
+    # --- out-and-back: the JAX loop-closure test's run at this size
+    out = [i * ODO_STEP for i in range(8)]
+    calib_l, frames_l, gt_l = synthetic_sequence(
+        shape=ODO_SHAPE, seed=5, cam_xs=out + out[::-1][1:], **ODO_CAM)
+    closing = StereoOdometry(calib_l, cfg, OdometryConfig(
+        keyframe_translation=0.05, lc_min_gap=6, lc_min_matches=25),
+        device=dev)
+    opened = StereoOdometry(calib_l, cfg, OdometryConfig(
+        keyframe_translation=0.05, loop_closure=False), device=dev)
+    for L, R in frames_l:
+        closing.step(L, R)
+        opened.step(L, R)
+    err_end = float(np.linalg.norm(closing.trajectory()[-1, :3, 3]
+                                   - gt_l[-1, :3, 3]))
+    err_open = float(np.linalg.norm(opened.trajectory()[-1, :3, 3]
+                                    - gt_l[-1, :3, 3]))
+    print(f"out-and-back: closures {closing.closures} over "
+          f"{len(closing.kfs)} keyframes; endpoint error {err_end:.4f} m, "
+          f"{err_open:.4f} m without closures", flush=True)
+    require(any(j - i >= 6 for i, j in closing.closures),
+            "no loop closure across 6 keyframes on the out-and-back run")
+    require(err_end < max(0.05, 1.05 * err_open),
+            "the closures left the endpoint worse than the open run")
+
+    # --- the card against the CPU on the same inputs
+    K = ocfg.max_corners
+    intr = torch.tensor([calib.fx, calib.fy, calib.cx, calib.cy],
+                        dtype=torch.float32, device=dev)
+    base = torch.tensor(calib.baseline, dtype=torch.float32, device=dev)
+    zeros = (torch.zeros((K, 64), device=dev),
+             torch.zeros((K,), dtype=torch.bool, device=dev),
+             torch.zeros((K, 3), device=dev))
+    Ls = torch.from_numpy(np.stack([f[0] for f in frames[:5]])).to(dev)
+    Rs = torch.from_numpy(np.stack([f[1] for f in frames[:5]])).to(dev)
+    kf0 = fused_track_step(Ls[0], Rs[0], *zeros, intr, base, cfg, ocfg)
+    kf = (kf0.desc, kf0.valid, kf0.X)
+
+    def diffs(got, ref) -> dict:
+        got = type(got)(*(x.cpu() for x in got))
+        require(torch.equal(got.valid, ref.valid), "corner validity differs")
+        require(int(got.n_matches) == int(ref.n_matches),
+                "match counts differ")
+        out = {k: (getattr(got, k) - getattr(ref, k)).abs().max().item()
+               for k in ODO_TOL}
+        for k, tol in ODO_TOL.items():
+            require(out[k] <= tol, f"{k} differs by {out[k]} > {tol}")
+        return out
+
+    worst = dict.fromkeys(ODO_TOL, 0.0)
+    for f in range(3):
+        state = zeros if f == 0 else kf
+        disp = sgbm(Ls[f], Rs[f], cfg)
+        got = fused_track_from_disp(Ls[f], disp, *state, intr, base, cfg,
+                                    ocfg)
+        ref = fused_track_from_disp(Ls[f].cpu(), disp.cpu(),
+                                    *(x.cpu() for x in state), intr.cpu(),
+                                    base.cpu(), cfg, ocfg)
+        for k, v in diffs(got, ref).items():
+            worst[k] = max(worst[k], v)
+        print(f"frame {f}: card vs CPU n_matches {int(ref.n_matches)}, "
+              f"valid corners {int(ref.valid.sum())}", flush=True)
+    print(f"fused_track_from_disp, card vs CPU, 3 frames: max abs diff "
+          f"{worst}", flush=True)
+    g = odo.graph
+    ij = torch.tensor([e[:2] for e in g.edges])
+    Ts = torch.from_numpy(np.stack([e[2] for e in g.edges]))
+    w = torch.tensor([e[3] for e in g.edges], dtype=torch.float32)
+    poses = torch.from_numpy(np.stack(g.poses))
+    pg_ref = optimize_poses(poses, ij, Ts, w)
+    pg_got = optimize_poses(poses.to(dev), ij.to(dev), Ts.to(dev),
+                            w.to(dev)).cpu()
+    pg_err = (pg_got - pg_ref).abs().max().item()
+    print(f"optimize_poses on the straight run's graph ({len(g.poses)} "
+          f"poses, {len(g.edges)} edges), card vs CPU: max abs diff "
+          f"{pg_err}", flush=True)
+    require(pg_err <= ODO_TOL["T"], "optimize_poses differs from the CPU")
+
+    # --- fused_track_frames at F = 4 against 4 single steps
+    chunk = fused_track_frames(Ls[1:], Rs[1:], *kf, intr, base, cfg, ocfg)
+    for f in range(4):
+        single = fused_track_step(Ls[1 + f], Rs[1 + f], *kf, intr, base,
+                                  cfg, ocfg)
+        require(torch.equal(chunk.disp[f], single.disp),
+                "fused_track_frames' disparity differs from a single step")
+        diffs(type(single)(*(x[f] for x in chunk)), type(single)(
+            *(x.cpu() for x in single)))
+    print("fused_track_frames at F = 4: equal to 4 single steps", flush=True)
+
+    # --- host synchronisations in one tracked step (frame 1 after the
+    # keyframe of frame 0; no keyframe is made)
+    sync_odo = StereoOdometry(calib, cfg, ocfg, device=dev)
+    sync_odo.step(*frames[0])
+    sources = sync_sources(lambda: sync_odo.step(*frames[1]))
+    require(len(sync_odo.kfs) == 1, "the measured step made a keyframe")
+    ours = [x for x in sources if x.startswith("odometry/")]
+    # sources are "path:line" of the package's innermost frame, else
+    # "outside: ..." with the frames where the warning surfaced
+    rest: dict = {}
+    for x in sources:
+        if x not in ours:
+            rest[x] = rest.get(x, 0) + 1
+    print(f"host synchronisations in one tracked step: {len(sources)}; "
+          f"from odometry/: {ours}; the rest: {rest}", flush=True)
+    require(len(ours) == 1, f"odometry/ synchronises {len(ours)} times in "
+            f"a tracked step, not once")
+
+    # --- times
+    disp1 = sgbm(Ls[1], Rs[1], cfg)
+    step_ms = cuda_ms(lambda: fused_track_step(Ls[1], Rs[1], *kf, intr, base,
+                                               cfg, ocfg), 20)
+    sgbm_ms = cuda_ms(lambda: sgbm(Ls[1], Rs[1], cfg), 20)
+    core_ms = cuda_ms(lambda: fused_track_from_disp(
+        Ls[1], disp1, *kf, intr, base, cfg, ocfg), 20)
+    frames_ms = cuda_ms(lambda: fused_track_frames(
+        Ls[1:], Rs[1:], *kf, intr, base, cfg, ocfg), 10) / 4
+    print(f"[{card}] tracked frame by CUDA events: {step_ms:.4f} ms "
+          f"(sgbm {sgbm_ms:.4f} ms, tracking core {core_ms:.4f} ms); "
+          f"fused_track_frames at F = 4: {frames_ms:.4f} ms a frame",
+          flush=True)
+    # the core by function, on the inputs it gives each
+    pts, cvalid = detect_corners(Ls[1], max_corners=K)
+    desc = describe(Ls[1], pts)
+    idx_b, good = match_descriptors(kf[0], desc, kf[1], cvalid)
+    u = torch.flip(pts[idx_b], [1])
+    w_m = (good & kf[1]).to(torch.float32)
+    split = {
+        "detect_corners": lambda: detect_corners(Ls[1], max_corners=K),
+        "describe": lambda: describe(Ls[1], pts),
+        "backproject": lambda: backproject(pts, disp1, intr, base,
+                                           ocfg.min_depth, ocfg.max_depth),
+        "match_descriptors": lambda: match_descriptors(kf[0], desc, kf[1],
+                                                       cvalid),
+        "gauss_newton_pose": lambda: gauss_newton_pose(kf[2], u, w_m, intr,
+                                                       iters=ocfg.gn_iters),
+    }
+    print(f"[{card}] tracking core by function, CUDA events: "
+          f"{ {n: round(cuda_ms(fn, 20), 4) for n, fn in split.items()} } ms",
+          flush=True)
+    reps = 5
+    pg_s = []
+    for _ in range(reps):
+        copy = PoseGraph(list(g.poses), list(g.edges), device=dev)
+        t0 = time.perf_counter()
+        copy.optimize()
+        pg_s.append(time.perf_counter() - t0)
+    print(f"[{card}] PoseGraph.optimize at {len(g.poses)} keyframes "
+          f"({len(g.edges)} edges), host clock: "
+          f"{[round(x * 1e3, 3) for x in pg_s]} ms", flush=True)
+    busy = device_busy(lambda: fused_track_step(Ls[1], Rs[1], *kf, intr,
+                                                base, cfg, ocfg))
+    print(f"[{card}] profiler, one tracked step: {busy}", flush=True)
+    print(f"step 19: {time.perf_counter() - t_step:.1f} s", flush=True)
+    return {k: launches[k] for k in per_set}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2275,6 +2569,10 @@ def main() -> None:
     for name, (n, a_ms) in adaptive_path(card, kitti).items():
         row = next(r for r in rows if r["name"] == name)
         row.update(adaptive_launches=n, adaptive_ms=a_ms)
+    # the KITTI six also carry their launches on the odometry path
+    per_set = {n: launches[n] // (BATCH // F) for n in KERNELS}
+    for name, n in odometry_path(card, per_set).items():
+        next(r for r in rows if r["name"] == name)["odometry_launches"] = n
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1092,3 +1092,142 @@ def test_volume_route_adaptive_cuda_matches_fused(cuda):
     volume = select_and_refine(sgbm_volume(L, R, cfg), cfg)
     torch.cuda.synchronize()
     assert torch.equal(volume, fused)
+
+
+# --- odometry: the card against the CPU on the same inputs -----------------
+# Tolerances: the Harris response and the corner selection are the same
+# elementwise float32 operations and a stable sort on both devices, so
+# corners agree to 1e-6 px; descriptors (a mean and a norm, reduced in
+# another order) 1e-5; T 1e-4 (m and rad); match counts equal.
+
+def _odometry_frames(n, shape=(96, 128), seed=3):
+    from tpustereo_torch.data import synthetic_sequence
+    return synthetic_sequence(n_frames=n, shape=shape, depth=8.0, fx=200.0,
+                              baseline=0.5, step_x=0.08, slant=0.35,
+                              seed=seed)
+
+
+def _odometry_inputs(dev, calib, K):
+    intr = torch.tensor([calib.fx, calib.fy, calib.cx, calib.cy],
+                        dtype=torch.float32, device=dev)
+    zeros = (torch.zeros((K, 64), device=dev),
+             torch.zeros((K,), dtype=torch.bool, device=dev),
+             torch.zeros((K, 3), device=dev))
+    return intr, torch.tensor(calib.baseline, dtype=torch.float32,
+                              device=dev), zeros
+
+
+def _same_track(got, ref):
+    got = type(got)(*(x.cpu() for x in got))
+    assert torch.equal(got.valid, ref.valid)
+    assert (got.pts - ref.pts).abs().max().item() <= 1e-6
+    assert (got.desc - ref.desc).abs().max().item() <= 1e-5
+    assert (got.X - ref.X).abs().max().item() <= 1e-4
+    assert (got.T - ref.T).abs().max().item() <= 1e-4
+    assert int(got.n_matches) == int(ref.n_matches)
+
+
+def test_track_from_disp_cuda_matches_cpu(cuda):
+    from tpustereo_torch.odometry import OdometryConfig
+    from tpustereo_torch.odometry.fused import (fused_track_from_disp,
+                                                fused_track_step)
+    from tpustereo_torch.pipeline import sgbm
+    cfg = Config(num_disparities=32, speckle_window_size=50)
+    ocfg = OdometryConfig()
+    calib, frames, _ = _odometry_frames(3)
+    intr, b, zeros = _odometry_inputs(cuda, calib, ocfg.max_corners)
+    L0, R0 = (torch.from_numpy(a).to(cuda) for a in frames[0])
+    kf0 = fused_track_step(L0, R0, *zeros, intr, b, cfg, ocfg)
+    kf = (kf0.desc, kf0.valid, kf0.X)
+    matched = 0
+    for L, R in frames[1:]:
+        Lc = torch.from_numpy(L).to(cuda)
+        disp = sgbm(Lc, torch.from_numpy(R).to(cuda), cfg)
+        got = fused_track_from_disp(Lc, disp, *kf, intr, b, cfg, ocfg)
+        ref = fused_track_from_disp(torch.from_numpy(L), disp.cpu(),
+                                    *(k.cpu() for k in kf), intr.cpu(),
+                                    b.cpu(), cfg, ocfg)
+        _same_track(got, ref)
+        matched += int(ref.n_matches)
+    assert matched > 40
+
+
+def test_optimize_poses_cuda_matches_cpu(cuda):
+    from tpustereo_torch.odometry import optimize_poses
+    from tpustereo_torch.odometry.se3 import exp_se3
+    rng = np.random.default_rng(4)
+    N = 12
+    xi = np.concatenate([rng.normal(0, 0.03, (N, 3)) + [0.5, 0, 0],
+                         rng.normal(0, 0.01, (N, 3))], 1).astype(np.float32)
+    steps = exp_se3(torch.from_numpy(xi))
+    poses = [torch.eye(4)]
+    for s in steps[1:]:
+        poses.append(poses[-1] @ s)
+    poses = torch.stack(poses)
+    ij = torch.tensor([[i, i + 1] for i in range(N - 1)] + [[0, N - 1],
+                                                           [2, 9]])
+    Ts = torch.cat([steps[1:], exp_se3(torch.tensor(
+        [[5.5, 0, 0, 0, 0, 0], [3.5, 0.1, 0, 0, 0, 0.01]]))])
+    w = torch.tensor([1.0] * (N - 1) + [10.0, 2.0])
+    ref = optimize_poses(poses, ij, Ts, w, iters=10)
+    got = optimize_poses(poses.to(cuda), ij.to(cuda), Ts.to(cuda),
+                         w.to(cuda), iters=10)
+    assert (got.cpu() - ref).abs().max().item() <= 1e-5
+    assert not torch.equal(ref, poses)
+
+
+def test_track_frames_cuda_matches_single_steps(cuda):
+    from tpustereo_torch.odometry import OdometryConfig
+    from tpustereo_torch.odometry.fused import (fused_track_frames,
+                                                fused_track_step)
+    cfg = Config(num_disparities=32, speckle_window_size=50)
+    ocfg = OdometryConfig()
+    calib, frames, _ = _odometry_frames(5)
+    intr, b, zeros = _odometry_inputs(cuda, calib, ocfg.max_corners)
+    Ls = torch.from_numpy(np.stack([f[0] for f in frames])).to(cuda)
+    Rs = torch.from_numpy(np.stack([f[1] for f in frames])).to(cuda)
+    kf0 = fused_track_step(Ls[0], Rs[0], *zeros, intr, b, cfg, ocfg)
+    kf = (kf0.desc, kf0.valid, kf0.X)
+    kernels.reset_launch_counts()
+    chunk = fused_track_frames(Ls[1:], Rs[1:], *kf, intr, b, cfg, ocfg)
+    assert kernels.launch_counts()["sweep_bwd_wta"] == 1   # one set of 4
+    for f in range(4):
+        single = fused_track_step(Ls[1 + f], Rs[1 + f], *kf, intr, b, cfg,
+                                  ocfg)
+        assert torch.equal(chunk.disp[f], single.disp)
+        _same_track(type(single)(*(x[f] for x in chunk)),
+                    type(single)(*(x.cpu() for x in single)))
+
+
+def test_kitti_odometry_width_cuda_matches_cpu(cuda):
+    """The KITTI odometry frame's odd width, 1241 columns, through the six
+    kernels of the preset (strips=1): the card against the CPU."""
+    from tpustereo_torch import PRESETS
+    from tpustereo_torch.pipeline import sgbm
+    cfg = PRESETS["kitti_odometry"].replace(strips=1)
+    _, frames, _ = _odometry_frames(1, shape=(24, 1241), seed=7)
+    L, R = (torch.from_numpy(a) for a in frames[0])
+    kernels.reset_launch_counts()
+    got = sgbm(L.to(cuda), R.to(cuda), cfg).cpu()
+    counts = kernels.launch_counts()
+    ref = sgbm(L, R, cfg)
+    assert torch.equal(got == -1.0, ref == -1.0)
+    assert (got - ref).abs().max().item() <= 1e-6
+    assert (ref > 0).float().mean() > 0.5
+    expected = dict.fromkeys(counts, 0)
+    expected.update(census_cost_volume=1, sgm_sweep=7, sweep_bwd_wta=1,
+                    dr_consistency=1, connected_component_labels=1, median3=1)
+    assert counts == expected
+
+
+def test_run_sequence_cuda_matches_cpu(cuda):
+    from tpustereo_torch import api
+    from tpustereo_torch.odometry import OdometryConfig
+    calib, frames, gt = _odometry_frames(8)
+    cfg = Config(num_disparities=32, speckle_window_size=50)
+    ocfg = OdometryConfig(keyframe_translation=0.1)
+    got = api.run_sequence(frames, calib, cfg, ocfg)
+    ref = api.run_sequence(frames, calib, cfg, ocfg, device="cpu")
+    assert np.abs(got - ref).max() <= 1e-4
+    assert np.linalg.norm(got[-1, :3, 3] - gt[-1, :3, 3]) < \
+        0.2 * np.linalg.norm(gt[-1, :3, 3])

@@ -179,7 +179,12 @@ def test_import_loads_neither_jax_nor_tpustereo():
             "tpustereo_torch.kernels.bitonic",
             "tpustereo_torch.kernels.width_micro",
             "tpustereo_torch.ops.census", "tpustereo_torch.ops.sad",
-            "tpustereo_torch.pipeline.sgbm"} <= names
+            "tpustereo_torch.pipeline.sgbm",
+            "tpustereo_torch.odometry.backend",
+            "tpustereo_torch.odometry.fused",
+            "tpustereo_torch.odometry.pose_graph",
+            "tpustereo_torch.eval.metrics",
+            "tpustereo_torch.data.datasets"} <= names
 
 
 def test_entry_points_need_cuda_unless_told_cpu(small_pair, monkeypatch):

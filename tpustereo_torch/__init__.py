@@ -4,7 +4,8 @@ Stereo matching (semi-global matching with census cost and 4/8 paths, SAD
 block matching, census + WTA; WTA with uniqueness and subpixel, left-right
 check, speckle, median) for an NVIDIA H100, with hand-written CUDA
 kernels for Hopper on the hot path and a plain PyTorch version of each
-kernel beside it. The JAX package `tpustereo` is the reference the port is
+kernel beside it, and stereo odometry over the matcher (`odometry`,
+`api.run_sequence`). The JAX package `tpustereo` is the reference the port is
 tested against; this package imports nothing of it.
 """
 

@@ -1,4 +1,5 @@
-"""Public API: `match_pair` and `match_batch`, numpy in and numpy out.
+"""Public API: `match_pair`, `match_batch` and `run_sequence`, numpy in
+and numpy out.
 
 They run on the CUDA card unless the caller passes `device="cpu"`, and
 raise when CUDA is absent: there is no quiet CPU fallback.
@@ -6,7 +7,7 @@ raise when CUDA is absent: there is no quiet CPU fallback.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
@@ -52,3 +53,16 @@ def match_batch(lefts: np.ndarray, rights: np.ndarray,
     l8 = torch.from_numpy(np.ascontiguousarray(lefts, dtype=np.uint8))
     r8 = torch.from_numpy(np.ascontiguousarray(rights, dtype=np.uint8))
     return sgbm_batched(l8.to(dev), r8.to(dev), cfg).cpu().numpy()
+
+
+def run_sequence(pairs: Iterable, calib, cfg: Optional[Config] = None,
+                 odometry_cfg=None, device="cuda") -> np.ndarray:
+    """Stereo odometry over an iterable of (left, right) frames
+    (SURVEY.md §4.4). Returns the trajectory as (N, 4, 4) world <- camera
+    poses. `cfg.strips` must be 1: the strip-tiled matcher is not ported
+    yet, and `StereoOdometry` raises for more."""
+    from tpustereo_torch.odometry import StereoOdometry  # it imports api
+    odo = StereoOdometry(calib, cfg or Config(), odometry_cfg, device=device)
+    for left, right in pairs:
+        odo.step(np.asarray(left), np.asarray(right))
+    return odo.trajectory()
