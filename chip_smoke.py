@@ -184,6 +184,29 @@ Stereo odometry over `PRESETS["kitti_odometry"]` with `strips=1` (D = 128,
    tracking core), the run's host clock, `fused_track_frames` per frame,
    one `PoseGraph.optimize` and the busy share. Prints `step 19: ... s`.
 
+The strip-tiled matcher (`dist/`, BASELINE config 5) with
+`PRESETS["kitti_odometry"]` as shipped (halo mode, 2 strips, halo 32) and
+in exact mode, at 376 x 1241, D = 128:
+
+20. holds `sgm_sweep`'s carry forms against their plain version on two
+   frames' census volume (the six y-scanning directions, write and add,
+   scalar and adaptive P2, random q carries), and the kernel chained over
+   2 and 4 strips against one launch, bit for bit; drives
+   `dist.sgbm_tiled_batched` on 8 synthetic pairs of that size in halo
+   mode against the plain composition on the card (`plain_tiled`; no
+   kernel runs in it), with step 3's bar, and `api.match_pair_tiled` on
+   one; exact mode at 2 and 4 strips against the untiled `sgbm` (invalid
+   pattern exact, disparity within 1e-6) with the ring on the carry
+   forms; `api.run_sequence` over step 19's straight run with the preset
+   as shipped, with the counters set to 0 just before (the six kernels'
+   counts of one set of frames times 32, nothing else), the bars of step
+   19 and, against its strips=1 run, 0.02 m and 0.01 (the JAX
+   `test_odometry_tiled.py` bars), and one host synchronisation of a
+   tracked step (from `odometry/`; none from `dist/`); times one frame
+   through each mode and the untiled `sgbm` by events, with its launches
+   and the profiler's busy share, and the carry form of a launch by graph
+   replay beside the same launch without one. Prints `step 20: ... s`.
+
 Prints a `{"kernels": [...]}` line with all eighteen kernels, every TPU
 kernel's port (the launches of the KITTI six from step 3, those of
 `sad_wta` and `wta_lr` from their presets' runs in step 6,
@@ -191,7 +214,10 @@ kernel's port (the launches of the KITTI six from step 3, those of
 from step 10, `dr_consistency_hits`'s from step 13, `bitonic_sort`'s from
 step 15 and kernel 13's five from step 17; `sgm_sweep` and
 `sweep_bwd_wta` also carry `adaptive_launches` and `adaptive_ms` from
-step 18, and the KITTI six `odometry_launches` from step 19), then
+step 18, the KITTI six `odometry_launches` from step 19 and
+`tiled_launches` from step 20, and `sgm_sweep` its carry forms'
+`carry_launches` (exact mode, 2 strips, 8 frames), `carry_ms`,
+`carry_bound_ms` and `carry_max_abs_err` from step 20), then
 `{"ok": true, "device": ...}` as the last line. Exits non-zero, with no
 result, on any failure or when CUDA is absent. Needs no network; imports
 nothing of JAX.
@@ -2008,10 +2034,13 @@ def sync_sources(fn) -> list:
     return found
 
 
-def odometry_path(card: str, per_set: dict, dev: str = "cuda") -> dict:
+def odometry_path(card: str, per_set: dict, shared: dict,
+                  dev: str = "cuda") -> dict:
     """Step 19: stereo odometry at KITTI odometry size (see the module's
     docstring). `per_set` holds the six KITTI kernels' launches of one set
-    of frames (step 3). Returns {kernel: launches on the straight run}."""
+    of frames (step 3); `shared` receives the straight run's sequence and
+    trajectory for step 20. Returns {kernel: launches on the straight
+    run}."""
     import torch
     from tpustereo_torch import PRESETS, api, kernels
     from tpustereo_torch.data import synthetic_sequence
@@ -2061,6 +2090,7 @@ def odometry_path(card: str, per_set: dict, dev: str = "cuda") -> dict:
     # the JAX unit test's bars (tests/test_odometry_units.py)
     require(err[-1] < 0.2 * dist and traj[-1, 0, 3] > 0.6 * gt[-1, 0, 3],
             "the straight run misses the JAX test's trajectory bars")
+    shared.update(calib=calib, frames=frames, gt=gt, traj=traj)
 
     # the same run again, warm, through StereoOdometry: its host clock, its
     # keyframes and its graph
@@ -2230,6 +2260,271 @@ def odometry_path(card: str, per_set: dict, dev: str = "cuda") -> dict:
     print(f"[{card}] profiler, one tracked step: {busy}", flush=True)
     print(f"step 19: {time.perf_counter() - t_step:.1f} s", flush=True)
     return {k: launches[k] for k in per_set}
+
+
+def plain_tiled(L, R, cfg, strips: int):
+    """(F, H, W) frames on the card through the halo mode's plain
+    composition, written here from the JAX `sgbm_tiled`'s rules and not
+    from `dist.tiling`: rows padded to a multiple of strips * 8 by edge
+    replication, strips of Hs rows extended by h = min(max(halo, census
+    margin), Hs) rows each side (edge rows replicated at the image's top
+    and bottom: a gather of clamped row indices), the costs of rows
+    outside the image zeroed; then on the extended strips the plain
+    census, `ops.aggregate`, `ops.wta` and `ops.lr_check` (the JAX jnp
+    formulation, as `plain_pipeline`), cropped and gathered, then plain
+    speckle and the median. No kernel runs."""
+    import torch
+    from tpustereo_torch.kernels.cost import census_cost_volume_plain
+    from tpustereo_torch.ops import (aggregate, lr_check, median3,
+                                     speckle_frames, wta)
+    F, H, W = L.shape
+    D = cfg.num_disparities
+    Hs = -(-H // (strips * 8)) * 8
+    h = min(max(cfg.halo, cfg.census_window[0] // 2), Hs)
+    He = Hs + 2 * h
+    # global row of each extended strip's row: (strips, He)
+    g = (torch.arange(strips)[:, None] * Hs - h
+         + torch.arange(He)[None]).to(L.device)
+    rows = g.clamp(0, H - 1).reshape(-1)
+    el, er = (x[:, rows].reshape(F, strips, He, W).transpose(0, 1)
+              .reshape(-1, He, W).contiguous() for x in (L, R))
+    C = census_cost_volume_plain(el, er, D, cfg.max_census_cost,
+                                 cfg.census_window, cfg.min_disparity)
+    outside = (g < 0) | (g >= H)
+    C.view(strips, F, He, W, D).masked_fill_(
+        outside[:, None, :, None, None], 0)
+    S = aggregate(C, cfg, el)[:, h:He - h]
+    del C
+    disp, _, valid = wta(S, cfg)
+    valid &= lr_check(S, disp, cfg)
+    del S
+
+    def gather(x):
+        x = x.reshape(strips, F, Hs, W).transpose(0, 1)
+        return x.reshape(F, strips * Hs, W)[:, :H]
+
+    disp, valid = gather(disp), gather(valid)
+    out = torch.where(speckle_frames(disp, valid, cfg), disp, -1.0)
+    return median3(out) if cfg.median_filter else out
+
+
+def tiled_path(card: str, per_set: dict, shared: dict) -> dict:
+    """Step 20: the strip-tiled matcher at KITTI odometry size (see the
+    module's docstring). `per_set` holds the six KITTI kernels' launches
+    of one set of frames (step 3), `shared` step 19's straight run.
+    Returns {kernel: extra keys of its row}."""
+    import warnings
+
+    import torch
+    from tpustereo_torch import PRESETS, api, dist, kernels
+    from tpustereo_torch.eval import ate
+    from tpustereo_torch.kernels.sgm import sgm_sweep_plain
+    from tpustereo_torch.odometry import OdometryConfig, StereoOdometry
+    from tpustereo_torch.pipeline import sgbm, sgbm_batched
+
+    t_step = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = PRESETS["kitti_odometry"]
+    exact = cfg.replace(exact_tiling=True)
+    D, p1, p2 = cfg.num_disparities, cfg.p1, cfg.p2
+    lefts, rights, gts = synthetic_pairs(ODO_SHAPE, 45.0, BATCH)
+    L = torch.from_numpy(lefts).to(dev)
+    R = torch.from_numpy(rights).to(dev)
+    H, W = ODO_SHAPE
+    ydirs = ((1, 0), (-1, 0), (1, 1), (1, -1), (-1, 1), (-1, -1))
+
+    # --- the carry forms against their plain version, random q carries,
+    # on two frames' census volume
+    C = kernels.census_cost_volume(L[:2].contiguous(), R[:2].contiguous(), D,
+                                   cfg.max_census_cost, cfg.census_window,
+                                   cfg.min_disparity)
+    img = L[:2].contiguous()
+    rng = np.random.default_rng(20)
+    carry_err = 0
+    for i, (dy, dx) in enumerate(ydirs):
+        q = rng.integers(0, 160, (2, W, D)).astype(np.int32)
+        q = torch.from_numpy(q - q.min(-1, keepdims=True)).to(dev)
+        prev = torch.from_numpy(rng.integers(0, 256, (2, W),
+                                             dtype=np.uint8)).to(dev)
+        for form in ("write", "add"):
+            for im in (None, img):
+                pv = None if im is None else prev
+                S0 = (None if form == "write" else torch.from_numpy(
+                    rng.integers(-900, 900, C.shape, dtype=np.int16)).to(dev))
+                got, got_q = kernels.sgm_sweep(
+                    C, None if S0 is None else S0.clone(), dy, dx, p1, p2,
+                    im, carry=q, return_carry=True, img_prev=pv)
+                ref, ref_q = sgm_sweep_plain(
+                    C, None if S0 is None else S0.clone(), dy, dx, p1, p2,
+                    im, q, True, pv)
+                torch.cuda.synchronize()
+                require(torch.equal(got, ref) and torch.equal(got_q, ref_q),
+                        f"sgm_sweep {(dy, dx)} {form} carry form "
+                        f"{'adaptive ' if im is not None else ''}differs "
+                        f"from plain")
+                carry_err = max(carry_err, int_err(got, ref),
+                                int((got_q - ref_q).abs().max().item()))
+    # chained over 2 and 4 strips: one untiled launch, bit for bit
+    for strips in (2, 4):
+        cuts = np.array_split(np.arange(H), strips)
+        for dy, dx in ydirs:
+            for im in (None, img):
+                ref, ref_q = kernels.sgm_sweep(C, None, dy, dx, p1, p2, im,
+                                               return_carry=True)
+                parts, q = {}, None
+                for rows in (cuts if dy > 0 else cuts[::-1]):
+                    r0, r1 = int(rows[0]), int(rows[-1]) + 1
+                    pv = (im[:, r0 - 1 if dy > 0 else r1].contiguous()
+                          if im is not None and q is not None else None)
+                    parts[r0], q = kernels.sgm_sweep(
+                        C[:, r0:r1].contiguous(), None, dy, dx, p1, p2,
+                        None if im is None else im[:, r0:r1].contiguous(),
+                        carry=q, return_carry=True, img_prev=pv)
+                torch.cuda.synchronize()
+                require(torch.equal(torch.cat([parts[k] for k in
+                                               sorted(parts)], 1), ref)
+                        and torch.equal(q, ref_q),
+                        f"sgm_sweep {(dy, dx)} chained over {strips} strips "
+                        f"differs from one launch")
+    print(f"step 20: sgm_sweep carry forms (6 directions, write and add, "
+          f"scalar and adaptive, random q) equal to plain, max abs diff "
+          f"{carry_err}; chains over 2 and 4 strips equal to one launch",
+          flush=True)
+
+    # --- halo mode as shipped (2 strips, halo 32) against the plain
+    # composition, and exact mode at 2 and 4 strips against untiled sgbm
+    mesh2 = dist.make_mesh(1, 2)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        kernels.reset_launch_counts()
+        halo_out = dist.sgbm_tiled_batched(L, R, cfg, mesh2)
+        torch.cuda.synchronize()
+        halo_launches = kernels.launch_counts()
+        with_warn = [str(w.message) for w in caught]
+    require(not with_warn, f"the shipped halo warned: {with_warn}")
+    require(halo_out.shape == (BATCH, H, W)
+            and torch.isfinite(halo_out).all().item(),
+            "sgbm_tiled_batched gave the wrong shape or non-finite values")
+    ref = torch.cat([plain_tiled(L[i:i + 2], R[i:i + 2], cfg, 2)
+                     for i in range(0, BATCH, 2)])
+    require(torch.equal(halo_out == -1.0, ref == -1.0),
+            "halo mode's invalid pattern differs from the plain composition")
+    halo_err = (halo_out - ref).abs().max().item()
+    require(halo_err <= DISP_TOL, "halo mode differs from the plain "
+            "composition")
+    del ref
+    one = api.match_pair_tiled(lefts[0], rights[0], cfg)
+    require(np.array_equal(one, halo_out[0].cpu().numpy()),
+            "match_pair_tiled differs from the batched tiled frame")
+    untiled = sgbm_batched(L, R, cfg.replace(strips=1)).cpu().numpy()
+    halo_np = halo_out.cpu().numpy()
+    vfrac, bad2 = quality(halo_np, gts)
+    mism = float((np.abs(halo_np - untiled) > 0.5).mean())
+    print(f"halo mode (strips 2, halo 32), 8 frames of {ODO_SHAPE}: launches "
+          f"{ {k: v for k, v in halo_launches.items() if v} }; vs the plain "
+          f"composition max abs diff {halo_err}; valid {vfrac:.4f}, bad-2.0 "
+          f"{bad2:.4f}; pixels off the untiled output by > 0.5: {mism:.6f}",
+          flush=True)
+    require(vfrac > 0.9 and bad2 < 0.05, "halo mode output is not a good "
+            "disparity map")
+    exact_counts = {}
+    for strips in (2, 4):
+        kernels.reset_launch_counts()
+        out = dist.sgbm_tiled_batched(L, R, exact, dist.make_mesh(1, strips))
+        torch.cuda.synchronize()
+        exact_counts[strips] = (kernels.launch_counts(),
+                                dict(kernels.sgm_sweep.carry_forms))
+        out = out.cpu().numpy()
+        require(np.array_equal(out == -1.0, untiled == -1.0),
+                f"exact mode at {strips} strips: invalid pattern differs "
+                f"from untiled")
+        e = float(np.abs(out - untiled).max())
+        require(e <= DISP_TOL, f"exact mode at {strips} strips differs "
+                f"from untiled by {e}")
+        print(f"exact mode, {strips} strips, 8 frames: max abs diff to "
+              f"untiled sgbm {e}; launches "
+              f"{ {k: v for k, v in exact_counts[strips][0].items() if v} }"
+              f"; carry forms {exact_counts[strips][1]}", flush=True)
+        require(sum(exact_counts[strips][1].values()) == 6 * strips,
+                "exact mode's ring did not run on the carry forms")
+
+    # --- run_sequence over step 19's straight run, the preset as shipped
+    calib, frames, gt = shared["calib"], shared["frames"], shared["gt"]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    traj = api.run_sequence(frames, calib, cfg)
+    run_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    expected = dict.fromkeys(launches, 0)
+    expected.update({k: n * len(frames) for k, n in per_set.items()})
+    print(f"tiled odometry launches: {launches}", flush=True)
+    require(launches == expected, f"the tiled odometry run's launches "
+            f"{launches} are not {len(frames)} matcher calls of {per_set}")
+    err = np.linalg.norm(traj[:, :3, 3] - gt[:, :3, 3], axis=-1)
+    dist_m = float(np.linalg.norm(gt[-1, :3, 3]))
+    a = ate(traj, gt)
+    d_t = float(np.abs(traj[:, :3, 3] - shared["traj"][:, :3, 3]).max())
+    d_r = float(np.abs(traj[:, :3, :3] - shared["traj"][:, :3, :3]).max())
+    print(f"tiled run_sequence (strips 2, halo 32): final error "
+          f"{err[-1]:.4f} m over {dist_m:.2f} m; ATE rmse {a['rmse']:.6f} m, "
+          f"max {a['max']:.6f}; against the strips=1 run: translation "
+          f"{d_t:.6f} m, rotation {d_r:.6f}; host clock "
+          f"{len(frames) / run_s:.2f} frames/s", flush=True)
+    require(np.isfinite(traj).all() and err[-1] < 0.2 * dist_m,
+            "the tiled run misses the JAX test's trajectory bar")
+    require(d_t <= 0.02 and d_r <= 0.01, "the tiled run strays from the "
+            "strips=1 run past the JAX test's bars")
+    odo = StereoOdometry(calib, cfg, OdometryConfig())
+    odo.step(*frames[0])
+    sources = sync_sources(lambda: odo.step(*frames[1]))
+    ours = [x for x in sources if x.startswith(("odometry/", "dist/"))]
+    print(f"host synchronisations in one tiled tracked step: "
+          f"{len(sources)}; from odometry/ and dist/: {ours}", flush=True)
+    require(len(ours) == 1 and ours[0].startswith("odometry/"),
+            "the tiled tracked step does not synchronise exactly once")
+
+    # --- times: one frame a call, by events, beside untiled sgbm
+    L1, R1 = L[1], R[1]
+    calls = {
+        "untiled sgbm": lambda: sgbm(L1, R1, cfg.replace(strips=1)),
+        "halo, 2 strips": lambda: dist.sgbm_tiled(L1, R1, cfg, mesh2),
+        "exact, 2 strips": lambda: dist.sgbm_tiled(L1, R1, exact, mesh2),
+        "exact, 4 strips": lambda: dist.sgbm_tiled(
+            L1, R1, exact, dist.make_mesh(1, 4)),
+    }
+    for name, fn in calls.items():
+        kernels.reset_launch_counts()
+        fn()
+        n = sum(kernels.launch_counts().values())
+        print(f"[{card}] {name}: {cuda_ms(fn, 20):.4f} ms a frame by events "
+              f"({n} kernel launches); profiler: {device_busy(fn)}",
+              flush=True)
+    batch_ms = cuda_ms(lambda: dist.sgbm_tiled_batched(L, R, cfg, mesh2), 5)
+    print(f"[{card}] halo mode, {BATCH} frames in one call: "
+          f"{batch_ms / BATCH:.4f} ms a frame", flush=True)
+
+    # the carry form per launch at the exact path's strip shape (one
+    # frame's 192-row strip), beside the same launch without a carry
+    Hs = 192
+    Cs = C[:1, :Hs].contiguous()
+    Ss = kernels.sgm_sweep(Cs, None, 1, 0, p1, p2)
+    q = torch.zeros((1, W, D), dtype=torch.int32, device=dev)
+    n_cost = Cs.numel()
+    carry_ms = graph_ms(lambda: kernels.sgm_sweep(
+        Cs, Ss, 1, 0, p1, p2, carry=q, return_carry=True), 10)
+    plain_ms = graph_ms(lambda: kernels.sgm_sweep(Cs, Ss, 1, 0, p1, p2), 10)
+    b_ms, b_by = bound(5 * n_cost + 2 * W * D * 4, 9 * n_cost)
+    print(f"[{card}] sgm_sweep add form on a (1, {Hs}, {W}, {D}) strip by "
+          f"graph replay: with the carry in and out {carry_ms:.4f} ms, "
+          f"without {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})",
+          flush=True)
+    print(f"step 20: {time.perf_counter() - t_step:.1f} s", flush=True)
+    out = {k: {"tiled_launches": launches[k]} for k in per_set}
+    out["sgm_sweep"].update(
+        carry_launches=sum(exact_counts[2][1].values()), carry_ms=carry_ms,
+        carry_bound_ms=b_ms, carry_max_abs_err=carry_err)
+    return out
 
 
 def main() -> None:
@@ -2571,8 +2866,12 @@ def main() -> None:
         row.update(adaptive_launches=n, adaptive_ms=a_ms)
     # the KITTI six also carry their launches on the odometry path
     per_set = {n: launches[n] // (BATCH // F) for n in KERNELS}
-    for name, n in odometry_path(card, per_set).items():
+    shared: dict = {}
+    for name, n in odometry_path(card, per_set, shared).items():
         next(r for r in rows if r["name"] == name)["odometry_launches"] = n
+    # ... and on the strip-tiled odometry; sgm_sweep also its carry forms
+    for name, extra in tiled_path(card, per_set, shared).items():
+        next(r for r in rows if r["name"] == name).update(extra)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

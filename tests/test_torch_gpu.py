@@ -1231,3 +1231,149 @@ def test_run_sequence_cuda_matches_cpu(cuda):
     assert np.abs(got - ref).max() <= 1e-4
     assert np.linalg.norm(got[-1, :3, 3] - gt[-1, :3, 3]) < \
         0.2 * np.linalg.norm(gt[-1, :3, 3])
+
+
+# --- the ring carry of sgm_sweep and the strip-tiled pipelines -------------
+
+YDIRS = [r for r in DIRS_8 if r[0] != 0]
+# (B, H, W): lines shorter than the ring, a tall one, the KITTI odometry
+# width
+CARRY_SHAPES = [(2, 5, 9), (1, 19, 43), (1, 4, 1241)]
+
+
+def _q_carry(cuda, B, W, D, seed):
+    """A random q-form carry (B, W, D): each column's minimum over d is 0."""
+    rng = np.random.default_rng(seed + 200)
+    q = rng.integers(0, 130, (B, W, D)).astype(np.int32)
+    return torch.from_numpy(q - q.min(-1, keepdims=True)).to(cuda)
+
+
+@pytest.mark.parametrize("D", [16, 100, 128, 512])
+@pytest.mark.parametrize("direction", YDIRS)
+@pytest.mark.parametrize("form", ["add", "write"])
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_sweep_kernel_carry_matches_plain(cuda, D, direction, form,
+                                          adaptive):
+    """The carry forms: a random q carry in, the last row's q out, against
+    the plain version; counted in `carry_forms`."""
+    for seed, shape in enumerate(CARRY_SHAPES):
+        B, H, W = shape
+        C = _volume(cuda, *shape, D, seed=seed)
+        img = _image(cuda, *shape, seed=seed) if adaptive else None
+        prev = (_image(cuda, B, 1, W, seed=seed + 50)[:, 0].contiguous()
+                if adaptive else None)
+        q = _q_carry(cuda, B, W, D, seed)
+        S = (torch.full(C.shape, 7, dtype=torch.int16, device=cuda)
+             if form == "add" else None)
+        kernels.reset_launch_counts()
+        ref, ref_q = sgm_sweep_plain(C, None if S is None else S.clone(),
+                                     *direction, 10, 120, img, q, True, prev)
+        got, got_q = kernels.sgm_sweep(C, S, *direction, 10, 120, img,
+                                       carry=q, return_carry=True,
+                                       img_prev=prev)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), shape
+        assert torch.equal(got_q, ref_q), shape
+        key = form + ("_adaptive" if adaptive else "")
+        assert kernels.sgm_sweep.carry_forms == dict(FORMS, **{key: 1})
+
+
+@pytest.mark.parametrize("D", [40, 128])
+@pytest.mark.parametrize("direction", [(1, 0), (-1, 1)])
+def test_sweep_kernel_carry_takes_unaligned_volumes(cuda, D, direction):
+    C = _unaligned(_volume(cuda, 2, 19, 43, D, seed=6))
+    S = _unaligned(torch.full(C.shape, 5, dtype=torch.int16, device=cuda))
+    q = _q_carry(cuda, 2, 43, D, 6)
+    ref = sgm_sweep_plain(C, S.clone(), *direction, 10, 120, None, q, True)
+    got = kernels.sgm_sweep(C, S, *direction, 10, 120, carry=q,
+                            return_carry=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("strips", [2, 4])
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("D", [16, 128])
+def test_sweep_kernel_carry_chain_equals_one_launch(cuda, strips, adaptive,
+                                                    D):
+    """The kernel chained over strips of 45 rows, each seeded with the
+    previous strip's carry in path order, equals one untiled launch bit for
+    bit, and so does the last carry."""
+    B, H, W = 2, 45, 1241
+    C = _volume(cuda, B, H, W, D, seed=9)
+    img = _image(cuda, B, H, W, seed=9) if adaptive else None
+    cuts = np.array_split(np.arange(H), strips)
+    for dy, dx in YDIRS:
+        ref, ref_q = kernels.sgm_sweep(C, None, dy, dx, 10, 120, img,
+                                       return_carry=True)
+        parts, q = {}, None
+        for rows in (cuts if dy > 0 else cuts[::-1]):
+            r0, r1 = int(rows[0]), int(rows[-1]) + 1
+            prev = (img[:, r0 - 1 if dy > 0 else r1].contiguous()
+                    if img is not None and q is not None else None)
+            parts[r0], q = kernels.sgm_sweep(
+                C[:, r0:r1].contiguous(), None, dy, dx, 10, 120,
+                None if img is None else img[:, r0:r1].contiguous(),
+                carry=q, return_carry=True, img_prev=prev)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat([parts[k] for k in sorted(parts)], 1),
+                           ref), (dy, dx)
+        assert torch.equal(q, ref_q), (dy, dx)
+
+
+TILED_CASES = {
+    "halo": dict(halo=12),
+    "exact": dict(exact_tiling=True),
+    "exact_adaptive": dict(exact_tiling=True, paths=4, adaptive_p2=True),
+    "halo_hirschmuller": dict(halo=12, fill_mode="hirschmuller"),
+    "exact_volume": dict(exact_tiling=True, paths=4, p2=1000),
+}
+
+
+@pytest.mark.parametrize("name", TILED_CASES)
+@pytest.mark.parametrize("strips", [2, 4])
+def test_sgbm_tiled_cuda_matches_cpu(cuda, name, strips):
+    from tpustereo_torch import dist
+    from tpustereo_torch.pipeline import sgbm
+    cfg = Config(num_disparities=32, speckle_window_size=50,
+                 **TILED_CASES[name])
+    L, R = _pairs(2, (45, 331), seed=3)
+    ref = dist.sgbm_tiled_batched(L, R, cfg,
+                                  dist.make_mesh(1, strips, device="cpu"))
+    kernels.reset_launch_counts()
+    got = dist.sgbm_tiled_batched(L.to(cuda), R.to(cuda), cfg,
+                                  dist.make_mesh(1, strips)).cpu()
+    assert kernels.launch_counts()["census_cost_volume"] == 1
+    if cfg.exact_tiling:
+        assert kernels.sgm_sweep.carry_forms["add"] + \
+            kernels.sgm_sweep.carry_forms["add_adaptive"] > 0
+        untiled = sgbm(L[0].to(cuda), R[0].to(cuda), cfg).cpu()
+        assert torch.equal(got[0], untiled)
+    assert torch.equal(got == -1.0, ref == -1.0)
+    assert (got - ref).abs().max().item() <= 1e-6
+
+
+def test_run_sequence_tiled_cuda_matches_cpu(cuda):
+    """kitti_odometry as shipped (halo mode, 2 strips, halo 32) but for D:
+    the card against the CPU."""
+    from tpustereo_torch import PRESETS, api
+    from tpustereo_torch.odometry import OdometryConfig
+    calib, frames, gt = _odometry_frames(8)
+    cfg = PRESETS["kitti_odometry"].replace(num_disparities=32)
+    ocfg = OdometryConfig(keyframe_translation=0.1)
+    kernels.reset_launch_counts()
+    got = api.run_sequence(frames, calib, cfg, ocfg)
+    assert kernels.launch_counts()["census_cost_volume"] == len(frames)
+    ref = api.run_sequence(frames, calib, cfg, ocfg, device="cpu")
+    assert np.abs(got - ref).max() <= 1e-4
+    assert np.linalg.norm(got[-1, :3, 3] - gt[-1, :3, 3]) < \
+        0.2 * np.linalg.norm(gt[-1, :3, 3])
+
+
+def test_sweep_kernel_writes_into_out(cuda):
+    C = _volume(cuda, 2, 19, 43, 128, seed=8)
+    out = torch.full(C.shape, 77, dtype=torch.int16, device=cuda)
+    got = kernels.sgm_sweep(C, None, -1, 1, 10, 120, out=out)
+    torch.cuda.synchronize()
+    assert got is out
+    assert torch.equal(out, sgm_sweep_plain(C, None, -1, 1, 10, 120))

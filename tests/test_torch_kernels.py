@@ -184,7 +184,10 @@ def test_import_loads_neither_jax_nor_tpustereo():
             "tpustereo_torch.odometry.fused",
             "tpustereo_torch.odometry.pose_graph",
             "tpustereo_torch.eval.metrics",
-            "tpustereo_torch.data.datasets"} <= names
+            "tpustereo_torch.data.datasets",
+            "tpustereo_torch.dist.mesh", "tpustereo_torch.dist.tiling",
+            "tpustereo_torch.dist.batching",
+            "tpustereo_torch.dist.disp_shard"} <= names
 
 
 def test_entry_points_need_cuda_unless_told_cpu(small_pair, monkeypatch):

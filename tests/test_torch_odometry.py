@@ -49,6 +49,7 @@ from tpustereo_torch import api
 from tpustereo_torch.convert import config_from_jax, odometry_config_from_jax
 from tpustereo_torch.data import (KittiCalib, parse_kitti_odometry_calib,
                                   synthetic_sequence)
+from tpustereo_torch.dist import make_mesh
 from tpustereo_torch.eval import metrics
 from tpustereo_torch.odometry import (OdometryConfig, PoseGraph,
                                       StereoOdometry, features, fused, pnp,
@@ -487,15 +488,20 @@ def test_loop_closure_on_out_and_back():
 # --- refusals -------------------------------------------------------------
 
 def test_strips_past_one_raise():
+    """strips > 1 runs the strip-tiled matcher; what still raises is a mesh
+    over several distinct devices (ROADMAP.md queue 1) and a mesh on
+    another device than the odometry's."""
     calib = KittiCalib(200.0, 200.0, 64.0, 48.0, 0.5)
     cfg = _port(JPRESETS["kitti_odometry"])
     assert cfg.strips == 2
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        StereoOdometry(calib, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="strips=1"):
-        api.run_sequence([], calib, cfg, device="cpu")
-    assert api.run_sequence([], calib, cfg.replace(strips=1),
-                            device="cpu").shape == (0, 4, 4)
+    with pytest.raises(NotImplementedError, match="several cards"):
+        make_mesh(1, 2, devices=["cpu", "meta"])
+    with pytest.raises(ValueError, match="mesh"):
+        StereoOdometry(calib, cfg, device="cpu",
+                       mesh=make_mesh(1, 2, devices=["meta"] * 2))
+    for c in (cfg, cfg.replace(strips=1)):
+        assert api.run_sequence([], calib, c,
+                                device="cpu").shape == (0, 4, 4)
 
 
 def test_odometry_needs_cuda_unless_told_cpu(monkeypatch):

@@ -1,5 +1,5 @@
-"""Public API: `match_pair`, `match_batch` and `run_sequence`, numpy in
-and numpy out.
+"""Public API: `match_pair`, `match_batch`, `match_pair_tiled` and
+`run_sequence`, numpy in and numpy out.
 
 They run on the CUDA card unless the caller passes `device="cpu"`, and
 raise when CUDA is absent: there is no quiet CPU fallback.
@@ -55,14 +55,32 @@ def match_batch(lefts: np.ndarray, rights: np.ndarray,
     return sgbm_batched(l8.to(dev), r8.to(dev), cfg).cpu().numpy()
 
 
+def match_pair_tiled(left: np.ndarray, right: np.ndarray,
+                     cfg: Optional[Config] = None, mesh=None,
+                     device="cuda") -> np.ndarray:
+    """Disparity for one rectified pair, its rows in strips over the mesh's
+    strip axis (`dist.sgbm_tiled`; halo or exact mode by
+    `cfg.exact_tiling`). (H, W) uint8 -> (H, W) float32, invalid = -1.0.
+    Without a mesh, `cfg.strips` strips on `device`; with one, on the
+    mesh's device."""
+    from tpustereo_torch import dist   # dist.mesh imports api
+    cfg = cfg or Config()
+    if mesh is None:
+        mesh = dist.make_mesh(1, cfg.strips, device=device)
+    l8 = torch.from_numpy(np.ascontiguousarray(_as_u8(left)))
+    r8 = torch.from_numpy(np.ascontiguousarray(_as_u8(right)))
+    return dist.sgbm_tiled(l8, r8, cfg, mesh).cpu().numpy()
+
+
 def run_sequence(pairs: Iterable, calib, cfg: Optional[Config] = None,
-                 odometry_cfg=None, device="cuda") -> np.ndarray:
+                 odometry_cfg=None, device="cuda", mesh=None) -> np.ndarray:
     """Stereo odometry over an iterable of (left, right) frames
     (SURVEY.md §4.4). Returns the trajectory as (N, 4, 4) world <- camera
-    poses. `cfg.strips` must be 1: the strip-tiled matcher is not ported
-    yet, and `StereoOdometry` raises for more."""
+    poses. With `cfg.strips > 1` the matcher is the strip-tiled one over
+    `mesh` (by default `cfg.strips` strips on `device`)."""
     from tpustereo_torch.odometry import StereoOdometry  # it imports api
-    odo = StereoOdometry(calib, cfg or Config(), odometry_cfg, device=device)
+    odo = StereoOdometry(calib, cfg or Config(), odometry_cfg, device=device,
+                         mesh=mesh)
     for left, right in pairs:
         odo.step(np.asarray(left), np.asarray(right))
     return odo.trajectory()

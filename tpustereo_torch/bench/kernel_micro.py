@@ -447,8 +447,11 @@ def _sweep_cases(dev) -> list:
 
             def launch(lib, C=C, outs=outs, dy=dy, dx=dx, acc=acc, p1=p1,
                        p2=p2, img=img):
+                # the current interface: the image, then no carry in or out
+                # and no carry row
                 im = (() if getattr(lib, "tps_against", False)
-                      else (None if img is None else _build.ptr(img),))
+                      else (None if img is None else _build.ptr(img), None,
+                            None, None))
                 return lib.sgm_sweep_launch(
                     _build.ptr(C), _build.ptr(outs[0]), *im, *C.shape, dy,
                     dx, p1, p2, int(acc), _build.stream_ptr(C))

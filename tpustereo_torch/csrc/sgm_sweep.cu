@@ -57,6 +57,19 @@
 //     D = 128), the add form's partial sums added per 16-bit half. Where
 //     the slice is not aligned, scalar stores.
 //   * D = 32 K (the presets' 128) has a build with every lane full.
+//   * The ring hand-off between strips (the JAX kernel's `init_carry` /
+//     `return_final_carry`, y-scanning directions only): Q (B, W, D) int32
+//     holds q = L - min_d L of the row before the strip's first in sweep
+//     order. A line that starts on the first row at column x, with
+//     0 <= x - dx < W, loads its carry from Q[b, x - dx] (minLp = 0, since
+//     q is renormalised); every other line restarts, as the JAX `has_prev`
+//     rule gives (the diagonal lines that start on a side column have no
+//     predecessor). Under adaptive P2 that first pixel's predecessor byte
+//     comes from Ip (B, W), the image row of the carry. A line that ends
+//     on the last row at column x writes its q to Fo[b, x]: each column of
+//     that row ends exactly one line, so no atomics. The carry moves
+//     2 W D 4 bytes a launch, about 1 MB at W = 1241, D = 128, against the
+//     tens of MB of C and S. The packed E/W build takes no carry.
 #include "common.cuh"
 
 #ifndef SWEEP_RING_DEPTH
@@ -113,7 +126,9 @@ __device__ __forceinline__ void sgm_step_pairs(const unsigned (&c)[NW],
 template <int K, bool ACC, bool ALIGNED, bool FULL, bool PACKED, bool ADAPT>
 __global__ void __launch_bounds__(32 * WARPS)
     sgm_sweep_kernel(const uint8_t* __restrict__ C, int16_t* __restrict__ S,
-                     const uint8_t* __restrict__ I, int B, int H, int W,
+                     const uint8_t* __restrict__ I,
+                     const int* __restrict__ Q, int* __restrict__ Fo,
+                     const uint8_t* __restrict__ Ip, int B, int H, int W,
                      int D, int dy, int dx, int p1, int p2) {
   using Sl = Slot<K, ACC>;
   constexpr int NW = NWORDS(K);
@@ -184,6 +199,16 @@ __global__ void __launch_bounds__(32 * WARPS)
   for (int k = 0; k < K; ++k) Lp[k] = 0;
 #pragma unroll
   for (int i = 0; i < NW; ++i) q[i] = 0;
+  // the previous strip's q, for a line that starts on the first row with
+  // its predecessor column inside the image (lanes d >= D hold BIG)
+  const int xp = x - dx;
+  const bool seeded = !PACKED && Q != nullptr && (dx == 0 || li < W) &&
+                      xp >= 0 && xp < W;
+  if (seeded) {
+    const int* qs = Q + ((size_t)b * W + xp) * D;
+#pragma unroll
+    for (int k = 0; k < K; ++k) Lp[k] = d0 + k < D ? qs[d0 + k] : SGM_BIG;
+  }
   const unsigned p1x2 = (unsigned)p1 * 0x10001u;
   unsigned p2x2 = (unsigned)p2 * 0x10001u;
   // adaptive P2: the image byte of pixel t0 + j of the group of 32 pixels
@@ -194,13 +219,17 @@ __global__ void __launch_bounds__(32 * WARPS)
   // or a select of it would wait for the load where it is issued.
   auto image = [&](int t) { return (int)I[p0 + min(t, n - 1) * step]; };
   int ibyte = 0, ilast = 0, p2v = p2, p2t = p2;
-  if constexpr (ADAPT) ibyte = image(lane);
+  if constexpr (ADAPT) {
+    ibyte = image(lane);
+    if (seeded) ilast = Ip[(size_t)b * W + xp];  // the carry row's byte
+  }
 
   for (int t = 0; t < n; ++t) {
     if constexpr (ADAPT) {
       if ((t & 31) == 0) {  // a group starts: its P2', one pixel a lane
         int iprev = __shfl_up_sync(FULL_MASK, ibyte, 1);
-        if (lane == 0) iprev = ilast;  // pixel 0 of a line restarts: unread
+        // pixel 0 of a line: the carry row's byte, or unread (a restart)
+        if (lane == 0) iprev = ilast;
         ilast = __shfl_sync(FULL_MASK, ibyte, 31);
         p2v = max(p1 + 1, p2 / max(1, abs(ibyte - iprev)));
         ibyte = image(t + 32 + lane);
@@ -249,11 +278,21 @@ __global__ void __launch_bounds__(32 * WARPS)
     }
     store_line<K, ACC, VEC>(S + (p0 + t * step) * D + d0, out, sv, d0, D);
   }
+  // the strip's last row in sweep order: this line's q into the carry out
+  if constexpr (!PACKED) {
+    if (Fo != nullptr && y + (n - 1) * dy == (dy > 0 ? H - 1 : 0)) {
+      int* fs = Fo + ((size_t)b * W + x + (n - 1) * dx) * D;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (d0 + k < D) fs[d0 + k] = Lp[k] - minLp;
+    }
+  }
 }
 
 template <int K, bool ACC, bool ALIGNED, bool FULL, bool PACKED, bool ADAPT>
-static int launch_one(const uint8_t* C, int16_t* S, const uint8_t* I, int B,
-                      int H, int W, int D, int dy, int dx, int p1, int p2,
+static int launch_one(const uint8_t* C, int16_t* S, const uint8_t* I,
+                      const int* Q, int* Fo, const uint8_t* Ip, int B, int H,
+                      int W, int D, int dy, int dx, int p1, int p2,
                       cudaStream_t s) {
   auto kernel = sgm_sweep_kernel<K, ACC, ALIGNED, FULL, PACKED, ADAPT>;
   const int smem = WARPS * RING * Slot<K, ACC>::bytes;
@@ -262,18 +301,19 @@ static int launch_one(const uint8_t* C, int16_t* S, const uint8_t* I, int B,
   if (e != cudaSuccess) return (int)e;
   const long lines = (long)B * (dy == 0 ? H : (dx == 0 ? W : W + H - 1));
   const unsigned blocks = (unsigned)((lines + WARPS - 1) / WARPS);
-  kernel<<<blocks, 32 * WARPS, smem, s>>>(C, S, I, B, H, W, D, dy, dx, p1,
-                                          p2);
+  kernel<<<blocks, 32 * WARPS, smem, s>>>(C, S, I, Q, Fo, Ip, B, H, W, D,
+                                          dy, dx, p1, p2);
   return (int)cudaGetLastError();
 }
 
 template <int K, bool ACC, bool ADAPT>
-static int launch(const uint8_t* C, int16_t* S, const uint8_t* I, int B,
-                  int H, int W, int D, int dy, int dx, int p1, int p2,
+static int launch(const uint8_t* C, int16_t* S, const uint8_t* I,
+                  const int* Q, int* Fo, const uint8_t* Ip, int B, int H,
+                  int W, int D, int dy, int dx, int p1, int p2,
                   cudaStream_t s) {
 #define TPS_ONE(ALIGNED, FULL, PACKED)                                     \
   return launch_one<K, ACC, ALIGNED, FULL, PACKED, ADAPT>(                 \
-      C, S, I, B, H, W, D, dy, dx, p1, p2, s)
+      C, S, I, Q, Fo, Ip, B, H, W, D, dy, dx, p1, p2, s)
   const bool aligned = D % K == 0 && D % 4 == 0 &&
                        ((uintptr_t)C | (uintptr_t)S) % 16 == 0;
   if (aligned && D == 32 * K) {
@@ -293,21 +333,26 @@ static int launch(const uint8_t* C, int16_t* S, const uint8_t* I, int B,
 }
 
 // accumulate == 0 writes S = L_r and reads no S; 1 adds L_r to S. I, the
-// left image (B, H, W) uint8, null for the scalar P2.
+// left image (B, H, W) uint8, null for the scalar P2. Q, the carry in
+// (B, W, D) int32, null for a fresh start; Fo, the carry out, null when not
+// wanted; Ip (B, W) uint8, the carry's image row, needed with I and Q.
 TPS_EXPORT int sgm_sweep_launch(const uint8_t* C, int16_t* S,
-                                const uint8_t* I, int B, int H, int W, int D,
+                                const uint8_t* I, const int* Q, int* Fo,
+                                const uint8_t* Ip, int B, int H, int W, int D,
                                 int dy, int dx, int p1, int p2,
                                 int accumulate, void* stream) {
   if (dy < -1 || dy > 1 || dx < -1 || dx > 1 || (dy == 0 && dx == 0) ||
       D < 1 || D > 512 || p1 < 0 || p2 < p1)
     return (int)cudaErrorInvalidValue;
+  if ((dy == 0 && (Q || Fo || Ip)) || (Ip && (!I || !Q)) || (I && Q && !Ip))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TPS_ACC(KK, ADAPT)                                                 \
   return accumulate                                                         \
-             ? launch<KK, true, ADAPT>(C, S, I, B, H, W, D, dy, dx, p1, p2, \
-                                       s)                                   \
-             : launch<KK, false, ADAPT>(C, S, I, B, H, W, D, dy, dx, p1,    \
-                                        p2, s)
+             ? launch<KK, true, ADAPT>(C, S, I, Q, Fo, Ip, B, H, W, D, dy,  \
+                                       dx, p1, p2, s)                       \
+             : launch<KK, false, ADAPT>(C, S, I, Q, Fo, Ip, B, H, W, D, dy, \
+                                        dx, p1, p2, s)
 #define TPS_LAUNCH(KK)   \
   if (I) TPS_ACC(KK, true); \
   TPS_ACC(KK, false)

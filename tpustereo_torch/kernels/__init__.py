@@ -38,8 +38,9 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     """Set every wrapper's count to 0, and its counts by build where it
-    keeps them (`builds`)."""
+    keeps them (`builds`, and `sgm_sweep.carry_forms`)."""
     for w in WRAPPERS:
         w.launches = 0
-        if hasattr(w, "builds"):
-            w.builds = dict.fromkeys(w.builds, 0)
+        for counts in ("builds", "carry_forms"):
+            if hasattr(w, counts):
+                setattr(w, counts, dict.fromkeys(getattr(w, counts), 0))

@@ -21,6 +21,13 @@ compositions pass the image under `cfg.adaptive_p2`, the horizontal sweeps
 of `aggregate_volume` the transposed image. `sgm_sweep_bidir` stays
 scalar-only: under adaptive P2 `sgm_select` runs the default schedule even
 with `BIDIR_VERT`, as the JAX `sgm_select_pallas` does.
+
+The ring hand-off between strips (the JAX `init_carry` and
+`return_final_carry` of `sgm_sweep`, which `dist.tiling`'s exact mode
+runs): `sgm_sweep(..., carry=q, return_carry=True)` seeds the strip's
+first row from the q = L - min_d L slab of the previous strip's last row
+and returns its own last row's q, one direction a launch (the JAX kernel
+fuses K directions, so its (K, N, D) carry is K of the port's).
 """
 
 from __future__ import annotations
@@ -33,15 +40,15 @@ from tpustereo_torch.config import Config
 from tpustereo_torch.kernels import _build
 from tpustereo_torch.kernels.transpose import transpose_hw, transpose_sum_hw
 from tpustereo_torch.ops.postproc import _right_disparity
-from tpustereo_torch.ops.sgm import (DIRS_4, DIRS_8, check_image, path_costs,
-                                    sweep_image)
+from tpustereo_torch.ops.sgm import (DIRS_4, DIRS_8, adaptive_p2_map,
+                                    check_image, path_costs, sweep_image)
 from tpustereo_torch.ops.wta import wta
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SWEEP_SIGS = {
-    # C, S, img (null: scalar P2), B, H, W, D, dy, dx, p1, p2, accumulate,
-    # stream
-    "sgm_sweep_launch": ([_P] * 3 + [_I] * 9 + [_P], _I),
+    # C, S, img (null: scalar P2), carry in, carry out, img_prev (each null
+    # when not given), B, H, W, D, dy, dx, p1, p2, accumulate, stream
+    "sgm_sweep_launch": ([_P] * 6 + [_I] * 9 + [_P], _I),
 }
 _BIDIR_SIGS = {
     # C, Sd, Su, B, H, W, D, dx, p1, p2, accumulate, packed, stream
@@ -93,6 +100,44 @@ def _check_img(C: torch.Tensor, img: torch.Tensor | None) -> None:
         raise ValueError("img must be contiguous")
 
 
+def _check_carry(C: torch.Tensor, dy: int, img, carry, return_carry: bool,
+                 img_prev) -> None:
+    """The ring hand-off's operands of `sgm_sweep`: a (B, W, D) int32 carry
+    and a (B, W) uint8 img_prev, y-scanning directions only."""
+    if carry is None and not return_carry and img_prev is None:
+        return
+    B, _, W, D = C.shape
+    if dy == 0:
+        raise ValueError("the carry runs along y: dy must be +-1")
+    named = [("carry", carry, (B, W, D), torch.int32),
+             ("img_prev", img_prev, (B, W), torch.uint8)]
+    for name, t, shape, dtype in named:
+        if t is None:
+            continue
+        if t.shape != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != C.device:
+            raise ValueError(f"C and {name} must be on one device")
+        if C.device.type == "cuda" and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if img is not None and carry is not None and img_prev is None:
+        raise ValueError("adaptive P2 with a carry needs img_prev, the image "
+                         "row of the carry")
+    if img_prev is not None and (img is None or carry is None):
+        raise ValueError("img_prev goes with img and a carry")
+
+
+def _p2_across(img: torch.Tensor, img_prev: torch.Tensor, dy: int, dx: int,
+               p1: int, p2: int) -> torch.Tensor:
+    """The adaptive P2' map of img (B, H, W) with img_prev (B, W), the row
+    before its first in sweep order, as the first row's predecessors."""
+    prev = img_prev[:, None]
+    ext = torch.cat([prev, img] if dy > 0 else [img, prev], 1)
+    m = adaptive_p2_map(ext, dy, dx, p1, p2)
+    return m[:, 1:] if dy > 0 else m[:, :-1]
+
+
 def p2_max(p1: int, p2: int, adaptive: bool) -> int:
     """The largest P2 a sweep can add: P2, or under adaptive P2
     max(P2, P1 + 1), which P1 = P2 reaches."""
@@ -105,59 +150,99 @@ def p2_max(p1: int, p2: int, adaptive: bool) -> int:
 
 def sgm_sweep_plain(C: torch.Tensor, S: torch.Tensor | None, dy: int,
                     dx: int, p1: int, p2: int,
-                    img: torch.Tensor | None = None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (`ops.sgm`)."""
-    L = path_costs(C, dy, dx, p1, p2, img)
-    if S is None:
+                    img: torch.Tensor | None = None,
+                    carry: torch.Tensor | None = None,
+                    return_carry: bool = False,
+                    img_prev: torch.Tensor | None = None,
+                    out: torch.Tensor | None = None):
+    """The kernel's function in plain PyTorch (`ops.sgm`). The carry is the
+    kernel's q = L - min_d L; `ops.sgm._sweep` carries the raw L, which a q
+    slab seeds exactly (the recurrence reads its predecessor only through
+    q), and its returned L is turned into q here."""
+    p2m = (None if img_prev is None
+           else _p2_across(img, img_prev, dy, dx, p1, p2))
+    res = path_costs(C, dy, dx, p1, p2, img, carry, return_carry, p2m)
+    L, fin = res if return_carry else (res, None)
+    if S is not None:
+        S += L
+        L = S
+    elif out is not None:
+        L = out.copy_(L)
+    if not return_carry:
         return L
-    S += L
-    return S
+    return L, fin - fin.amin(-1, keepdim=True)
 
 
 def sgm_sweep(C: torch.Tensor, S: torch.Tensor | None, dy: int, dx: int,
-              p1: int, p2: int,
-              img: torch.Tensor | None = None) -> torch.Tensor:
+              p1: int, p2: int, img: torch.Tensor | None = None,
+              carry: torch.Tensor | None = None, return_carry: bool = False,
+              img_prev: torch.Tensor | None = None,
+              out: torch.Tensor | None = None):
     """L_r for direction r = (dy, dx): with S None a new int16 volume
-    S = L_r (the JAX `sgm_sweep(C, None, ...)`, which reads no S); else
+    S = L_r (the JAX `sgm_sweep(C, None, ...)`, which reads no S), or L_r
+    written into `out`, an int16 volume of C's shape, where given; else
     S += L_r in place, returning S (the pipeline's one accumulator of the
     seven sweeps: it saves a volume).
 
     C (B, H, W, D) uint8, S int16 of the same shape. With img, the left
     image (B, H, W) uint8, each pixel's P2 is the adaptive P2' of the
-    gradient along r (`ops.sgm.adaptive_p2_map`), else the scalar p2. CUDA
-    tensors run the kernel, its form counted in `sgm_sweep.builds`
-    ("write", "add", and "write_adaptive", "add_adaptive" with img); CPU
+    gradient along r (`ops.sgm.adaptive_p2_map`), else the scalar p2.
+
+    The ring hand-off between strips (the JAX `init_carry` and
+    `return_final_carry`), y-scanning directions only: `carry` (B, W, D)
+    int32 is the q = L - min_d L of the row before C's first in sweep order
+    (each column's minimum over d is 0), None a fresh path start; a zero
+    carry gives the output of None. With `return_carry` the call returns
+    (S, the q of C's last row in sweep order). Under adaptive P2 a carry
+    needs `img_prev` (B, W) uint8, the image row the carry belongs to.
+
+    CUDA tensors run the kernel, its form counted in `sgm_sweep.builds`
+    ("write", "add", and "write_adaptive", "add_adaptive" with img) and,
+    where it takes or returns a carry, in `sgm_sweep.carry_forms` too; CPU
     tensors the plain version."""
     if S is None:
         _check_cost(C)
     else:
         _check_volume(C, S, "S")
+    if out is not None:
+        if S is not None:
+            raise ValueError("out goes with S None, the write form")
+        _check_volume(C, out, "out")
     _check_img(C, img)
     if (dy, dx) not in DIRS_8:
         raise ValueError(f"direction {(dy, dx)} is not one of {DIRS_8}")
     if not 0 <= p1 <= p2:
         raise ValueError("need 0 <= p1 <= p2")
+    _check_carry(C, dy, img, carry, return_carry, img_prev)
     if C.device.type == "cpu":
-        return sgm_sweep_plain(C, S, dy, dx, p1, p2, img)
+        return sgm_sweep_plain(C, S, dy, dx, p1, p2, img, carry,
+                               return_carry, img_prev, out)
     add = S is not None
     if not add:
-        S = torch.empty(C.shape, dtype=torch.int16, device=C.device)
+        S = (torch.empty(C.shape, dtype=torch.int16, device=C.device)
+             if out is None else out)
     B, H, W, D = C.shape
+    fin = (torch.empty((B, W, D), dtype=torch.int32, device=C.device)
+           if return_carry else None)
     lib = _build.load("sgm_sweep", _SWEEP_SIGS)
-    img_p = None if img is None else _build.ptr(img)
-    rc = lib.sgm_sweep_launch(_build.ptr(C), _build.ptr(S), img_p, B, H, W,
+    ptrs = [None if t is None else _build.ptr(t)
+            for t in (img, carry, fin, img_prev)]
+    rc = lib.sgm_sweep_launch(_build.ptr(C), _build.ptr(S), *ptrs, B, H, W,
                               D, dy, dx, p1, p2, int(add),
                               _build.stream_ptr(C))
     _build.check(lib, rc, "sgm_sweep")
+    form = ("add" if add else "write") + ("" if img is None else "_adaptive")
     sgm_sweep.launches += 1
-    sgm_sweep.builds[("add" if add else "write")
-                     + ("" if img is None else "_adaptive")] += 1
-    return S
+    sgm_sweep.builds[form] += 1
+    if carry is not None or return_carry:
+        sgm_sweep.carry_forms[form] += 1
+    return (S, fin) if return_carry else S
 
 
 sgm_sweep.launches = 0
 sgm_sweep.builds = {"write": 0, "add": 0, "write_adaptive": 0,
                     "add_adaptive": 0}
+sgm_sweep.carry_forms = dict(sgm_sweep.builds)
 
 
 # ---------------------------------------------------------------------------

@@ -3,16 +3,15 @@ copy of the JAX package's `odometry/backend.py` in torch.
 
 Per frame: one tracking step on the device (`odometry.fused.
 fused_track_step`): disparity + Harris corners + NCC-patch descriptors +
-keyframe matching + Huber-GN pose; the host receives only the small
-(T, n_matches) pair, in one transfer, for the keyframe decision and the
-pose-graph bookkeeping. Keyframe feature state stays on the device between
-frames. The host logic (keyframe rules, closure picks, the pose update) is
-numpy, op for op as in the JAX package. State is checkpointable in the JAX
-package's layout (SURVEY.md §5.4), so a killed run resumes at the last
-keyframe, in either package.
-
-The strip-tiled matcher (`cfg.strips > 1`, BASELINE config 5) is not
-ported yet: it raises.
+keyframe matching + Huber-GN pose; with `cfg.strips > 1` the strip-tiled
+matcher (`dist.sgbm_tiled`, BASELINE config 5), then
+`fused_track_from_disp`, as the JAX `step` does. The host receives only
+the small (T, n_matches) pair, in one transfer, for the keyframe decision
+and the pose-graph bookkeeping. Keyframe feature state stays on the device
+between frames. The host logic (keyframe rules, closure picks, the pose
+update) is numpy, op for op as in the JAX package. State is checkpointable
+in the JAX package's layout (SURVEY.md §5.4), so a killed run resumes at
+the last keyframe, in either package.
 """
 
 from __future__ import annotations
@@ -23,11 +22,12 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from tpustereo_torch import dist
 from tpustereo_torch.api import _as_u8, _device
 from tpustereo_torch.config import Config
 from tpustereo_torch.data.datasets import KittiCalib
-from tpustereo_torch.odometry.fused import (batched_candidate_match,
-                                            fused_track_step)
+from tpustereo_torch.odometry import fused
+from tpustereo_torch.odometry.fused import batched_candidate_match
 from tpustereo_torch.odometry.pnp import gauss_newton_pose
 from tpustereo_torch.odometry.pose_graph import PoseGraph
 from tpustereo_torch.odometry.se3 import inv_se3
@@ -77,19 +77,22 @@ class _Keyframe:
 
 class StereoOdometry:
     """Runs on `device` ("cuda" unless the caller passes "cpu"; raises when
-    CUDA is absent)."""
+    CUDA is absent). With `cfg.strips > 1` the matcher tiles each frame
+    over `mesh`'s strips (by default `cfg.strips` strips on `device`)."""
 
     def __init__(self, calib: KittiCalib, cfg: Optional[Config] = None,
-                 ocfg: Optional[OdometryConfig] = None, device="cuda"):
+                 ocfg: Optional[OdometryConfig] = None, device="cuda",
+                 mesh=None):
         self.calib = calib
         self.cfg = cfg or Config()
         self.ocfg = ocfg or OdometryConfig()
-        if self.cfg.strips > 1:
-            raise NotImplementedError(
-                f"strips={self.cfg.strips}: the strip-tiled matcher is not "
-                f"ported yet (ROADMAP.md, queue 1, item 7: dist/); pass "
-                f"strips=1")
         self.device = _device(device)
+        if mesh is None and self.cfg.strips > 1:
+            mesh = dist.make_mesh(1, self.cfg.strips, device=self.device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh is on {mesh.device}, the odometry on "
+                             f"{self.device}")
+        self._mesh = mesh
         self.graph = PoseGraph(device=str(self.device))
         self.kf: Optional[_Keyframe] = None
         self.kfs: List[_Keyframe] = []   # keyframe database for loop closure
@@ -153,9 +156,17 @@ class StereoOdometry:
         materialization) and the occasional pose-graph/loop-closure work
         (SURVEY.md §4.4)."""
         kf_desc, kf_valid, kf_X = self._kf_state()
-        out = fused_track_step(self._upload(left), self._upload(right),
-                               kf_desc, kf_valid, kf_X, self._intr,
-                               self._baseline, self.cfg, self.ocfg)
+        l8, r8 = self._upload(left), self._upload(right)
+        if self.cfg.strips > 1:
+            disp = dist.sgbm_tiled(l8, r8, self.cfg, self._mesh)
+            out = fused.fused_track_from_disp(l8, disp, kf_desc, kf_valid,
+                                              kf_X, self._intr,
+                                              self._baseline, self.cfg,
+                                              self.ocfg)
+        else:
+            out = fused.fused_track_step(l8, r8, kf_desc, kf_valid, kf_X,
+                                         self._intr, self._baseline, self.cfg,
+                                         self.ocfg)
         self._frames += 1
 
         if self.kf is None:
@@ -265,8 +276,8 @@ class StereoOdometry:
     @classmethod
     def resume(cls, path: str, calib: KittiCalib, cfg: Optional[Config] = None,
                ocfg: Optional[OdometryConfig] = None,
-               device="cuda") -> "StereoOdometry":
-        self = cls(calib, cfg, ocfg, device=device)
+               device="cuda", mesh=None) -> "StereoOdometry":
+        self = cls(calib, cfg, ocfg, device=device, mesh=mesh)
         graph, extra = PoseGraph.load(path, device=str(self.device))
         self.graph = graph
         self.kf = _Keyframe(int(extra["kf_index"]), extra["kf_pts"],

@@ -82,7 +82,7 @@ def fused_track_step(left, right, kf_desc, kf_valid, kf_X, intr, baseline,
 def fused_track_from_disp(left, disp, kf_desc, kf_valid, kf_X, intr,
                           baseline, cfg: Config, ocfg) -> TrackOut:
     """Tracking for callers whose disparity comes from elsewhere (the
-    strip-tiled matcher of BASELINE config 5, once the port has it)."""
+    strip-tiled matcher of BASELINE config 5, `dist.sgbm_tiled`)."""
     return _track_core(left, disp, kf_desc, kf_valid, kf_X, intr, baseline,
                        ocfg)
 

@@ -12,8 +12,9 @@ P2'(p) = max(P1 + 1, P2 // max(1, |I(p) - I(p - r)|)) of the left image
 (`p2_map`). Each scan step is one vectorised (..., N, D) slab op, as in the
 JAX `lax.scan`; a Python loop over the scan axis takes the scan's place.
 This is the plain version of the sweep kernels (`kernels/sgm.py`). The
-ring hand-off of the JAX `_sweep` (`init_carry`, `return_carry`) belongs
-to the distributed path and is not ported.
+ring hand-off between strips (`dist.tiling`) seeds a sweep with the raw L
+of the row before its first (`init_carry`) and takes the raw L of its last
+row (`return_carry`), as the JAX `_sweep` does.
 """
 
 from __future__ import annotations
@@ -56,19 +57,27 @@ def p2_map(img: torch.Tensor, dy: int, dx: int, cfg: Config) -> torch.Tensor:
     return adaptive_p2_map(img, dy, dx, cfg.p1, cfg.p2)
 
 
-def _sweep(C: torch.Tensor, p2m: torch.Tensor, p1: int,
-           dx: int) -> torch.Tensor:
+def _sweep(C: torch.Tensor, p2m: torch.Tensor, p1: int, dx: int,
+           init_carry: torch.Tensor | None = None,
+           return_carry: bool = False):
     """Forward sweep over axis 0 of C (T, ..., N, D) int32 -> int16.
 
     p2m (T, ..., N) int32 is each pixel's P2; `dx` is the in-carry shift
-    along N per step (0 axial, +-1 diagonal)."""
+    along N per step (0 axial, +-1 diagonal). `init_carry` (..., N, D), the
+    raw L of the row before C's first, seeds the first step, so the scan
+    covers all T rows; None restarts row 0 (L = C). With `return_carry`
+    also returns the raw L (int32) of the last row."""
     T, N = C.shape[0], C.shape[-2]
     dev = C.device
     n = torch.arange(N, device=dev)[:, None]
     has_prev = None if dx == 0 else (n >= dx) if dx > 0 else (n < N + dx)
-    prev = C[0]
-    out = [prev.to(torch.int16)]
-    for t in range(1, T):
+    if init_carry is None:
+        prev = C[0]
+        out = [prev.to(torch.int16)]
+    else:
+        prev = init_carry.to(torch.int32)
+        out = []
+    for t in range(len(out), T):
         c = C[t]
         if dx > 0:
             pad = torch.full_like(prev[..., :dx, :], _BIG)
@@ -89,7 +98,8 @@ def _sweep(C: torch.Tensor, p2m: torch.Tensor, p1: int,
             L = torch.where(has_prev, L, c)
         out.append(L.to(torch.int16))
         prev = L
-    return torch.stack(out)
+    out = torch.stack(out)
+    return (out, prev) if return_carry else out
 
 
 def check_image(img: torch.Tensor, C: torch.Tensor) -> None:
@@ -112,43 +122,54 @@ def sweep_image(cfg: Config, img: torch.Tensor | None):
 
 
 def aggregate_path(C: torch.Tensor, dy: int, dx: int, cfg: Config,
-                   img: torch.Tensor | None = None) -> torch.Tensor:
+                   img: torch.Tensor | None = None,
+                   init_carry: torch.Tensor | None = None,
+                   return_carry: bool = False):
     """L_r for direction r = (dy, dx); C (..., H, W, D) any int -> int16.
     img (..., H, W) uint8, the left image, is read under
-    `cfg.adaptive_p2`, which needs it."""
-    return path_costs(C, dy, dx, cfg.p1, cfg.p2, sweep_image(cfg, img))
+    `cfg.adaptive_p2`, which needs it. `init_carry` and `return_carry` as
+    in `path_costs`."""
+    return path_costs(C, dy, dx, cfg.p1, cfg.p2, sweep_image(cfg, img),
+                      init_carry, return_carry)
 
 
 def path_costs(C: torch.Tensor, dy: int, dx: int, p1: int, p2: int,
-               img: torch.Tensor | None = None) -> torch.Tensor:
+               img: torch.Tensor | None = None,
+               init_carry: torch.Tensor | None = None,
+               return_carry: bool = False,
+               p2m: torch.Tensor | None = None):
     """`aggregate_path` with the penalties given directly: the scalar P2,
-    or with img the adaptive P2' of that image (`adaptive_p2_map`).
+    or with img the adaptive P2' of that image (`adaptive_p2_map`), or
+    p2m (..., H, W) int32, each pixel's P2, where given.
 
     Horizontal paths scan over x, the others over y with the diagonal's
     column shift in the carry; reverse directions flip the scan axis (the
-    shift keeps its sign under the y-flip, as in the JAX version)."""
+    shift keeps its sign under the y-flip, as in the JAX version). The
+    carry of `_sweep` is the raw L of one line across the scan: (..., H, D)
+    for the horizontal paths, (..., W, D) for the others; `init_carry`
+    seeds the first scanned line, and `return_carry` returns (L_r, the
+    last scanned line's raw L)."""
     Ci = C.to(torch.int32)
-    if img is None:
+    if p2m is None and img is None:
         p2m = torch.full(C.shape[:-1], p2, dtype=torch.int32,
                          device=C.device)
-    else:
+    elif p2m is None:
         check_image(img, C)
         p2m = adaptive_p2_map(img, dy, dx, p1, p2)
     if dy == 0:
-        Ct, p2t = Ci.movedim(-2, 0), p2m.movedim(-1, 0)   # (W, ..., H, D)
-        if dx < 0:
-            Ct, p2t = Ct.flip(0), p2t.flip(0)
-        out = _sweep(Ct, p2t, p1, 0)
-        if dx < 0:
-            out = out.flip(0)
-        return out.movedim(0, -2).contiguous()
-    Cs, p2s = Ci.movedim(-3, 0), p2m.movedim(-2, 0)       # (H, ..., W, D)
-    if dy < 0:
+        Cs, p2s = Ci.movedim(-2, 0), p2m.movedim(-1, 0)   # (W, ..., H, D)
+        flip, axis, shift = dx < 0, -2, 0
+    else:
+        Cs, p2s = Ci.movedim(-3, 0), p2m.movedim(-2, 0)   # (H, ..., W, D)
+        flip, axis, shift = dy < 0, -3, dx
+    if flip:
         Cs, p2s = Cs.flip(0), p2s.flip(0)
-    out = _sweep(Cs, p2s, p1, dx)
-    if dy < 0:
+    out = _sweep(Cs, p2s, p1, shift, init_carry, return_carry)
+    out, carry = out if return_carry else (out, None)
+    if flip:
         out = out.flip(0)
-    return out.movedim(0, -3).contiguous()
+    out = out.movedim(0, axis).contiguous()
+    return (out, carry) if return_carry else out
 
 
 def aggregate(C: torch.Tensor, cfg: Config,

@@ -119,14 +119,20 @@ def _select(left: torch.Tensor, right: torch.Tensor, cfg: Config):
     hits, the map of the Hirschmueller fill, comes only from SGM (the JAX
     fused SGM branch); the other modes take the volume route for that
     fill."""
-    D, d0 = cfg.num_disparities, cfg.min_disparity
     if cfg.mode == "sad":
-        disp, valid, d_r = sad_wta(left, right, cfg)
-    else:
-        C = _census(left, right, cfg)
-        if cfg.mode == "census_wta":
-            return (*wta_lr(C, cfg), None)
-        disp, valid, d_r = sgm_select(C, cfg, left)
+        return _lr_check(*sad_wta(left, right, cfg), cfg)
+    C = _census(left, right, cfg)
+    if cfg.mode == "census_wta":
+        return (*wta_lr(C, cfg), None)
+    return _lr_check(*sgm_select(C, cfg, left), cfg)
+
+
+def _lr_check(disp: torch.Tensor, valid: torch.Tensor, d_r: torch.Tensor,
+              cfg: Config):
+    """`valid &= dr_consistency` of a fused route's d_r (shifted-column
+    index map), with the hits map of the Hirschmueller fill from the same
+    kernel: -> (disp, valid, hits or None)."""
+    D, d0 = cfg.num_disparities, cfg.min_disparity
     hits = None
     if cfg.disp12_max_diff >= 0:
         if cfg.fill_mode == "hirschmuller":
@@ -193,26 +199,36 @@ def select_and_refine(S: torch.Tensor, cfg: Config) -> torch.Tensor:
     kernel only on int16 (block <= 11, a TPU limit) and a larger block
     through `ops.wta` + `ops.lr_check`; the outputs are the same."""
     check_slice(cfg)
+    return _postproc(*_volume_select(S, cfg), cfg)
+
+
+def _volume_select(S: torch.Tensor, cfg: Config):
+    """`select_and_refine`'s selection: -> (disp, valid, hits or None)."""
     if cfg.mode == "sad" and 255 * cfg.sad_block ** 2 >= 1 << 20:
         raise ValueError(f"sad_block {cfg.sad_block} out of [1, 64]: "
                          f"wta_lr needs every cost below 2^20")
     if cfg.fill_mode != "hirschmuller":
-        return _postproc(*wta_lr(S, cfg), None, cfg)
+        return (*wta_lr(S, cfg), None)
     disp, valid, d_R = wta_lr(S, cfg, with_dr=True)
     _, hits = dr_consistency_hits(
         _shifted_columns(d_R, cfg.min_disparity), disp, cfg.num_disparities,
         cfg.disp12_max_diff, cfg.min_disparity)
-    return _postproc(disp, valid, hits, cfg)
+    return disp, valid, hits
+
+
+def volume_route(cfg: Config, W: int) -> bool:
+    """Whether frames of width W take the volume route (see the module's
+    docstring), else the mode's fused kernels."""
+    return ((cfg.mode == "sgm" and _fused_bound(cfg) >= FUSED_BOUND)
+            or (cfg.mode != "sgm" and cfg.fill_mode == "hirschmuller")
+            or (cfg.mode == "sad" and not sad_wta_fits(W, cfg.sad_block)))
 
 
 def sgbm_frames(left: torch.Tensor, right: torch.Tensor,
                 cfg: Config) -> torch.Tensor:
     """(F, H, W) uint8 x2 -> (F, H, W) float32 disparity, invalid = -1."""
     check_slice(cfg)
-    if ((cfg.mode == "sgm" and _fused_bound(cfg) >= FUSED_BOUND)
-            or (cfg.mode != "sgm" and cfg.fill_mode == "hirschmuller")
-            or (cfg.mode == "sad"
-                and not sad_wta_fits(left.shape[-1], cfg.sad_block))):
+    if volume_route(cfg, left.shape[-1]):
         return select_and_refine(sgbm_volume(left, right, cfg), cfg)
     return _postproc(*_select(left, right, cfg), cfg)
 
