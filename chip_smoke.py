@@ -207,6 +207,44 @@ in exact mode, at 376 x 1241, D = 128:
    and the profiler's busy share, and the carry form of a launch by graph
    replay beside the same launch without one. Prints `step 20: ... s`.
 
+The user's entry points (`cli`, `eval.bench`, `eval.roofline`,
+`eval.runner`, `bench`, `data.io`), at full width:
+
+21. writes 8 synthetic pairs of 375 x 1242 as PNGs with the port's codec
+   (decoded equal to the arrays written) and runs `match --preset
+   kitti_sgm8` on each through `cli.main`, to a .pfm (equal to
+   `api.match_pair` on the decoded arrays bit for bit) and a .png (the
+   KITTI encoding of it); runs `eval.bench.run_benchmark` on the four
+   presets at their BASELINE shapes (kitti_sgm8 375 x 1242 with the
+   stage table, middlebury_sgm4 1988 x 2964, tsukuba_sad 288 x 384,
+   middlebury_census_wta 375 x 621) at B = 8, and
+   `run_odometry_benchmark` on `kitti_odometry` untiled and tiled over
+   `make_mesh(1, 2)`, each in three turns (the last profiled), and
+   `python -m tpustereo_torch.bench`'s `main` at its defaults; prints
+   each record beside the card's name, requires every roofline share in
+   (0, 1], a busy share from kitti_sgm8's profile (`device_busy_fraction`
+   of its Chrome trace, held to the wrappers' launch count), and each
+   record's ms a frame (the turns' median) within a factor of 2 of the
+   same work on the same inputs timed by the host clock beside it and
+   of its path's events time in its earlier step (4, 7, 9, 19 or 19 +
+   20; the median of three loops there), both ratios printed; holds
+   `evaluate(synthetic=True)` on the card against the CPU's plain
+   pipeline on the same 192 x 320 cases (equal per-pair metrics); runs
+   `odometry` through `cli.main` over a KITTI tree of step 19's first 10
+   frames, stopped after 5 and resumed from its checkpoint, against the
+   uninterrupted run (within the JAX resume test's 1e-5) and against
+   `api.run_sequence`; times `read_image_gray` on the committed libpng
+   adaptive-filter frame (`tests/data/adaptive_image_0.png`, Paeth rows)
+   beside the port's filter-None copy of it, and the CLI's ms a frame
+   with prefetch 0 and 2 over that tree and over a static tree of the
+   committed pair, beside `api.run_sequence` on the arrays (each CLI run
+   equal to the arrays' run). Prints `step 21: ... s`.
+
+The timers (`cuda_ms`, `graph_ms`), the profiler's busy share
+(`device_busy`) and each kernel's bound (`bound`: bytes over 3.35 TB/s or
+integer operations over 67e12/s, the larger) are the harness's and the
+roofline's (`eval/bench.py`, `eval/roofline.py`).
+
 Prints a `{"kernels": [...]}` line with all eighteen kernels, every TPU
 kernel's port (the launches of the KITTI six from step 3, those of
 `sad_wta` and `wta_lr` from their presets' runs in step 6,
@@ -232,10 +270,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+# the timers, the busy share and the H100 bound (3.35 TB/s, 67e12
+# operations/s) are the harness's and the roofline's own
+from tpustereo_torch.eval.bench import cuda_ms, device_busy, graph_ms
+from tpustereo_torch.eval.roofline import bound
+
 SHAPE = (375, 1242)
 BATCH = 8
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (data sheet)
-SCALAR_OPS_PER_S = 67e12    # H100 SXM rate outside the tensor cores
 DISP_TOL = 1e-6
 
 KERNELS = {
@@ -334,49 +375,6 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds of fn() on the card, by CUDA events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn(), a few kernel launches that never
-    synchronise: `reps` calls captured in one CUDA graph, replayed between
-    two events, so the host's time per launch (tens of µs through the
-    Python wrappers, more than a short kernel takes) drops out."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / reps
-
-
 def device_kernels(fn) -> list:
     """Names of the device kernels that one call of fn() runs, in order,
     from `torch.profiler` (fn is called once untraced first). Two small
@@ -405,34 +403,6 @@ def device_kernels(fn) -> list:
     return names
 
 
-def device_busy(fn) -> str:
-    """Device time by kernel and the device's busy share over one call of
-    fn(), from `torch.profiler` (the span runs from the first kernel's start
-    to the last one's end)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not evs:
-        return "not measured (the profiler recorded no device events)"
-    span_us = (max(e.time_range.end for e in evs)
-               - min(e.time_range.start for e in evs))
-    busy_us = sum(e.time_range.elapsed_us() for e in evs)
-    by_name: dict = {}
-    for e in evs:
-        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return (f"span {span_us / 1e3:.3f} ms, kernels {busy_us / 1e3:.3f} ms, "
-            f"busy {busy_us / span_us:.4f}; top: "
-            + "; ".join(f"{n[:60]} {us / 1e3:.3f} ms" for n, us in top))
-
-
 def volume_fills(fn, numel: int) -> list:
     """(op, shape) of each fill (`aten::fill_`, `aten::zero_`) that one
     call of fn() makes of a tensor of `numel` elements, from
@@ -452,11 +422,25 @@ def volume_fills(fn, numel: int) -> list:
             and int(np.prod(e.input_shapes[0])) == numel]
 
 
-def bound(nbytes: float, ops: float):
-    """(least ms for the work, which of bytes / operations binds)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+def host_ms(fn, reps: int) -> float:
+    """Mean ms of fn() by the host clock around reps calls that end in
+    `torch.cuda.synchronize()` (after one warm-up call): a timer of the
+    work that shares nothing with the events'."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def median_ms(fn, reps: int, turns: int = 3) -> float:
+    """The median of `turns` `cuda_ms` loops of reps calls: an events time
+    of a host-bound path, whose loops a second apart differ up to 1.6x,
+    as step 21 holds a harness record to it."""
+    return float(np.median([cuda_ms(fn, reps) for _ in range(turns)]))
 
 
 def require(cond: bool, what: str) -> None:
@@ -529,12 +513,13 @@ def plain_pipeline(L, R, cfg, fills=None):
     return outs[cfg.fill_mode] if fills is None else outs
 
 
-def modes_path(card: str) -> list:
+def modes_path(card: str, refs: dict) -> list:
     """The SAD and census_wta paths: each new kernel against its plain
     version at its preset's geometry, LR check off (the presets) and on;
     `api.match_batch` on each unmodified preset (and tsukuba_sad with the
-    LR check) against the plain pipeline; then times. Returns the two
-    kernels' rows of the `kernels` line."""
+    LR check) against the plain pipeline; then times. Records each
+    preset's ms a frame by events in `refs`. Returns the two kernels' rows
+    of the `kernels` line."""
     import torch
     from tpustereo_torch import PRESETS, api, kernels
     from tpustereo_torch.kernels.sad import sad_wta_plain
@@ -754,6 +739,7 @@ def modes_path(card: str) -> list:
         torch.cuda.synchronize()
         api_fps = BATCH * reps / (time.perf_counter() - t0)
         f1_ms = cuda_ms(lambda: sgbm_batched(L, R, cfg), reps)
+        refs[name] = median_ms(lambda: sgbm_batched(L, R, cfg), reps) / BATCH
         f8_ms = cuda_ms(lambda: sgbm_batched(
             L, R, cfg.replace(frames_per_step=BATCH)), reps)
         print(f"[{card}] {name} whole path: {BATCH * 1e3 / f1_ms:.2f} "
@@ -961,6 +947,7 @@ def volume_path(card: str, kitti: dict) -> list:
             "volume route output is not a good disparity map")
     vol_ms = cuda_ms(volume_route, 3)
     fused_ms = cuda_ms(lambda: sgbm_batched(L, R, cfg), 3)
+    kitti["refs"]["middlebury_sgm4"] = fused_ms / BATCH
     # bytes per cost each route must move: census 1, 3 for the first
     # sweep (it writes S) and 5 for each later one, then the volume
     # route's three transposes (C 2, S 4 + 4) and wta_lr's read of S (2),
@@ -2215,11 +2202,12 @@ def odometry_path(card: str, per_set: dict, shared: dict,
 
     # --- times
     disp1 = sgbm(Ls[1], Rs[1], cfg)
-    step_ms = cuda_ms(lambda: fused_track_step(Ls[1], Rs[1], *kf, intr, base,
-                                               cfg, ocfg), 20)
+    step_ms = median_ms(lambda: fused_track_step(Ls[1], Rs[1], *kf, intr,
+                                                 base, cfg, ocfg), 20)
     sgbm_ms = cuda_ms(lambda: sgbm(Ls[1], Rs[1], cfg), 20)
-    core_ms = cuda_ms(lambda: fused_track_from_disp(
+    core_ms = median_ms(lambda: fused_track_from_disp(
         Ls[1], disp1, *kf, intr, base, cfg, ocfg), 20)
+    shared["refs"].update(odometry=step_ms, odometry_core=core_ms)
     frames_ms = cuda_ms(lambda: fused_track_frames(
         Ls[1:], Rs[1:], *kf, intr, base, cfg, ocfg), 10) / 4
     print(f"[{card}] tracked frame by CUDA events: {step_ms:.4f} ms "
@@ -2497,8 +2485,9 @@ def tiled_path(card: str, per_set: dict, shared: dict) -> dict:
         kernels.reset_launch_counts()
         fn()
         n = sum(kernels.launch_counts().values())
-        print(f"[{card}] {name}: {cuda_ms(fn, 20):.4f} ms a frame by events "
-              f"({n} kernel launches); profiler: {device_busy(fn)}",
+        shared["refs"][name] = median_ms(fn, 20)
+        print(f"[{card}] {name}: {shared['refs'][name]:.4f} ms a frame by "
+              f"events ({n} kernel launches); profiler: {device_busy(fn)}",
               flush=True)
     batch_ms = cuda_ms(lambda: dist.sgbm_tiled_batched(L, R, cfg, mesh2), 5)
     print(f"[{card}] halo mode, {BATCH} frames in one call: "
@@ -2525,6 +2514,274 @@ def tiled_path(card: str, per_set: dict, shared: dict) -> dict:
         carry_launches=sum(exact_counts[2][1].values()), carry_ms=carry_ms,
         carry_bound_ms=b_ms, carry_max_abs_err=carry_err)
     return out
+
+
+def entry_points_path(card: str, shared: dict) -> None:
+    """Step 21: the user's entry points at full width (see the module's
+    docstring). `shared` holds step 19's sequence and calibration, and in
+    "refs" each path's ms a frame by events from its earlier step."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from tpustereo_torch import PRESETS, api, dist
+    from tpustereo_torch.bench.__main__ import main as bench_main
+    from tpustereo_torch.cli.main import main as cli_main
+    from tpustereo_torch.data import io, synthetic_pair
+    from tpustereo_torch.eval.bench import (odometry_loop, run_benchmark,
+                                            run_odometry_benchmark)
+    from tpustereo_torch.eval.roofline import roofline, shares
+    from tpustereo_torch.eval.runner import (_eval_one, evaluate,
+                                             synthetic_cases)
+    from tpustereo_torch.pipeline import sgbm_batched
+
+    t_step = time.perf_counter()
+    refs = shared["refs"]
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    cfg = PRESETS["kitti_sgm8"]
+
+    def in_turns(what: str, run, call, per: int, reps: int):
+        """Three records of run(profiled) (the last one profiled), each
+        after the same work timed by the host clock (`host_ms` of `call`,
+        `reps` calls of `per` frames), and that timing once more after
+        the last: (the median record, the median host time in ms a frame,
+        the last record). Each record is printed."""
+        host, recs = [], []
+        for k in range(3):
+            host.append(host_ms(call, reps) / per)
+            recs.append(run(k == 2))
+            print(f"[{card}] run record {what}: {json.dumps(recs[-1])}",
+                  flush=True)
+            require(recs[-1]["backend"] == "cuda" and recs[-1][
+                "device_kind"] == torch.cuda.get_device_name(0),
+                f"{what}: the record does not name the card")
+        host.append(host_ms(call, reps) / per)
+        rec = sorted(recs, key=lambda r: r["ms_per_frame"])[1]
+        return rec, float(np.median(host)), recs[-1]
+
+    def against(what: str, ms_frame: float, adjacent: float,
+                earlier: float) -> None:
+        """The harness's ms a frame (the median of three turns) against
+        the same work on the same inputs timed by the host clock beside
+        it, and against the path's events time in its earlier step (the
+        median of three loops there): each within a factor of 2. A
+        host-bound path's loops a second apart differ up to 1.6x (PERF.md
+        §6), hence the medians on both sides."""
+        r_adj, r_early = ms_frame / adjacent, ms_frame / earlier
+        print(f"[{card}] {what}: harness {ms_frame:.4f} ms a frame; beside "
+              f"it by the host clock {adjacent:.4f}, ratio {r_adj:.3f}; the "
+              f"earlier step's events {earlier:.4f}, ratio {r_early:.3f}",
+              flush=True)
+        require(0.5 <= r_adj <= 2.0, f"{what}: the harness's time is not "
+                f"within a factor of 2 of the same work's beside it")
+        require(0.5 <= r_early <= 2.0, f"{what}: the harness's time is not "
+                f"within a factor of 2 of the earlier step's events")
+
+    # --- files: 8 pairs as PNGs through the port's codec, then `match`
+    lefts, rights, _ = synthetic_pairs(SHAPE, 40.0, BATCH)
+    for i in range(BATCH):
+        paths = [os.path.join(work, f"{s}{i}.png") for s in "lr"]
+        for path, img in zip(paths, (lefts[i], rights[i])):
+            io.write_image(path, img)
+            require(np.array_equal(io.read_image_gray(path), img),
+                    "an image decoded by the port differs from the array "
+                    "written")
+        args = ["match", "--preset", "kitti_sgm8", "--left", paths[0],
+                "--right", paths[1]]
+        pfm, png = (os.path.join(work, f"d{i}{x}") for x in (".pfm", ".png"))
+        cli_main(args + ["--out", pfm])
+        cli_main(args + ["--out", png])
+        want = api.match_pair(io.read_image_gray(paths[0]),
+                              io.read_image_gray(paths[1]), cfg)
+        got = io.read_pfm(pfm)
+        require(np.array_equal(got.view(np.int32), want.view(np.int32)),
+                "the match .pfm differs from api.match_pair")
+        require(np.array_equal(io.read_png(png), io.kitti_disparity_raw(got)),
+                "the match .png differs from the KITTI encoding of the .pfm")
+    print(f"step 21: match on {BATCH} PNG pairs of {SHAPE}: .pfm equal to "
+          f"api.match_pair bit for bit, .png its KITTI encoding", flush=True)
+
+    # --- the harness: each preset at its BASELINE shape, B = 8, in three
+    # turns, the last one profiled
+    presets = {"kitti_sgm8": SHAPE, "middlebury_sgm4": MIDDLEBURY[0],
+               "tsukuba_sad": MODES["tsukuba_sad"][0],
+               "middlebury_census_wta": MODES["middlebury_census_wta"][0]}
+    for name, shape in presets.items():
+        L1, R1, _, _ = synthetic_pair(shape, disparity=40.0, slope=0.02,
+                                      seed=0)   # the harness's inputs
+        Lh, Rh = (torch.from_numpy(np.stack([x] * BATCH)).cuda()
+                  for x in (L1, R1))
+        # a host-bound batch takes about 1 ms of host time: 50 a loop
+        iters = {"middlebury_sgm4": 5, "kitti_sgm8": 10}.get(name, 50)
+
+        def call(name=name):
+            return sgbm_batched(Lh, Rh, PRESETS[name])
+
+        def run(profiled, name=name, shape=shape, iters=iters):
+            return run_benchmark(
+                PRESETS[name], shape=shape, batch=BATCH, iters=iters,
+                stages=name == "kitti_sgm8",
+                profile_dir=os.path.join(work, name) if profiled else None)
+        rec, adjacent, last = in_turns(name, run, call, BATCH, iters)
+        sh = shares(rec["roofline"])
+        # the profiler now and then records no device event in a session
+        # (step 20's untiled profile): only kitti_sgm8's share is required
+        busy = last.get("device_busy_fraction", {}).get("busy_fraction")
+        print(f"[{card}] {name} roofline shares {sh}, bound by "
+              f"{rec['roofline'].get('bound')}; busy "
+              f"{'not measured' if busy is None else busy}", flush=True)
+        require(sh and all(0 < v <= 1 for v in sh.values()),
+                f"{name}: a roofline share outside (0, 1]: {sh}")
+        require(name != "kitti_sgm8" or (busy is not None and 0 < busy <= 1),
+                "device_busy_fraction gave no share for kitti_sgm8's profile")
+        against(name, rec["ms_per_frame"], adjacent, refs[name])
+        del Lh, Rh
+    odo_runs = {
+        "odometry untiled": (dict(), refs["odometry"]),
+        "odometry tiled, make_mesh(1, 2)": (
+            dict(tiled=True, mesh=dist.make_mesh(1, 2)),
+            refs["odometry_core"] + refs["halo, 2 strips"]),
+    }
+    for what, (kw, earlier) in odo_runs.items():
+        def run(profiled, kw=kw):
+            return run_odometry_benchmark(PRESETS["kitti_odometry"],
+                                          frames=4, iters=5, **kw)
+        # the harness's own loop on its own inputs, for the host clock
+        track_many, Lo, Ro, _, _ = odometry_loop(PRESETS["kitti_odometry"],
+                                                 frames=4, **kw)
+        rec, adjacent, _ = in_turns(what, run, lambda: track_many(Lo, Ro),
+                                    4, 5)
+        against(what, rec["ms_per_frame"], adjacent, earlier)
+        del Lo, Ro
+    what = "python -m tpustereo_torch.bench (batch 16)"
+    L1, R1, _, _ = synthetic_pair(SHAPE, disparity=40.0, slope=0.02, seed=0)
+    Lh, Rh = (torch.from_numpy(np.stack([x] * 16)).cuda() for x in (L1, R1))
+
+    def call16():
+        return sgbm_batched(Lh, Rh, cfg)
+    host_before = host_ms(call16, 5)
+    line = bench_main([])
+    adjacent = (host_before + host_ms(call16, 5)) / 2 / 16
+    sh = shares(roofline(cfg, SHAPE, 1.0 / line["value"],
+                         torch.cuda.get_device_name(0)))
+    print(f"[{card}] {what} roofline shares {sh}", flush=True)
+    require(sh and all(0 < v <= 1 for v in sh.values()),
+            f"{what}: a roofline share outside (0, 1]: {sh}")
+    against(what, 1e3 / line["value"], adjacent, refs["kitti_sgm8"])
+    del Lh, Rh
+
+    # --- eval: the card's report against the CPU's on the same cases
+    t0 = time.perf_counter()
+    rep = evaluate(cfg, synthetic=True)
+    cpu = [_eval_one(L, R, gt, cfg, name, False, False, "cpu")
+           for name, L, R, gt in synthetic_cases(cfg, (192, 320))]
+    print(f"[{card}] evaluate kitti_sgm8 on the card: {rep['pairs']}; mean "
+          f"{rep['mean']} ({time.perf_counter() - t0:.1f} s with the CPU's)",
+          flush=True)
+    require(rep["pairs"] == cpu, "evaluate on the card differs from the CPU")
+
+    # --- odometry through the CLI over KITTI trees on disk. Step 19's
+    # first 10 frames written by the port (filter None): stopped after 5
+    # and resumed from its checkpoint, against the uninterrupted run and
+    # api.run_sequence. Then ms a frame over files, prefetch 0 and 2, on
+    # that tree and on a static one of the committed libpng adaptive pair
+    # (Paeth rows, as real dataset files), beside the arrays' own
+    calib, frames = shared["calib"], shared["frames"][:10]
+    fixture = [os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "data", f"adaptive_image_{s}.png")
+               for s in (0, 1)]
+    fx, fy, cx, cy, b = (calib.fx, calib.fy, calib.cx, calib.cy,
+                         calib.baseline)
+
+    def kitti_tree(name: str, write) -> list:
+        """The `odometry` arguments over a KITTI tree of 10 frames with
+        step 19's camera, frame i written by write(i, left, right path)."""
+        seq = os.path.join(work, name, "sequences", "00")
+        for sub in ("image_0", "image_1"):
+            os.makedirs(os.path.join(seq, sub))
+        for i in range(10):
+            write(i, *(os.path.join(seq, sub, f"{i:06d}.png")
+                       for sub in ("image_0", "image_1")))
+        with open(os.path.join(seq, "calib.txt"), "w") as f:
+            f.write(f"P0: {fx!r} 0 {cx!r} 0 0 {fy!r} {cy!r} 0 0 0 1 0\n"
+                    f"P1: {fx!r} 0 {cx!r} {-fx * b!r} 0 {fy!r} {cy!r} 0 0 "
+                    f"0 1 0\n")
+        return ["odometry", "--preset", "kitti_odometry", "--root",
+                os.path.join(work, name)]
+
+    def timed(fn):
+        """fn()'s value and its ms a frame over 10 frames, by the host
+        clock."""
+        t0 = time.perf_counter()
+        value = fn()
+        return value, (time.perf_counter() - t0) / 10 * 1e3
+
+    odo = kitti_tree("kitti", lambda i, lp, rp: [
+        io.write_image(p, x) for p, x in zip((lp, rp), frames[i])])
+    straight, resumed = (os.path.join(work, x) for x in ("s.txt", "r.txt"))
+    ck = os.path.join(work, "ck.npz")
+    cli_main(odo + ["--max-frames", "10", "--out", straight])
+    cli_main(odo + ["--max-frames", "5", "--checkpoint", ck])
+    cli_main(odo + ["--max-frames", "10", "--checkpoint", ck, "--resume",
+                    "--out", resumed])
+    a, r = np.loadtxt(straight), np.loadtxt(resumed)
+    ms = {}
+    ref, ms["arrays (api.run_sequence), step 19's frames"] = timed(
+        lambda: api.run_sequence(frames, calib, PRESETS["kitti_odometry"]))
+    d_resume = float(np.abs(a - r).max())
+    d_api = float(np.abs(a - ref[:, :3, :].reshape(len(ref), 12)).max())
+    print(f"[{card}] odometry CLI over 10 frames of {ODO_SHAPE}: resumed "
+          f"after 5 against uninterrupted max |diff| {d_resume}; "
+          f"uninterrupted against api.run_sequence {d_api}", flush=True)
+    require(a.shape == r.shape == (10, 12) and np.isfinite(a).all(),
+            "the CLI trajectory has the wrong shape or non-finite values")
+    # the JAX resume test's tolerance; the .txt rows hold 7 digits
+    require(d_resume <= 1e-5, "the resumed CLI run differs")
+    require(d_api <= 1e-5, "the CLI run differs from api.run_sequence")
+
+    # decode: the adaptive file (every row by anti-diagonals) against the
+    # port's filter-None copy of the same image (a row at a time)
+    pair = [io.read_image_gray(p) for p in fixture]
+    copy = os.path.join(work, "copy.png")
+    io.write_image(copy, pair[0])
+    require(np.array_equal(io.read_image_gray(copy), pair[0]),
+            "the port's copy of the adaptive file decodes differently")
+    read_ms = {}
+    for what, path in (("adaptive", fixture[0]), ("filter None", copy)):
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            io.read_image_gray(path)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        read_ms[what] = float(np.median(ts))
+    print(f"[{card}] read_image_gray of one {ODO_SHAPE} frame, median of 5 "
+          f"by the host clock: {read_ms} ms; the row decode "
+          f"{read_ms['adaptive'] / read_ms['filter None']:.1f}x faster",
+          flush=True)
+    static = kitti_tree("adaptive", lambda i, lp, rp: [
+        shutil.copyfile(s, d) for s, d in zip(fixture, (lp, rp))])
+    want, ms["arrays, the adaptive pair"] = timed(lambda: api.run_sequence(
+        [tuple(pair)] * 10, calib, PRESETS["kitti_odometry"]))
+    want = want[:, :3, :].reshape(10, 12)
+    trajs = {}
+    for tree, args in (("filter None", odo), ("adaptive", static)):
+        for n in (0, 2):
+            out = os.path.join(work, f"{tree[0]}{n}.txt")
+            _, ms[f"CLI, {tree} files, prefetch {n}"] = timed(
+                lambda: cli_main(args + ["--max-frames", "10", "--prefetch",
+                                         str(n), "--out", out]))
+            trajs[tree, n] = np.loadtxt(out)
+    print(f"[{card}] odometry over 10 frames, ms a frame by the host clock "
+          f"(the process's first frame included): {ms}", flush=True)
+    for (tree, n), t in trajs.items():
+        require(t.shape == (10, 12) and np.isfinite(t).all(),
+                f"the CLI over {tree} files, prefetch {n}: a bad trajectory")
+        require(np.abs(t - (want if tree == "adaptive" else a)).max() <= 1e-5,
+                f"the CLI over {tree} files, prefetch {n}, differs from the "
+                f"same frames' run")
+    shutil.rmtree(work)
+    print(f"step 21: {time.perf_counter() - t_step:.1f} s", flush=True)
 
 
 def main() -> None:
@@ -2850,9 +3107,11 @@ def main() -> None:
                      "max_abs_err": err[name], "ms": ms[name],
                      "plain_ms": plain_ms[name], "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": library_ms[name]})
-    rows += modes_path(card)
+    # each path's ms a frame by events, for step 21's harness records
+    refs = {"kitti_sgm8": dev_ms / BATCH}
+    rows += modes_path(card, refs)
     kitti = dict(lefts=lefts, rights=rights, gts=gts, L=L, R=R, out=out,
-                 C=C)
+                 C=C, refs=refs)
     rows += volume_path(card, kitti)
     rows += fills_path(card, dict(kitti, d_r=d_r, disp=disp, lab=lab,
                                   gaps=med_in))
@@ -2866,12 +3125,13 @@ def main() -> None:
         row.update(adaptive_launches=n, adaptive_ms=a_ms)
     # the KITTI six also carry their launches on the odometry path
     per_set = {n: launches[n] // (BATCH // F) for n in KERNELS}
-    shared: dict = {}
+    shared: dict = {"refs": refs}
     for name, n in odometry_path(card, per_set, shared).items():
         next(r for r in rows if r["name"] == name)["odometry_launches"] = n
     # ... and on the strip-tiled odometry; sgm_sweep also its carry forms
     for name, extra in tiled_path(card, per_set, shared).items():
         next(r for r in rows if r["name"] == name).update(extra)
+    entry_points_path(card, shared)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1377,3 +1377,83 @@ def test_sweep_kernel_writes_into_out(cuda):
     torch.cuda.synchronize()
     assert got is out
     assert torch.equal(out, sgm_sweep_plain(C, None, -1, 1, 10, 120))
+
+
+# --- the entry points: the CLI, the harness and the eval runner on the card
+
+def test_cli_match_cuda_equals_match_pair(cuda, tmp_path):
+    """`match` from PNG files on the card: the .pfm is `api.match_pair` on
+    the decoded arrays, bit for bit, and the .png its KITTI encoding."""
+    from tpustereo_torch import PRESETS, api
+    from tpustereo_torch.cli.main import main
+    from tpustereo_torch.data import io
+    L, R = (x[0].numpy() for x in _pairs(1, (64, 200), seed=5))
+    lp, rp = str(tmp_path / "l.png"), str(tmp_path / "r.png")
+    io.write_image(lp, L)
+    io.write_image(rp, R)
+    assert np.array_equal(io.read_image_gray(lp), L)
+    args = ["match", "--preset", "kitti_sgm8", "--left", lp, "--right", rp]
+    main(args + ["--out", str(tmp_path / "d.pfm")])
+    main(args + ["--out", str(tmp_path / "d.png")])
+    want = api.match_pair(L, R, PRESETS["kitti_sgm8"])
+    got = io.read_pfm(str(tmp_path / "d.pfm"))
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert np.array_equal(io.read_png(str(tmp_path / "d.png")),
+                          io.kitti_disparity_raw(want))
+
+
+@pytest.mark.parametrize("name", ["kitti_sgm8", "tsukuba_sad",
+                                  "middlebury_census_wta"])
+def test_run_benchmark_cuda(cuda, tmp_path, name):
+    from tpustereo_torch import PRESETS
+    from tpustereo_torch.eval import roofline
+    from tpustereo_torch.eval.bench import run_benchmark
+    rec = run_benchmark(PRESETS[name], shape=(96, 320), batch=4, iters=3,
+                        stages=name == "kitti_sgm8",
+                        profile_dir=str(tmp_path))
+    assert rec["backend"] == "cuda"
+    assert rec["device_kind"] == torch.cuda.get_device_name(0)
+    assert rec["value"] > 0 and rec["ms_per_frame"] > 0
+    rl = rec["roofline"]
+    assert rl["device_name"] == rec["device_kind"]
+    if roofline.chip_spec(rec["device_kind"]):
+        assert all(0 < s <= 1 for s in roofline.shares(rl).values())
+    assert 0 < rec["device_busy_fraction"]["busy_fraction"] <= 1
+
+
+def test_run_benchmark_tiled_stages_cuda(cuda):
+    """The tiled record and `stage_times` through the kernel wrappers."""
+    from tpustereo_torch import PRESETS, dist
+    from tpustereo_torch.eval.bench import run_benchmark
+    rec = run_benchmark(PRESETS["kitti_odometry"], shape=(96, 320),
+                        batch=2, iters=2, stages=True, tiled=True,
+                        mesh=dist.make_mesh(1, 2))
+    assert rec["tiled"] and rec["chips"] == 1 and rec["backend"] == "cuda"
+    assert list(rec["stage_ms"]) == [
+        "census+cost_volume(fused)", "sgm_select(4 sweeps+wta fused)",
+        "dr_consistency", "speckle", "median3"]
+    assert all(v > 0 for v in rec["stage_ms"].values())
+
+
+def test_run_odometry_benchmark_cuda(cuda):
+    from tpustereo_torch import PRESETS, dist
+    from tpustereo_torch.eval.bench import run_odometry_benchmark
+    cfg = PRESETS["kitti_odometry"].replace(num_disparities=64)
+    for kw in ({}, {"tiled": True, "mesh": dist.make_mesh(1, 2)},
+               {"stacked": True}):
+        rec = run_odometry_benchmark(cfg, shape=(128, 320), frames=2,
+                                     iters=2, **kw)
+        assert rec["backend"] == "cuda" and rec["ms_per_frame"] > 0
+
+
+def test_evaluate_cuda_equals_cpu(cuda):
+    """The card's report (its 192 x 320 cases) against the CPU's plain
+    pipeline on the same cases."""
+    from tpustereo_torch import PRESETS
+    from tpustereo_torch.eval.runner import _eval_one, evaluate, \
+        synthetic_cases
+    cfg = PRESETS["kitti_sgm8"].replace(num_disparities=64)
+    rep = evaluate(cfg, synthetic=True)
+    cpu = [_eval_one(L, R, gt, cfg, name, False, False, "cpu")
+           for name, L, R, gt in synthetic_cases(cfg, (192, 320))]
+    assert rep["pairs"] == cpu

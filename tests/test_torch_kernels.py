@@ -187,7 +187,13 @@ def test_import_loads_neither_jax_nor_tpustereo():
             "tpustereo_torch.data.datasets",
             "tpustereo_torch.dist.mesh", "tpustereo_torch.dist.tiling",
             "tpustereo_torch.dist.batching",
-            "tpustereo_torch.dist.disp_shard"} <= names
+            "tpustereo_torch.dist.disp_shard",
+            "tpustereo_torch.data.io", "tpustereo_torch.data.prefetch",
+            "tpustereo_torch.eval.bench", "tpustereo_torch.eval.roofline",
+            "tpustereo_torch.eval.runner", "tpustereo_torch.golden",
+            "tpustereo_torch.golden.opencv_ref", "tpustereo_torch.cli.main",
+            "tpustereo_torch.cli.__main__",
+            "tpustereo_torch.bench.__main__"} <= names
 
 
 def test_entry_points_need_cuda_unless_told_cpu(small_pair, monkeypatch):
