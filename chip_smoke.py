@@ -237,8 +237,33 @@ The user's entry points (`cli`, `eval.bench`, `eval.roofline`,
    adaptive-filter frame (`tests/data/adaptive_image_0.png`, Paeth rows)
    beside the port's filter-None copy of it, and the CLI's ms a frame
    with prefetch 0 and 2 over that tree and over a static tree of the
-   committed pair, beside `api.run_sequence` on the arrays (each CLI run
-   equal to the arrays' run). Prints `step 21: ... s`.
+   committed pair (30 frames; the median of 3 runs each), beside
+   `api.run_sequence` on the arrays (each CLI run equal to the arrays'
+   run), requires the adaptive tree at prefetch 2 to be no slower than at
+   prefetch 0 and prints its ratio to the arrays. Prints `step 21: ...
+   s`.
+
+Several ranks, one process each (`torch.distributed`; the kernels are
+built before any rank starts):
+
+22. on the one card, `gloo` ranks sharing it: 2 ranks run `kitti_odometry`
+   as shipped (halo mode, 2 strips) and in exact mode on step 20's 8 pairs
+   of 376 x 1241, `kitti_sgm8` data-parallel on step 3's 8 pairs over
+   (data 2, strip 1), `wta_disparity_sharded` with
+   `middlebury_census_wta` over 2 strips on one of them, and
+   `api.run_sequence` over step 19's 32 frames on a 2-rank mesh; 4 ranks
+   run exact mode over 4 strips and halo mode over (data 2, strip 2).
+   Every rank's output equals the one-process port's bit for bit (step
+   20's halo output, the untiled output, step 3's output, the
+   one-process sharded WTA, step 20's tiled trajectory). Prints, per
+   call, rank 0's `dist.comm` messages and kB a frame and each rank's ms
+   a frame (CUDA events; the odometry by the host clock), labelled as
+   ranks sharing one card, not scaling; requires the six KITTI kernels
+   on the 2-rank halo path. Where the machine has two cards, the 2-rank
+   checks run again under `nccl`, one rank a card; else one line says
+   that phase needs two cards. Then `eval.multihost.run_multihost_bench(2,
+   tiled=True)` at 376 x 1241 (2 ranks a host, so 2 then 4 ranks on the
+   card), its record's arithmetic checked. Prints `step 22: ... s`.
 
 The timers (`cuda_ms`, `graph_ms`), the profiler's busy share
 (`device_busy`) and each kernel's bound (`bound`: bytes over 3.35 TB/s or
@@ -255,7 +280,9 @@ step 15 and kernel 13's five from step 17; `sgm_sweep` and
 step 18, the KITTI six `odometry_launches` from step 19 and
 `tiled_launches` from step 20, and `sgm_sweep` its carry forms'
 `carry_launches` (exact mode, 2 strips, 8 frames), `carry_ms`,
-`carry_bound_ms` and `carry_max_abs_err` from step 20), then
+`carry_bound_ms` and `carry_max_abs_err` from step 20, and the KITTI
+six `multirank_launches_per_frame`, rank 0's launches a frame on step
+22's 2-rank halo path), then
 `{"ok": true, "device": ...}` as the last line. Exits non-zero, with no
 result, on any failure or when CUDA is absent. Needs no network; imports
 nothing of JAX.
@@ -2406,6 +2433,8 @@ def tiled_path(card: str, per_set: dict, shared: dict) -> dict:
             "match_pair_tiled differs from the batched tiled frame")
     untiled = sgbm_batched(L, R, cfg.replace(strips=1)).cpu().numpy()
     halo_np = halo_out.cpu().numpy()
+    shared["tiled"] = dict(lefts=lefts, rights=rights, halo=halo_np,
+                           untiled=untiled)
     vfrac, bad2 = quality(halo_np, gts)
     mism = float((np.abs(halo_np - untiled) > 0.5).mean())
     print(f"halo mode (strips 2, halo 32), 8 frames of {ODO_SHAPE}: launches "
@@ -2444,6 +2473,7 @@ def tiled_path(card: str, per_set: dict, shared: dict) -> dict:
     traj = api.run_sequence(frames, calib, cfg)
     run_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    shared["tiled_traj"] = traj
     expected = dict.fromkeys(launches, 0)
     expected.update({k: n * len(frames) for k, n in per_set.items()})
     print(f"tiled odometry launches: {launches}", flush=True)
@@ -2694,13 +2724,13 @@ def entry_points_path(card: str, shared: dict) -> None:
     fx, fy, cx, cy, b = (calib.fx, calib.fy, calib.cx, calib.cy,
                          calib.baseline)
 
-    def kitti_tree(name: str, write) -> list:
-        """The `odometry` arguments over a KITTI tree of 10 frames with
+    def kitti_tree(name: str, write, n: int = 10) -> list:
+        """The `odometry` arguments over a KITTI tree of n frames with
         step 19's camera, frame i written by write(i, left, right path)."""
         seq = os.path.join(work, name, "sequences", "00")
         for sub in ("image_0", "image_1"):
             os.makedirs(os.path.join(seq, sub))
-        for i in range(10):
+        for i in range(n):
             write(i, *(os.path.join(seq, sub, f"{i:06d}.png")
                        for sub in ("image_0", "image_1")))
         with open(os.path.join(seq, "calib.txt"), "w") as f:
@@ -2710,12 +2740,12 @@ def entry_points_path(card: str, shared: dict) -> None:
         return ["odometry", "--preset", "kitti_odometry", "--root",
                 os.path.join(work, name)]
 
-    def timed(fn):
-        """fn()'s value and its ms a frame over 10 frames, by the host
+    def timed(fn, n: int = 10):
+        """fn()'s value and its ms a frame over n frames, by the host
         clock."""
         t0 = time.perf_counter()
         value = fn()
-        return value, (time.perf_counter() - t0) / 10 * 1e3
+        return value, (time.perf_counter() - t0) / n * 1e3
 
     odo = kitti_tree("kitti", lambda i, lp, rp: [
         io.write_image(p, x) for p, x in zip((lp, rp), frames[i])])
@@ -2740,8 +2770,8 @@ def entry_points_path(card: str, shared: dict) -> None:
     require(d_resume <= 1e-5, "the resumed CLI run differs")
     require(d_api <= 1e-5, "the CLI run differs from api.run_sequence")
 
-    # decode: the adaptive file (every row by anti-diagonals) against the
-    # port's filter-None copy of the same image (a row at a time)
+    # decode: the adaptive file (Paeth rows) against the port's
+    # filter-None copy of the same image
     pair = [io.read_image_gray(p) for p in fixture]
     copy = os.path.join(work, "copy.png")
     io.write_image(copy, pair[0])
@@ -2756,32 +2786,237 @@ def entry_points_path(card: str, shared: dict) -> None:
             ts.append((time.perf_counter() - t0) * 1e3)
         read_ms[what] = float(np.median(ts))
     print(f"[{card}] read_image_gray of one {ODO_SHAPE} frame, median of 5 "
-          f"by the host clock: {read_ms} ms; the row decode "
-          f"{read_ms['adaptive'] / read_ms['filter None']:.1f}x faster",
-          flush=True)
+          f"by the host clock: {read_ms} ms; adaptive / filter None "
+          f"{read_ms['adaptive'] / read_ms['filter None']:.2f}", flush=True)
+    # the static adaptive tree holds 30 frames, so the CLI's start weighs
+    # little in its ms a frame
+    n_static = 30
     static = kitti_tree("adaptive", lambda i, lp, rp: [
-        shutil.copyfile(s, d) for s, d in zip(fixture, (lp, rp))])
-    want, ms["arrays, the adaptive pair"] = timed(lambda: api.run_sequence(
-        [tuple(pair)] * 10, calib, PRESETS["kitti_odometry"]))
-    want = want[:, :3, :].reshape(10, 12)
+        shutil.copyfile(s, d) for s, d in zip(fixture, (lp, rp))], n_static)
+
+    def median3(fn, n: int = 10):
+        """fn()'s value and the median of three runs' ms a frame."""
+        runs = [timed(fn, n) for _ in range(3)]
+        return runs[0][0], float(np.median([t for _, t in runs]))
+
+    want, ms["arrays, the adaptive pair"] = median3(lambda: api.run_sequence(
+        [tuple(pair)] * n_static, calib, PRESETS["kitti_odometry"]),
+        n_static)
+    want = want[:, :3, :].reshape(n_static, 12)
     trajs = {}
-    for tree, args in (("filter None", odo), ("adaptive", static)):
+    for tree, args, n_frames in (("filter None", odo, 10),
+                                 ("adaptive", static, n_static)):
         for n in (0, 2):
             out = os.path.join(work, f"{tree[0]}{n}.txt")
-            _, ms[f"CLI, {tree} files, prefetch {n}"] = timed(
-                lambda: cli_main(args + ["--max-frames", "10", "--prefetch",
-                                         str(n), "--out", out]))
+            _, ms[f"CLI, {tree} files, prefetch {n}"] = median3(
+                lambda: cli_main(args + ["--max-frames", str(n_frames),
+                                         "--prefetch", str(n), "--out",
+                                         out]), n_frames)
             trajs[tree, n] = np.loadtxt(out)
-    print(f"[{card}] odometry over 10 frames, ms a frame by the host clock "
-          f"(the process's first frame included): {ms}", flush=True)
+    print(f"[{card}] odometry over 10 frames (the adaptive pair and its "
+          f"tree: {n_static}), ms a frame by the host clock (the process's "
+          f"first frame included; the adaptive pair and the CLI runs the "
+          f"median of 3): {ms}", flush=True)
+    # the row filters run outside the interpreter lock
+    # (tpustereo_torch.native), so prefetching overlaps the decode with
+    # the loop; how close that comes to the arrays' loop is printed, not
+    # required: on a host where a thread's concurrent work slows the
+    # host-bound loop itself, it varies from run to run (PERF.md §6;
+    # `python -m tpustereo_torch.bench.decode_overlap` measures it)
+    p0, p2 = (ms[f"CLI, adaptive files, prefetch {n}"] for n in (0, 2))
+    arrays_ms = ms["arrays, the adaptive pair"]
+    print(f"[{card}] CLI over adaptive PNGs: prefetch 2 / prefetch 0 = "
+          f"{p2 / p0:.3f}; prefetch 2 / arrays = {p2 / arrays_ms:.3f}",
+          flush=True)
+    require(p2 <= p0, "prefetch 2 is slower than prefetch 0 over adaptive "
+            "PNGs")
     for (tree, n), t in trajs.items():
-        require(t.shape == (10, 12) and np.isfinite(t).all(),
+        require(t.shape == ((10 if tree == "filter None" else n_static), 12)
+                and np.isfinite(t).all(),
                 f"the CLI over {tree} files, prefetch {n}: a bad trajectory")
         require(np.abs(t - (want if tree == "adaptive" else a)).max() <= 1e-5,
                 f"the CLI over {tree} files, prefetch {n}, differs from the "
                 f"same frames' run")
     shutil.rmtree(work)
     print(f"step 21: {time.perf_counter() - t_step:.1f} s", flush=True)
+
+
+def _digest(a: np.ndarray) -> str:
+    import hashlib
+    return hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def multirank_rank(spec: dict) -> dict:
+    """Step 22 in one rank (`tpustereo_torch.dist.launch` starts it; the
+    parent built the kernels): the multi-rank paths on the inputs the
+    parent saved, each call's kernel launches and `dist.comm` messages on
+    this rank, and its ms a frame by events. Rank 0 saves the outputs;
+    every rank returns their digests."""
+    import os
+
+    import torch
+    import torch.distributed as tdist
+    from tpustereo_torch import PRESETS, api, dist, kernels
+    from tpustereo_torch.data.datasets import KittiCalib
+    from tpustereo_torch.dist import comm
+
+    rank, n = tdist.get_rank(), tdist.get_world_size()
+    inputs = np.load(os.path.join(spec["dir"], "inputs.npz"))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    oL, oR = (torch.from_numpy(inputs[k]).to(dev)
+              for k in ("odo_left", "odo_right"))
+    kL, kR = (torch.from_numpy(inputs[k]).to(dev)
+              for k in ("kitti_left", "kitti_right"))
+    cfg = PRESETS["kitti_odometry"]
+    exact = cfg.replace(exact_tiling=True)
+    outs, res = {}, {}
+
+    def run(name, fn, frames):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        comm.reset_counts()
+        y = fn()
+        torch.cuda.synchronize()
+        res[name] = dict(launches=kernels.launch_counts(),
+                         comm=comm.counts(), frames=frames,
+                         ms=cuda_ms(fn, 3) / frames)
+        outs[name] = y.cpu().numpy()
+
+    if n == 2:
+        mesh = dist.make_mesh(1, 2)
+        run("halo, (1, 2)",
+            lambda: dist.sgbm_tiled_batched(oL, oR, cfg, mesh), len(oL))
+        run("exact, (1, 2)",
+            lambda: dist.sgbm_tiled_batched(oL, oR, exact, mesh), len(oL))
+        run("kitti_sgm8 data parallel, (2, 1)",
+            lambda: dist.sgbm_data_parallel(kL, kR, PRESETS["kitti_sgm8"],
+                                            dist.make_mesh(2, 1)), len(kL))
+        run("wta_disparity_sharded, (1, 2)",
+            lambda: dist.wta_disparity_sharded(
+                kL[0], kR[0], PRESETS["middlebury_census_wta"], mesh), 1)
+        frames = inputs["frames"]
+        calib = KittiCalib(*inputs["calib"].tolist())
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        comm.reset_counts()
+        t0 = time.perf_counter()
+        outs["odometry"] = api.run_sequence(
+            [(f[0], f[1]) for f in frames], calib, cfg, mesh=mesh)
+        res["odometry"] = dict(launches=kernels.launch_counts(),
+                               comm=comm.counts(), frames=len(frames),
+                               ms=(time.perf_counter() - t0) * 1e3
+                               / len(frames))
+    else:
+        run("exact, (1, 4)", lambda: dist.sgbm_tiled_batched(
+            oL, oR, exact, dist.make_mesh(1, 4)), len(oL))
+        run("halo, (2, 2)", lambda: dist.sgbm_tiled_batched(
+            oL, oR, cfg, dist.make_mesh(2, 2)), len(oL))
+    if rank == 0:
+        np.savez(os.path.join(spec["dir"], f"out{n}_{spec['backend']}.npz"),
+                 **{k.replace(" ", "_"): v for k, v in outs.items()})
+    return {"res": res, "digests": {k: _digest(v) for k, v in outs.items()}}
+
+
+def multirank_path(card: str, kitti: dict, shared: dict) -> dict:
+    """Step 22: several ranks, one process each (see the module's
+    docstring). `kitti` holds step 3's pairs and output, `shared` step
+    19's sequence and step 20's pairs, outputs and tiled trajectory.
+    Returns {kernel: extra keys of its row}."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from tpustereo_torch import PRESETS, dist
+    from tpustereo_torch.dist.launch import launch
+    from tpustereo_torch.eval.multihost import run_multihost_bench
+
+    t_step = time.perf_counter()
+    torch.cuda.empty_cache()
+    tiled = shared["tiled"]
+    calib = shared["calib"]
+    work = tempfile.mkdtemp(prefix="step22_")
+    np.savez(os.path.join(work, "inputs.npz"), odo_left=tiled["lefts"],
+             odo_right=tiled["rights"], kitti_left=kitti["lefts"],
+             kitti_right=kitti["rights"],
+             frames=np.stack([np.stack(f) for f in shared["frames"]]),
+             calib=np.array([calib.fx, calib.fy, calib.cx, calib.cy,
+                             calib.baseline]))
+    L, R = (torch.from_numpy(kitti[k][0]).cuda() for k in ("lefts",
+                                                             "rights"))
+    wcfg = PRESETS["middlebury_census_wta"]
+    refs = {
+        "halo, (1, 2)": tiled["halo"],
+        "exact, (1, 2)": tiled["untiled"],
+        "kitti_sgm8 data parallel, (2, 1)": kitti["out"],
+        "wta_disparity_sharded, (1, 2)": dist.wta_disparity_sharded(
+            L, R, wcfg, dist.make_mesh(1, 2)).cpu().numpy(),
+        "odometry": shared["tiled_traj"],
+        "exact, (1, 4)": tiled["untiled"],
+        "halo, (2, 2)": tiled["halo"],
+    }
+    phases = [("gloo", 2), ("gloo", 4)]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        phases.append(("nccl", 2))
+    rows = {}
+    try:
+        for backend, n in phases:
+            t0 = time.perf_counter()
+            ranks = launch(n, "chip_smoke:multirank_rank",
+                           {"dir": work, "backend": backend},
+                           backend=backend, device="cuda", timeout=300)
+            wall = time.perf_counter() - t0
+            got = np.load(os.path.join(work, f"out{n}_{backend}.npz"))
+            share = "ranks sharing one card" if backend == "gloo" else \
+                "one rank a card"
+            for name, r0 in ranks[0]["res"].items():
+                out = got[name.replace(" ", "_")]
+                same = all(r["digests"][name] == ranks[0]["digests"][name]
+                           for r in ranks)
+                require(same, f"step 22 {name}: the ranks' outputs differ")
+                require(np.array_equal(out, refs[name]),
+                        f"step 22 {name} over {n} {backend} ranks differs "
+                        f"from the one-process port")
+                per_frame = {k: v["messages"] / r0["frames"]
+                             for k, v in r0["comm"].items() if v["messages"]}
+                kbytes = {k: v["bytes"] / r0["frames"] / 1e3
+                          for k, v in r0["comm"].items() if v["bytes"]}
+                ms = [round(r["res"][name]["ms"], 4) for r in ranks]
+                clock = ("host clock" if name == "odometry"
+                         else "CUDA events")
+                print(f"[{card}] step 22, {n} {backend} ranks ({share}, not "
+                      f"a scaling figure): {name} equal to the one-process "
+                      f"port bit for bit on every rank; rank 0 per frame: "
+                      f"messages {per_frame}, kB {kbytes}; ms a frame per "
+                      f"rank by the {clock}: {ms}", flush=True)
+                if name == "halo, (1, 2)" and backend == "gloo":
+                    for k in KERNELS:
+                        require(r0["launches"][k] > 0, f"{k} was not "
+                                f"launched on the multi-rank path")
+                        rows[k] = {"multirank_launches_per_frame":
+                                   r0["launches"][k] / r0["frames"]}
+            print(f"step 22: {n} {backend} ranks in {wall:.1f} s (start, "
+                  f"run and end)", flush=True)
+        if cards < 2:
+            print(f"step 22: the nccl phase (one rank a card) needs two "
+                  f"cards; this machine has {cards}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    rec = run_multihost_bench(2, PRESETS["kitti_odometry"], shape=ODO_SHAPE,
+                              batch=2, iters=5, timeout=300, tiled=True)
+    require(rec["fps_total_1host"] > 0 and rec["fps_total_nhost"] > 0
+            and abs(rec["fps_total_nhost"] / (2 * rec["fps_total_1host"])
+                    - rec["value"]) <= 1e-3, f"multihost record {rec}")
+    print(f"[{card}] step 22: run_multihost_bench(2, tiled=True) at "
+          f"{ODO_SHAPE}, kitti_odometry, {rec['ranks']} {rec['transport']} "
+          f"ranks (ranks share a card: {rec['ranks_share_a_card']}; "
+          f"contention, not scaling): fps 1 host {rec['fps_total_1host']}, "
+          f"2 hosts {rec['fps_total_nhost']}, value {rec['value']} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"step 22: {time.perf_counter() - t_step:.1f} s", flush=True)
+    return rows
 
 
 def main() -> None:
@@ -3132,6 +3367,9 @@ def main() -> None:
     for name, extra in tiled_path(card, per_set, shared).items():
         next(r for r in rows if r["name"] == name).update(extra)
     entry_points_path(card, shared)
+    # the KITTI six also carry their launches a frame on one of 2 ranks
+    for name, extra in multirank_path(card, kitti, shared).items():
+        next(r for r in rows if r["name"] == name).update(extra)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -114,9 +114,33 @@ def test_entry_points_need_cuda_unless_told_cpu(tmp_path, monkeypatch):
             main(argv)
 
 
-def test_multihost_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        main(["bench", "--multihost", "2", "--device", "cpu"])
+def test_multihost_names_the_roadmap_item(capsys):
+    """`bench --multihost N` runs (see the slow test below); its help says
+    what it starts and measures, and names the ROADMAP item that keeps the
+    scaling across several cards open. Fewer than 2 hosts are refused."""
+    with pytest.raises(SystemExit):
+        main(["bench", "--help"])
+    text = " ".join(capsys.readouterr().out.split())
+    assert "torch.distributed ranks" in text
+    assert "fps(N) / (N fps(1))" in text
+    assert "queue 1, item 7" in text
+    with pytest.raises(ValueError, match="at least 2 hosts"):
+        main(["bench", "--multihost", "1", "--device", "cpu"])
+
+
+@pytest.mark.slow
+def test_bench_multihost_cpu(tmp_path, capsys):
+    """`bench --multihost 2 --device cpu`: two gloo clusters (1 host, then
+    2) on this machine; the record's keys and arithmetic."""
+    rec = str(tmp_path / "mh.jsonl")
+    main(["bench", "--multihost", "2", "--device", "cpu", "--shape", "32x64",
+          "--batch", "1", "--iters", "1", "--record", rec] + SMALL)
+    printed = json.loads(capsys.readouterr().out)
+    assert printed == json.loads(open(rec).read())
+    assert printed["hosts"] == 2 and printed["transport"] == "gloo"
+    assert printed["global_batch_nhost"] == 2 * printed["global_batch_1host"]
+    eff = printed["fps_total_nhost"] / (2 * printed["fps_total_1host"])
+    assert abs(eff - printed["value"]) <= 1e-3
 
 
 def test_bench_prints_and_records(tmp_path, capsys):

@@ -232,31 +232,202 @@ def test_kitti_disparity_round_trips_both_ways(tmp_path):
 
 
 def test_unsupported_formats_raise(tmp_path):
-    rng = np.random.default_rng(0)
-    a = rng.integers(0, 4, (6, 8))
-    cases = {
-        "palette": dict(ctype=3, depth=8, plte=bytes(range(12))),
-        "bit depth 4": dict(ctype=0, depth=8),   # header patched below
-        "Adam7": dict(ctype=0, depth=8, interlace=1),
-    }
-    for name, kw in cases.items():
-        path = str(tmp_path / "u.png")
-        _encode_png(path, a, **kw)
-        if name == "bit depth 4":
-            with open(path, "r+b") as f:
-                f.seek(24)
-                f.write(b"\x04")
-        with pytest.raises(NotImplementedError,
-                           match="palette|bit depth|Adam7"):
+    """JPEG, TIFF, BMP and PPM, which cv2 reads through libraries the
+    port does not carry, raise naming the format; PNG encode takes gray
+    only; a missing file raises as open() does."""
+    a = np.random.default_rng(0).integers(0, 4, (6, 8)).astype(np.uint8)
+    for ext, name in ((".jpg", "JPEG"), (".tif", "TIFF"), (".bmp", "BMP"),
+                      (".ppm", "PPM")):
+        path = str(tmp_path / f"a{ext}")
+        assert cv2.imwrite(path, a if ext != ".ppm" else np.stack([a] * 3,
+                                                                  -1))
+        with pytest.raises(NotImplementedError, match=name):
             io.read_image_gray(path)
-    bmp = str(tmp_path / "a.bmp")
-    cv2.imwrite(bmp, a.astype(np.uint8))
+    webp = str(tmp_path / "a.webp")
+    assert cv2.imwrite(webp, a)
     with pytest.raises(NotImplementedError, match="image format"):
-        io.read_image_gray(bmp)
+        io.read_image_gray(webp)
     with pytest.raises(NotImplementedError):
         io.write_image(str(tmp_path / "c.png"), np.zeros((2, 2, 3), np.uint8))
     with pytest.raises(FileNotFoundError):
         io.read_image_gray(str(tmp_path / "missing.png"))
+
+
+# --- palette, bit depths 1, 2 and 4, Adam7: files built by hand ------------
+
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+PACKED_SHAPES = [(13, 17), (1, 1), (9, 1), (2, 23), (8, 8)]
+
+
+def _pack(samples, depth):
+    """(h, w, ch) samples -> (h, stride) bytes of a PNG row: big-endian
+    16-bit, bytes, or sub-byte samples first in the high bits."""
+    h = samples.shape[0]
+    if depth == 16:
+        return np.ascontiguousarray(samples.astype(">u2")).view(
+            np.uint8).reshape(h, -1)
+    flat = samples.reshape(h, -1).astype(np.uint8)
+    if depth == 8:
+        return flat
+    bits = (flat[..., None] >> np.arange(depth - 1, -1, -1)) & 1
+    return np.packbits(bits.astype(np.uint8).reshape(h, -1), axis=1)
+
+
+def _filtered(rows, bpp, filters):
+    """The PNG filters applied by the specification's rules, a loop."""
+    out, prev = bytearray(), [0] * rows.shape[1]
+    for y in range(rows.shape[0]):
+        f = filters[y % len(filters)]
+        line = rows[y].astype(int).tolist()
+        out.append(f)
+        for x, v in enumerate(line):
+            a = line[x - bpp] if x >= bpp else 0
+            b, c = prev[x], (prev[x - bpp] if x >= bpp else 0)
+            out.append((v - [0, a, b, (a + b) >> 1, _paeth(a, b, c)][f])
+                       & 255)
+        prev = line
+    return bytes(out)
+
+
+def _encode_packed(path, samples, ctype, depth, interlace=0, plte=None,
+                   trns=None, filters=(0, 1, 2, 3, 4)):
+    """A PNG of samples (h, w, ch) at any bit depth, colour type and
+    interlace method, with PLTE and tRNS chunks as given (zlib and struct
+    only; Adam7 passes filtered each on its own, empty passes absent)."""
+    h, w, ch = samples.shape
+    bpp = max(1, ch * depth // 8)
+    if interlace:
+        data = b"".join(
+            _filtered(_pack(samples[y0::dy, x0::dx], depth), bpp, filters)
+            for y0, x0, dy, dx in ADAM7 if samples[y0::dy, x0::dx].size)
+    else:
+        data = _filtered(_pack(samples, depth), bpp, filters)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    body = chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0,
+                                      interlace))
+    body += chunk(b"PLTE", plte) if plte is not None else b""
+    body += chunk(b"tRNS", trns) if trns is not None else b""
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + body
+                + chunk(b"IDAT", zlib.compress(data)) + chunk(b"IEND", b""))
+
+
+def _cv2_gray_equal(path):
+    got = io.read_image_gray(path)
+    want = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4, 8])
+@pytest.mark.parametrize("trns", [False, True])
+@pytest.mark.parametrize("interlace", [0, 1])
+def test_palette_reads_equal_cv2(tmp_path, depth, trns, interlace):
+    """Colour type 3 with PLTE, with and without tRNS (alphas for half the
+    entries): the palette's RGB to gray by libpng's rule, as cv2 reads."""
+    rng = np.random.default_rng([depth, trns, interlace])
+    n = 1 << depth
+    plte = rng.integers(0, 256, (n, 3), dtype=np.uint8).tobytes()
+    alpha = (rng.integers(0, 256, max(1, n // 2), dtype=np.uint8).tobytes()
+             if trns else None)
+    for k, shape in enumerate(PACKED_SHAPES):
+        path = str(tmp_path / f"p{k}.png")
+        _encode_packed(path, rng.integers(0, n, shape + (1,)), 3, depth,
+                       interlace, plte, alpha)
+        _cv2_gray_equal(path)
+        raw = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        np.testing.assert_array_equal(io.read_png(path),
+                                      raw[..., [2, 1, 0, 3][:raw.shape[2]]])
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+@pytest.mark.parametrize("interlace", [0, 1])
+def test_low_bit_gray_reads_equal_cv2(tmp_path, depth, interlace):
+    """Gray at 1, 2 and 4 bits, rows that end mid-byte: scaled to 8 bits
+    as cv2 reads them (IMREAD_GRAYSCALE and IMREAD_UNCHANGED)."""
+    rng = np.random.default_rng([depth, interlace])
+    for k, shape in enumerate(PACKED_SHAPES):
+        path = str(tmp_path / f"g{k}.png")
+        _encode_packed(path, rng.integers(0, 1 << depth, shape + (1,)), 0,
+                       depth, interlace)
+        _cv2_gray_equal(path)
+        np.testing.assert_array_equal(io.read_png(path),
+                                      cv2.imread(path, cv2.IMREAD_UNCHANGED))
+
+
+@pytest.mark.parametrize("depth", [8, 16])
+@pytest.mark.parametrize("ctype,channels", [(0, 1), (2, 3), (4, 2), (6, 4)])
+def test_adam7_reads_equal_cv2(tmp_path, depth, ctype, channels):
+    """Adam7 in gray, RGB, gray + alpha and RGBA at 8 and 16 bits, every
+    filter in every pass, on shapes with empty passes (1 x 1, 9 x 1)."""
+    rng = np.random.default_rng([depth, ctype])
+    for k, shape in enumerate(PACKED_SHAPES):
+        a = rng.integers(0, 1 << depth, shape + (channels,))
+        path = str(tmp_path / f"i{k}.png")
+        _encode_packed(path, a, ctype, depth, interlace=1)
+        _cv2_gray_equal(path)
+        np.testing.assert_array_equal(io.read_png(path),
+                                      a[..., 0] if channels == 1 else a)
+
+
+# --- the C unfilter against both numpy decodes ------------------------------
+
+@pytest.mark.parametrize("bpp", range(1, 9))
+def test_native_unfilter_equals_numpy(bpp):
+    """Random rows under every filter type (each row's type cycling through
+    0-4, and runs of one type) at 1-8 bytes a pixel: the C unfilter equals
+    the numpy row decode and the wavefront, byte for byte."""
+    from tpustereo_torch import native
+    rng = np.random.default_rng(bpp)
+    for h, w, types in ((11, 13, np.arange(11) % 5), (5, 1, np.full(5, 4)),
+                        (7, 9, np.full(7, 3)), (4, 6, np.array([1, 2, 1, 2]))):
+        stride = w * bpp
+        rows = rng.integers(0, 256, (h, 1 + stride), dtype=np.uint8)
+        rows[:, 0] = types
+        raw = rows.ravel()
+        got = native.png_unfilter(raw, h, stride, bpp)
+        np.testing.assert_array_equal(got, io._unfilter(raw, h, stride, bpp))
+        np.testing.assert_array_equal(
+            got, io._unfilter_wavefront(rows[:, 0], rows[:, 1:], bpp))
+    rows[2, 0] = 5
+    with pytest.raises(ValueError, match="bad PNG filter type 5"):
+        native.png_unfilter(rows.ravel(), h, stride, bpp)
+
+
+@pytest.mark.parametrize("side", [0, 1])
+def test_native_unfilter_on_adaptive_fixture(side):
+    """The committed libpng adaptive files (Paeth rows): C equals the
+    wavefront decode on their inflated rows."""
+    from tpustereo_torch import native
+    path = os.path.join(os.path.dirname(__file__), "data",
+                        f"adaptive_image_{side}.png")
+    with open(path, "rb") as f:
+        data = f.read()
+    w, h = struct.unpack(">II", data[16:24])
+    idat = b"".join(body for kind, body in io._chunks(data, path)
+                    if kind == b"IDAT")
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    rows = raw.reshape(h, 1 + w)
+    np.testing.assert_array_equal(
+        native.png_unfilter(raw, h, w, 1),
+        io._unfilter_wavefront(rows[:, 0], rows[:, 1:], 1))
+
+
+def test_native_build_without_compiler_raises(tmp_path, monkeypatch):
+    """No fallback: a compiler that is missing, or that fails, raises."""
+    from tpustereo_torch import native
+    monkeypatch.setenv("CC", str(tmp_path / "no-such-cc"))
+    with pytest.raises(RuntimeError, match="not found"):
+        native.build(str(tmp_path / "build"))
+    monkeypatch.setenv("CC", "false")
+    with pytest.raises(RuntimeError, match="failed"):
+        native.build(str(tmp_path / "build"))
+    assert not os.path.exists(native.lib_path(str(tmp_path / "build")))
 
 
 # --- loaders, on trees in the datasets' own layouts --------------------------

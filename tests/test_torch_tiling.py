@@ -432,5 +432,8 @@ def test_make_mesh():
     with pytest.raises(NotImplementedError, match="several cards"):
         dist.make_mesh(1, 2, devices=["cpu", "meta"])
     dist.init_distributed(num_processes=1)
-    with pytest.raises(NotImplementedError, match="several cards"):
-        dist.init_distributed("localhost:1234", 2, 0)
+    # several processes initialise torch.distributed (held in
+    # test_torch_dist_multirank.py); a rank outside the world is refused
+    # before any connection is tried
+    with pytest.raises(ValueError, match="process_id"):
+        dist.init_distributed("localhost:1234", 2, 2)

@@ -15,10 +15,6 @@ import numpy as np
 
 from tpustereo_torch.config import Config, PRESETS
 
-# the item of ROADMAP.md that several cards and processes wait for
-_MULTI = "ROADMAP.md queue 1, item 7: meshes over several cards"
-
-
 # ---------------------------------------------------------------------------
 # config plumbing
 # ---------------------------------------------------------------------------
@@ -142,12 +138,18 @@ _PRESET_SHAPES = {"tsukuba_sad": "288x384",
 def cmd_bench(args) -> int:
     from tpustereo_torch.eval.bench import (run_benchmark,
                                             run_odometry_benchmark)
-    if args.multihost:
-        raise NotImplementedError(f"bench --multihost is not ported yet "
-                                  f"({_MULTI})")
     cfg = config_from_args(args) if (args.preset or args.config or args.set) \
         else PRESETS["kitti_sgm8"]
     shape = _shape(args.shape or _PRESET_SHAPES.get(args.preset, "375x1242"))
+    if args.multihost:
+        from tpustereo_torch.eval.multihost import run_multihost_bench
+        record = run_multihost_bench(
+            num_processes=args.multihost, cfg=cfg, shape=shape,
+            batch=args.batch, iters=args.iters, tiled=args.tiled,
+            device=args.device)
+        print(json.dumps(record, indent=2))
+        _record(args.record, record)
+        return 0
     if args.odometry:
         record = run_odometry_benchmark(
             cfg, shape=shape, frames=max(args.batch, 1), iters=args.iters,
@@ -263,9 +265,16 @@ def main(argv=None) -> int:
     b.add_argument("--stages", action="store_true", help="per-stage time table")
     b.add_argument("--tiled", action="store_true",
                    help="bench the strip-tiled pipeline over (data=1, "
-                        "strip=the device count)")
+                        "strip=the device count); with --multihost N, "
+                        "over (data=N hosts, strip=2 ranks a host)")
     b.add_argument("--multihost", type=int, metavar="N",
-                   help=f"several processes: not ported yet ({_MULTI})")
+                   help="start N hosts of torch.distributed ranks on "
+                        "this machine (one rank a device, nccl where each "
+                        "has its own card, else gloo), then 1, and report "
+                        "the scaling efficiency fps(N) / (N fps(1)); "
+                        "ranks sharing one card measure contention, not "
+                        "scaling (ROADMAP.md queue 1, item 7: several "
+                        "cards)")
     b.add_argument("--odometry", action="store_true",
                    help="bench the odometry tracking step "
                         "(--batch = frames per timed call)")

@@ -5,11 +5,13 @@ and KITTI uint16 disparity PNGs; a numpy copy of the JAX package's
 The port carries its own codec (numpy and the standard library's `zlib`),
 so it reads on machines without cv2 or PIL and gives what cv2 gives:
 
-* PNG decode: bit depth 8 and 16 (big-endian), colour types 0 (gray),
-  2 (RGB), 4 (gray + alpha) and 6 (RGBA), all five row filters.
-  Palette images, bit depths below 8 and Adam7 interlacing raise
-  `NotImplementedError` naming the format: they are never decoded into
-  another image.
+* PNG decode: every colour type (gray, RGB, palette, gray + alpha,
+  RGBA) at every bit depth the specification allows (1, 2, 4, 8, 16),
+  all five row filters, and Adam7 interlacing. The row filters are undone
+  in C (`tpustereo_torch.native`, built at first use; the inflate is
+  `zlib`'s), outside the interpreter lock; the numpy decodes below
+  (`_unfilter`, `_unfilter_wavefront`) are the plain versions the tests
+  hold it to.
 * PNG encode: gray, 8 and 16 bit.
 * PGM: P5 (8 and 16 bit) and P2 read, P5 written.
 
@@ -19,10 +21,15 @@ coefficients become the 15-bit fixed-point 9797, 19234 and 32768 - 9797 -
 19234 = 3737: an 8-bit colour pixel is (9797 R + 19234 G + 3737 B) >> 15
 (truncated), a 16-bit one is rounded at 16 bits, (... + 16384) >> 15, and
 then cut to its high byte, as a 16-bit gray pixel is. Alpha is dropped.
+A palette image is its palette's RGB (the tRNS alphas dropped), gray
+at 1, 2 or 4 bits is scaled to 8 (v * 255 / (2^depth - 1)), as libpng's
+`png_set_palette_to_rgb` and `png_set_expand_gray_1_2_4_to_8` give cv2.
 PGM values are taken as stored, 16-bit ones cut to their high byte. (Found
 by holding cv2 5.0 with libpng 1.6.58 to every RGB triple of 8 bits, every
 16-bit gray value and random 16-bit colours and alphas; not the float
-0.299 / 0.587 / 0.114 product of `api._as_u8`.)
+0.299 / 0.587 / 0.114 product of `api._as_u8`.) JPEG, TIFF, BMP and PPM
+files, which cv2 reads through libraries the port does not carry, raise
+`NotImplementedError` naming the format.
 """
 
 from __future__ import annotations
@@ -33,11 +40,22 @@ import zlib
 
 import numpy as np
 
+from tpustereo_torch import native
+
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # libpng's fixed-point rgb_to_gray coefficients for (0.299, 0.587), over 2^15
 _GRAY_RC, _GRAY_GC = 9797, 19234
 _GRAY_BC = 32768 - _GRAY_RC - _GRAY_GC
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # PNG colour type -> channels
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # PNG colour type -> samples
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}                        # the bit depths each allows
+# Adam7: each pass's (first row, first column, row step, column step)
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+# the first bytes of the formats cv2 reads and the port refuses
+_REFUSED = ((b"\xff\xd8\xff", "JPEG"), (b"II*\x00", "TIFF"),
+            (b"MM\x00*", "TIFF"), (b"BM", "BMP"), (b"P6", "PPM"),
+            (b"P3", "PPM"))
 # a PGM header field: whitespace and comments, then digits
 _PGM_FIELD = re.compile(rb"(?:\s|#[^\n]*\n?)*(\d+)")
 
@@ -61,15 +79,14 @@ def _chunks(data: bytes, path: str):
 
 
 def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the PNG row filters: raw (h * (1 + stride),) uint8 -> (h,
-    stride) uint8. bpp is the filter's byte distance (bytes a pixel).
-    None, Sub and Up go a row at a time: the port writes None, and cv2's
-    default writes Sub on every row. A file with Average or Paeth rows
-    (libpng's adaptive choice, as dataset files are written), whose bytes
-    depend on the decoded byte bpp to the left, goes by anti-diagonals of
-    pixels, every row at once (`_unfilter_wavefront`), at a Python step a
-    diagonal: the row path is the faster by an order of magnitude at
-    KITTI size (`chip_smoke.py` step 21 times both; PERF.md §5)."""
+    """Undo the PNG row filters in numpy: raw (h * (1 + stride),) uint8 ->
+    (h, stride) uint8, bpp the filter's byte distance (bytes a pixel).
+    The plain version of `native.png_unfilter`, which `read_png` runs; the
+    tests hold the C code to it. None, Sub and Up go a row at a time. A
+    file with Average or Paeth rows (libpng's adaptive choice, as dataset
+    files are written), whose bytes depend on the decoded byte bpp to the
+    left, goes by anti-diagonals of pixels, every row at once
+    (`_unfilter_wavefront`), at a Python step a diagonal."""
     rows = raw.reshape(h, 1 + stride)
     ftypes, lines = rows[:, 0], rows[:, 1:]
     if ftypes.max(initial=0) > 4:
@@ -116,40 +133,101 @@ def _unfilter_wavefront(ftypes: np.ndarray, lines: np.ndarray,
     return P[1:, 1:].astype(np.uint8).reshape(h, stride)
 
 
+def _samples(rows: np.ndarray, w: int, depth: int, ch: int) -> np.ndarray:
+    """Unfiltered rows (h, stride) uint8 -> (h, w, ch) samples: uint8 for
+    depths up to 8 (sub-byte samples unpacked, first in the high bits),
+    uint16 for 16."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, w, ch)
+    if depth < 8:
+        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+        rows = (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(
+            -1, dtype=np.uint8)
+    return rows[:, :w * ch].reshape(h, w, ch)
+
+
+def _decode(raw: np.ndarray, h: int, w: int, depth: int, ch: int):
+    """One non-interlaced image (or Adam7 pass) of raw rows -> (h, w, ch)
+    samples and the bytes it took."""
+    stride = -(-w * ch * depth // 8)
+    n = h * (1 + stride)
+    bpp = max(1, ch * depth // 8)
+    return _samples(native.png_unfilter(raw[:n], h, stride, bpp), w, depth,
+                    ch), n
+
+
 def read_png(path: str) -> np.ndarray:
-    """Decode a PNG as stored: (H, W) for gray, (H, W, C) with the file's
-    channel order (RGB, RGBA, gray + alpha) otherwise; uint8 or uint16."""
+    """Decode a PNG: (H, W) for gray, (H, W, C) with the file's channel
+    order (RGB, RGBA, gray + alpha) otherwise; uint8 or uint16. Gray of 1,
+    2 or 4 bits is scaled to 8 bits and a palette image expanded to RGB,
+    or to RGBA when it has a tRNS chunk, as cv2's IMREAD_UNCHANGED
+    gives them."""
     with open(path, "rb") as f:
         data = f.read()
-    ihdr, idat = None, []
+    ihdr, idat, plte, trns = None, [], None, None
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
             ihdr = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"PLTE":
+            plte = body
+        elif kind == b"tRNS":
+            trns = body
     if ihdr is None:
         raise ValueError(f"PNG without IHDR: {path}")
     w, h, depth, ctype, _, _, interlace = ihdr
-    if ctype == 3:
-        raise NotImplementedError(f"palette PNG (colour type 3): {path}")
     if ctype not in _CHANNELS:
         raise ValueError(f"bad PNG colour type {ctype}: {path}")
-    if depth not in (8, 16):
-        raise NotImplementedError(f"PNG bit depth {depth} (only 8 and 16 "
-                                  f"are decoded): {path}")
-    if interlace:
-        raise NotImplementedError(f"Adam7-interlaced PNG: {path}")
+    if depth not in _DEPTHS[ctype]:
+        raise ValueError(f"bad PNG bit depth {depth} for colour type "
+                         f"{ctype}: {path}")
+    if interlace > 1:
+        raise ValueError(f"bad PNG interlace method {interlace}: {path}")
+    if ctype == 3 and plte is None:
+        raise ValueError(f"palette PNG without PLTE: {path}")
     ch = _CHANNELS[ctype]
-    bpp = ch * depth // 8
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (1 + w * bpp):
+    # each pass's (first row, first column, row step, column step, rows,
+    # columns); an empty pass has no bytes at all
+    passes = [(y0, x0, dy, dx, -(-(h - y0) // dy), -(-(w - x0) // dx))
+              for y0, x0, dy, dx in (_ADAM7 if interlace else
+                                     ((0, 0, 1, 1),))]
+    passes = [p for p in passes if p[4] > 0 and p[5] > 0]
+    # the inflated size, so zlib fills one buffer in one call without the
+    # interpreter lock (a growing buffer takes the lock back at each step)
+    size = sum(ph * (1 + -(-pw * ch * depth // 8))
+               for *_, ph, pw in passes)
+    raw = np.frombuffer(zlib.decompress(b"".join(idat),
+                                        bufsize=max(size, 1)), np.uint8)
+    if raw.size != size:
         raise ValueError(f"PNG image data of {raw.size} bytes, expected "
-                         f"{h * (1 + w * bpp)}: {path}")
-    img = _unfilter(raw, h, w * bpp, bpp)
-    if depth == 16:
-        img = img.view(">u2").astype(np.uint16)
-    img = img.reshape(h, w, ch)
+                         f"{size}: {path}")
+    img = np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for y0, x0, dy, dx, ph, pw in passes:
+        img[y0::dy, x0::dx], n = _decode(raw[pos:], ph, pw, depth, ch)
+        pos += n
+    if ctype == 3:
+        return _palette(img[..., 0], plte, trns)
+    if depth < 8:
+        img = img * np.uint8(255 // ((1 << depth) - 1))
     return img[..., 0] if ch == 1 else img
+
+
+def _palette(idx: np.ndarray, plte: bytes, trns) -> np.ndarray:
+    """Palette indices (H, W) -> RGB, or RGBA with a tRNS chunk (entries
+    past it opaque); indices past the palette read as black, as libpng's
+    zero-filled 256-entry palette gives them."""
+    lut = np.zeros((256, 4), np.uint8)
+    lut[:, 3] = 255
+    n = min(len(plte) // 3, 256)
+    lut[:n, :3] = np.frombuffer(plte, np.uint8, 3 * n).reshape(n, 3)
+    if trns is None:
+        return lut[idx, :3]
+    a = np.frombuffer(trns, np.uint8)[:256]
+    lut[:a.size, 3] = a
+    return lut[idx]
 
 
 def _png_chunk(kind: bytes, body: bytes) -> bytes:
@@ -244,6 +322,11 @@ def _read_any(path: str) -> np.ndarray:
         return read_png(path)
     if head[:2] in (b"P5", b"P2"):
         return read_pgm(path)
+    for magic, name in _REFUSED:
+        if head.startswith(magic):
+            raise NotImplementedError(
+                f"{name} image {path}: the port reads PNG and P5/P2 PGM "
+                f"(cv2's {name} decoder is not carried)")
     raise NotImplementedError(f"image format of {path} (PNG and P5/P2 PGM "
                               f"are read)")
 

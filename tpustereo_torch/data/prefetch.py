@@ -1,12 +1,12 @@
 """Prefetching frame-pair iterators: the odometry loop streams frames, so
 decoding should overlap the device's work, never serialise with it. A copy
-of the JAX package's `data/prefetch.py` without its native loader (the
-port leaves `native/` out): a Python thread stays `depth` items ahead.
-How much of a decode overlaps the loop depends on the file: zlib and a
-row-at-a-time decode run in a few large calls, while an Average or Paeth
-file takes a Python step an anti-diagonal, which holds the interpreter
-lock between its small numpy calls (`chip_smoke.py` step 21 times the
-CLI's odometry over both kinds of file with prefetch 0 and 2).
+of the JAX package's `data/prefetch.py`: a Python thread stays `depth`
+items ahead. Its decode overlaps the loop because the heavy parts of a PNG
+run outside the interpreter lock: the inflate in `zlib`, the row filters
+in C (`tpustereo_torch.native`, the counterpart of the JAX package's
+native loader), the gray conversion in whole-array numpy. (`chip_smoke.py`
+step 21 times the CLI's odometry over libpng adaptive files with prefetch
+0 and 2, beside the same frames as arrays.)
 """
 
 from __future__ import annotations

@@ -3,14 +3,16 @@
 the cost volume, and one minimum over the packed cost * shift + d resolves
 the winner, ties to the smallest d as the single-device argmin. For the
 WTA-on-raw-cost modes (census_wta, sad): SGM couples every d. Plain
-PyTorch (the JAX function has no Pallas kernel); on the mesh's one device
-the slices run in turn."""
+PyTorch (the JAX function has no Pallas kernel). On a one-process mesh the
+slices run in turn; across ranks each rank of the strip axis runs its own
+slice and `comm.all_reduce_min` combines them, as the JAX `pmin` does."""
 
 from __future__ import annotations
 
 import torch
 
 from tpustereo_torch.config import Config
+from tpustereo_torch.dist import comm
 from tpustereo_torch.dist.mesh import Mesh
 from tpustereo_torch.ops import census, cost_volume, sad_volume
 from tpustereo_torch.ops.wta import next_pow2
@@ -37,14 +39,22 @@ def wta_disparity_sharded(left: torch.Tensor, right: torch.Tensor,
     else:
         cl = census(left, cfg.census_window)
         cr = census(right, cfg.census_window)
-    best = None
-    for i in range(n):
+
+    def packed_min(i: int) -> torch.Tensor:
+        """The minimum of cost * shift + d over slice i of D."""
         if cfg.mode == "sad":
             vol = full[..., i * Dl:(i + 1) * Dl]
         else:
             vol = cost_volume(cl, cr, Dl, cfg.max_census_cost,
                               cfg.min_disparity + i * Dl).to(torch.int32)
         jj = i * Dl + torch.arange(Dl, dtype=torch.int32, device=dev)
-        local = (vol * shift + jj).amin(-1)
-        best = local if best is None else torch.minimum(best, local)
+        return (vol * shift + jj).amin(-1)
+
+    if mesh.ranks is not None:
+        best = comm.all_reduce_min(packed_min(mesh.ranks.strip),
+                                   mesh.ranks.strip_group)
+    else:
+        best = packed_min(0)
+        for i in range(1, n):
+            best = torch.minimum(best, packed_min(i))
     return ((best & (shift - 1)) + cfg.min_disparity).to(torch.float32)

@@ -26,6 +26,7 @@ from tpustereo_torch import dist
 from tpustereo_torch.api import _as_u8, _device
 from tpustereo_torch.config import Config
 from tpustereo_torch.data.datasets import KittiCalib
+from tpustereo_torch.dist.mesh import same_device
 from tpustereo_torch.odometry import fused
 from tpustereo_torch.odometry.fused import batched_candidate_match
 from tpustereo_torch.odometry.pnp import gauss_newton_pose
@@ -78,7 +79,10 @@ class _Keyframe:
 class StereoOdometry:
     """Runs on `device` ("cuda" unless the caller passes "cpu"; raises when
     CUDA is absent). With `cfg.strips > 1` the matcher tiles each frame
-    over `mesh`'s strips (by default `cfg.strips` strips on `device`)."""
+    over `mesh`'s strips (by default `cfg.strips` strips on `device`). A
+    mesh over several ranks (`dist.make_mesh` in each) lies on the rank's
+    device: every rank tracks on the gathered map, so the poses are the
+    same on all of them."""
 
     def __init__(self, calib: KittiCalib, cfg: Optional[Config] = None,
                  ocfg: Optional[OdometryConfig] = None, device="cuda",
@@ -89,7 +93,7 @@ class StereoOdometry:
         self.device = _device(device)
         if mesh is None and self.cfg.strips > 1:
             mesh = dist.make_mesh(1, self.cfg.strips, device=self.device)
-        if mesh is not None and mesh.device != self.device:
+        if mesh is not None and not same_device(mesh.device, self.device):
             raise ValueError(f"the mesh is on {mesh.device}, the odometry on "
                              f"{self.device}")
         self._mesh = mesh
