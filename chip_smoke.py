@@ -237,11 +237,14 @@ The user's entry points (`cli`, `eval.bench`, `eval.roofline`,
    adaptive-filter frame (`tests/data/adaptive_image_0.png`, Paeth rows)
    beside the port's filter-None copy of it, and the CLI's ms a frame
    with prefetch 0 and 2 over that tree and over a static tree of the
-   committed pair (30 frames; the median of 3 runs each), beside
-   `api.run_sequence` on the arrays (each CLI run equal to the arrays'
-   run), requires the adaptive tree at prefetch 2 to be no slower than at
-   prefetch 0 and prints its ratio to the arrays. Prints `step 21: ...
-   s`.
+   committed pair (30 frames), beside `api.run_sequence` on the arrays
+   (each CLI run equal to the arrays' run), over the files decoded by
+   `prefetch_pairs` (a thread) and by a forked worker process, and on the
+   arrays beside the C unfilter looping in a thread and in a process of
+   its own (the median of 3 rounds in turns), with the host's usable CPUs
+   and CPU quota and the forked worker's first pair; requires the
+   adaptive tree at prefetch 2 to be no slower than at prefetch 0 and
+   prints the ratios to the arrays. Prints `step 21: ... s`.
 
 Several ranks, one process each (`torch.distributed`; the kernels are
 built before any rank starts):
@@ -2550,15 +2553,19 @@ def entry_points_path(card: str, shared: dict) -> None:
     """Step 21: the user's entry points at full width (see the module's
     docstring). `shared` holds step 19's sequence and calibration, and in
     "refs" each path's ms a frame by events from its earlier step."""
+    import multiprocessing
     import os
     import shutil
+    import sys
     import tempfile
+    import threading
+    import zlib
 
     import torch
-    from tpustereo_torch import PRESETS, api, dist
+    from tpustereo_torch import PRESETS, api, dist, native
     from tpustereo_torch.bench.__main__ import main as bench_main
     from tpustereo_torch.cli.main import main as cli_main
-    from tpustereo_torch.data import io, synthetic_pair
+    from tpustereo_torch.data import io, prefetch_pairs, synthetic_pair
     from tpustereo_torch.eval.bench import (odometry_loop, run_benchmark,
                                             run_odometry_benchmark)
     from tpustereo_torch.eval.roofline import roofline, shares
@@ -2794,40 +2801,143 @@ def entry_points_path(card: str, shared: dict) -> None:
     static = kitti_tree("adaptive", lambda i, lp, rp: [
         shutil.copyfile(s, d) for s, d in zip(fixture, (lp, rp))], n_static)
 
-    def median3(fn, n: int = 10):
-        """fn()'s value and the median of three runs' ms a frame."""
-        runs = [timed(fn, n) for _ in range(3)]
-        return runs[0][0], float(np.median([t for _, t in runs]))
+    def arrays_loop():
+        return api.run_sequence([tuple(pair)] * n_static, calib,
+                                PRESETS["kitti_odometry"])
 
-    want, ms["arrays, the adaptive pair"] = median3(lambda: api.run_sequence(
-        [tuple(pair)] * n_static, calib, PRESETS["kitti_odometry"]),
-        n_static)
-    want = want[:, :3, :].reshape(n_static, 12)
-    trajs = {}
+    # what concurrent decode work costs the host-bound loop: the loop over
+    # the adaptive pair beside the C unfilter called without a break, from
+    # a thread of this process (which takes the interpreter lock between
+    # calls) and from a process of its own (which shares only the cores)
+    with open(fixture[0], "rb") as f:
+        png = f.read()
+    raw = np.frombuffer(zlib.decompress(b"".join(
+        b for k, b in io._chunks(png, fixture[0]) if k == b"IDAT")), np.uint8)
+    h, w = pair[0].shape
+
+    def beside_thread():
+        stop = threading.Event()
+
+        def unfilter_loop():
+            while not stop.is_set():
+                native.png_unfilter(raw, h, w, 1)
+        t = threading.Thread(target=unfilter_loop, daemon=True)
+        t.start()
+        try:
+            return timed(arrays_loop, n_static)
+        finally:
+            stop.set()
+            t.join()
+
+    def beside_process():
+        busy = subprocess.Popen([sys.executable, "-c", (
+            "import zlib, numpy as np\n"
+            "from tpustereo_torch import native\n"
+            "from tpustereo_torch.data import io\n"
+            f"png = open({fixture[0]!r}, 'rb').read()\n"
+            "raw = np.frombuffer(zlib.decompress(b''.join(b for k, b in "
+            "io._chunks(png, '') if k == b'IDAT')), np.uint8)\n"
+            "print('ready', flush=True)\n"
+            f"while True: native.png_unfilter(raw, {h}, {w}, 1)\n")],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, text=True)
+        try:
+            require(busy.stdout.readline().strip() == "ready",
+                    "the unfilter process did not start")
+            return timed(arrays_loop, n_static)
+        finally:
+            busy.kill()
+            busy.wait()
+
+    def cli_run(args, n_frames, n, out):
+        return lambda: timed(lambda: cli_main(
+            args + ["--max-frames", str(n_frames), "--prefetch", str(n),
+                    "--out", out]), n_frames)
+
+    cases = {"arrays, the adaptive pair": lambda: timed(arrays_loop,
+                                                        n_static)}
+    outs = {}
     for tree, args, n_frames in (("filter None", odo, 10),
                                  ("adaptive", static, n_static)):
         for n in (0, 2):
-            out = os.path.join(work, f"{tree[0]}{n}.txt")
-            _, ms[f"CLI, {tree} files, prefetch {n}"] = median3(
-                lambda: cli_main(args + ["--max-frames", str(n_frames),
-                                         "--prefetch", str(n), "--out",
-                                         out]), n_frames)
-            trajs[tree, n] = np.loadtxt(out)
+            outs[tree, n] = os.path.join(work, f"{tree[0]}{n}.txt")
+            cases[f"CLI, {tree} files, prefetch {n}"] = cli_run(
+                args, n_frames, n, outs[tree, n])
+    # two designs of the prefetch over the adaptive tree's files: the
+    # port's (prefetch_pairs, a thread of this process) and the decode in a
+    # worker process forked here, `depth` 2 each
+    files = [tuple(os.path.join(static[-1], "sequences", "00", sub,
+                                f"{i:06d}.png")
+                   for sub in ("image_0", "image_1"))
+             for i in range(n_static)]
+
+    def forked_decode(paths, depth: int = 2):
+        ctx = multiprocessing.get_context("fork")
+        q = ctx.Queue(depth)
+
+        def work():
+            for lp, rp in paths:
+                q.put((io.read_image_gray(lp), io.read_image_gray(rp)))
+            q.put(None)
+            q.close()
+            q.join_thread()
+        proc = ctx.Process(target=work, daemon=True)
+        proc.start()
+        try:
+            while (item := q.get(timeout=60)) is not None:
+                yield item
+        finally:
+            proc.kill()
+            proc.join()
+
+    cases["files, decoded in a thread (prefetch_pairs, 2)"] = lambda: timed(
+        lambda: api.run_sequence(prefetch_pairs(files, 2), calib,
+                                 PRESETS["kitti_odometry"]), n_static)
+    cases["files, decoded in a forked process (2)"] = lambda: timed(
+        lambda: api.run_sequence(forked_decode(files), calib,
+                                 PRESETS["kitti_odometry"]), n_static)
+    cases["arrays, a thread running the C unfilter"] = beside_thread
+    cases["arrays, a process running the C unfilter"] = beside_process
+    # three rounds in turns, so that a drift of the host's speed within the
+    # process weighs on every case alike; each case's median
+    runs = {name: [] for name in cases}
+    for _ in range(3):
+        for name, case in cases.items():
+            value, t = case()
+            runs[name].append(t)
+            if name == "arrays, the adaptive pair":
+                want = value[:, :3, :].reshape(n_static, 12)
+            elif name.startswith("files"):
+                require(np.abs(value[:, :3, :].reshape(n_static, 12)
+                               - want).max() <= 1e-5,
+                        f"the odometry over the {name} differs")
+    ms.update({name: float(np.median(t)) for name, t in runs.items()})
+    first = []          # the forked worker's first pair: its start, a decode
+    for _ in range(3):
+        t0 = time.perf_counter()
+        it = forked_decode(files[:2])
+        next(it)
+        first.append((time.perf_counter() - t0) * 1e3)
+        it.close()
+    trajs = {key: np.loadtxt(out) for key, out in outs.items()}
+    quota = "not found"
+    for q in ("/sys/fs/cgroup/cpu.max", "/sys/fs/cgroup/cpu/cpu.cfs_quota_us"):
+        if os.path.exists(q):
+            with open(q) as f:
+                quota = f"{q}: {f.read().strip()}"
     print(f"[{card}] odometry over 10 frames (the adaptive pair and its "
           f"tree: {n_static}), ms a frame by the host clock (the process's "
-          f"first frame included; the adaptive pair and the CLI runs the "
-          f"median of 3): {ms}", flush=True)
-    # the row filters run outside the interpreter lock
-    # (tpustereo_torch.native), so prefetching overlaps the decode with
-    # the loop; how close that comes to the arrays' loop is printed, not
-    # required: on a host where a thread's concurrent work slows the
-    # host-bound loop itself, it varies from run to run (PERF.md §6;
-    # `python -m tpustereo_torch.bench.decode_overlap` measures it)
+          f"first frame included; from the adaptive pair on, the median of "
+          f"3 rounds in turns; host: {len(os.sched_getaffinity(0))} usable "
+          f"CPUs, CPU quota {quota}): {ms}", flush=True)
     p0, p2 = (ms[f"CLI, adaptive files, prefetch {n}"] for n in (0, 2))
     arrays_ms = ms["arrays, the adaptive pair"]
+    ratio = {name: round(t / arrays_ms, 3) for name, t in ms.items()
+             if name.startswith(("files", "arrays, a"))}
     print(f"[{card}] CLI over adaptive PNGs: prefetch 2 / prefetch 0 = "
-          f"{p2 / p0:.3f}; prefetch 2 / arrays = {p2 / arrays_ms:.3f}",
-          flush=True)
+          f"{p2 / p0:.3f}; prefetch 2 / arrays = {p2 / arrays_ms:.3f}; "
+          f"against the arrays: {ratio}; the forked process's first pair "
+          f"after {[round(t, 1) for t in first]} ms", flush=True)
     require(p2 <= p0, "prefetch 2 is slower than prefetch 0 over adaptive "
             "PNGs")
     for (tree, n), t in trajs.items():

@@ -23,7 +23,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Optional, Sequence
+from typing import Optional
 
 _TAG = "RANKRESULT "
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -38,13 +38,13 @@ def _free_port() -> int:
 
 def launch(n: int, target: str, payload, *, device: str,
            backend: Optional[str] = None, init_method: Optional[str] = None,
-           timeout: float = 600.0, pythonpath: Sequence[str] = ()) -> list:
+           timeout: float = 600.0) -> list:
     """Run target(payload) in n ranks over `backend` on `device` ("cuda":
     each rank's card, `mesh.init_distributed`; the CUDA kernels are built
     first, in this process). `backend` by default: `nccl` where every rank
     has a card of its own, else `gloo` (the CPU, or ranks sharing a card).
-    The repo and `pythonpath` are on the ranks' import path. -> each
-    rank's JSON return value, in rank order. Raises `RuntimeError` with a failing rank's
+    The repo is on the ranks' import path. -> each rank's JSON return
+    value, in rank order. Raises `RuntimeError` with a failing rank's
     output when any rank fails, and when the ranks have not all ended
     within `timeout` seconds (every rank is then killed)."""
     if device.startswith("cuda"):
@@ -62,8 +62,7 @@ def launch(n: int, target: str, payload, *, device: str,
         init=init_method or f"tcp://127.0.0.1:{_free_port()}"))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
-        [REPO, *pythonpath]
-        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+        [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
     if device == "cpu":
         env.setdefault("OMP_NUM_THREADS", "1")
     logs, procs = [], []

@@ -41,20 +41,19 @@ def entry(device="cuda"):
     return functools.partial(sgbm_batched, cfg=cfg), (lefts, rights)
 
 
-def dryrun_multichip(n_devices: int, device="cuda",
-                     backend: Optional[str] = None, timeout: float = 300.0,
+def dryrun_multichip(n_devices: int, device="cuda", timeout: float = 300.0,
                      init_method: Optional[str] = None) -> dict:
     """One step of the full distributed composition over n ranks, one
     process each (`dist.launch`), on tiny shapes: batch data parallelism
     over 'data' x strip tiling over 'strip' in exact (ring carry) and halo
     mode, then BASELINE config 5 end to end, the odometry over the
     strip-tiled matcher at a height that does not divide by the strips.
-    `backend` and `init_method` as `dist.launch.launch` picks them by
-    default. Raises if a rank fails or the ranks disagree; returns rank
+    `dist.launch.launch` picks the backend; `init_method` names the
+    store (loopback tcp by default). Raises if a rank fails or the ranks disagree; returns rank
     0's summary."""
     from tpustereo_torch.dist.launch import launch
     res = launch(n_devices, "tpustereo_torch.graft_entry:_dryrun_rank",
-                 {"device": device}, backend=backend, device=device,
+                 {"device": device}, device=device,
                  init_method=init_method, timeout=timeout)
     if any(r != res[0] for r in res):
         raise RuntimeError(f"the ranks of the dry run disagree: {res}")
