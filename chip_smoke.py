@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the eighteen CUDA kernels (twelve libraries) from
+Builds the nineteen CUDA kernels (thirteen libraries) from
 `tpustereo_torch/csrc/` with nvcc, then runs the port's paths.
 
 The KITTI 8-path SGM preset as it stands (`PRESETS["kitti_sgm8"]`: speckle
@@ -11,23 +11,33 @@ window 100, range 2, the 3x3 median), at full KITTI size (375 x 1242,
 D = 128, 8 frames, 4 per set of kernel launches):
 
 1. builds the kernels and prints what ptxas says of each;
-2. runs each of the path's six kernels and its plain PyTorch version on the
+2. runs each of the path's seven kernels and its plain PyTorch version on the
    card at the main path's shapes (the speckle and median kernels on the
    main path's own disparity maps) and requires integer and bool outputs
    to be equal, the median bit for bit (also on a map of signed zeros) and
    the float disparity to agree within 1e-6, the census kernel also on
-   one 2 x 9,000 frame (past the width its earlier design took), and the
-   sweep in both forms (S = L_r and S += L_r) in all eight directions;
+   one 2 x 9,000 frame (past the width its earlier design took), the
+   sweep in both forms (S = L_r and S += L_r) in all eight directions,
+   and the fused sweep (`sgm_sweep_fused`: the down set {S, SE, SW} or
+   the up set {N, NE, NW} in one pass) written in one order and added in
+   the other, also on one 375 x 1242 frame at D = 512, whose tiles
+   outnumber the blocks the card holds;
 3. drives `api.match_batch` on 8 synthetic pairs with every launch counter
    set to 0 just before, requires every kernel of the path to have
-   launched, the sweeps as one write and six adds a set of frames (2 and
-   12 a batch), and holds the output against the plain PyTorch pipeline
+   launched, the sweeps as a fused write, a fused add and the one-direction
+   E add a set of frames (2, 2 and 2 a batch, no other one-direction
+   sweep), and holds the output against the plain PyTorch pipeline
    (the JAX package's jnp formulation, ported) run on the card;
 4. times each kernel, its plain version, `component_big`, the whole path,
    and the whole path with speckle and the median off, with CUDA events,
    and the LR check, labelling and median kernels also by CUDA-graph
    replay (the device's time, without the host's per launch), and the
-   sweep in each direction and form by both, beside its byte bound; counts
+   sweep in each direction and form by both, beside its byte bound; the
+   fused launches by both beside theirs; a set's sweeps (the fused
+   schedule against the seven one-direction launches, beside the set's
+   bound of one read of C) and `sgm_select` (against the seven launches
+   and `sweep_bwd_wta`) by events in turns, each fused one required
+   faster; counts
    the labelling's kernel launches a call (profiler); requires that no
    fill of a tensor the size of S7 runs in a batch (profiler, with
    shapes); prints them beside the card's name and power limit.
@@ -149,9 +159,10 @@ Adaptive P2 (`adaptive_p2=True`, the per-pixel P2' of the left image):
    path's shapes (`torch.equal`; disparity within 1e-6); drives
    `kitti_sgm8` with `adaptive_p2=True` through `api.match_batch` on step
    3's 8 pairs with the counters set to 0 just before, and again under
-   `BIDIR_VERT`: requires the six kernels, the adaptive builds alone (2
-   adaptive writes and 12 adaptive adds of `sgm_sweep`, 2 adaptive
-   `sweep_bwd_wta`) and no `sgm_sweep_bidir` or transpose in either run,
+   `BIDIR_VERT`: requires the seven kernels, the adaptive builds alone (2
+   adaptive writes and 2 adaptive adds of `sgm_sweep_fused`, 2 adaptive
+   adds of `sgm_sweep`, the E sweep, 2 adaptive `sweep_bwd_wta`) and no
+   `sgm_sweep_bidir` or transpose in either run,
    the same output, the plain pipeline's output and step 3's bar against
    the synthetic truth (valid > 0.9, bad-2.0 < 0.05, which the plain
    pipeline meets); times each direction and form by CUDA-graph replay,
@@ -169,7 +180,7 @@ Stereo odometry over `PRESETS["kitti_odometry"]` with `strips=1` (D = 128,
 376 x 1241, with sequence 00's focal length and baseline:
 
 19. drives `api.run_sequence` over a straight 32-frame synthetic sequence
-   with the counters set to 0 just before, requires the six kernels' counts
+   with the counters set to 0 just before, requires the seven kernels' counts
    of one set of frames (step 3) times the 32 matcher calls and no other
    kernel, and the JAX unit test's bars (final position error < 0.2 x the
    distance travelled, final x > 0.6 x the true x); repeats the JAX
@@ -198,7 +209,7 @@ in exact mode, at 376 x 1241, D = 128:
    one; exact mode at 2 and 4 strips against the untiled `sgbm` (invalid
    pattern exact, disparity within 1e-6) with the ring on the carry
    forms; `api.run_sequence` over step 19's straight run with the preset
-   as shipped, with the counters set to 0 just before (the six kernels'
+   as shipped, with the counters set to 0 just before (the seven kernels'
    counts of one set of frames times 32, nothing else), the bars of step
    19 and, against its strips=1 run, 0.02 m and 0.01 (the JAX
    `test_odometry_tiled.py` bars), and one host synchronisation of a
@@ -244,7 +255,13 @@ The user's entry points (`cli`, `eval.bench`, `eval.roofline`,
    its own (the median of 3 rounds in turns), with the host's usable CPUs
    and CPU quota and the forked worker's first pair; requires the
    adaptive tree at prefetch 2 to be no slower than at prefetch 0 and
-   prints the ratios to the arrays. Prints `step 21: ... s`.
+   prints the ratios to the arrays; the CLI at prefetch 2 and
+   `run_sequence` over `prefetch_pairs` of the same files also stamp each
+   tracked step, and the CLI's surplus prints split into a per-run part
+   (up to the first step and after the last) and a per-frame part (in the
+   steps and between them), each case beside the cyclic collector's
+   pauses in it.
+   Prints `step 21: ... s`.
 
 Several ranks, one process each (`torch.distributed`; the kernels are
 built before any rank starts):
@@ -261,7 +278,7 @@ built before any rank starts):
    one-process sharded WTA, step 20's tiled trajectory). Prints, per
    call, rank 0's `dist.comm` messages and kB a frame and each rank's ms
    a frame (CUDA events; the odometry by the host clock), labelled as
-   ranks sharing one card, not scaling; requires the six KITTI kernels
+   ranks sharing one card, not scaling; requires the seven KITTI kernels
    on the 2-rank halo path. Where the machine has two cards, the 2-rank
    checks run again under `nccl`, one rank a card; else one line says
    that phase needs two cards. Then `eval.multihost.run_multihost_bench(2,
@@ -273,14 +290,15 @@ The timers (`cuda_ms`, `graph_ms`), the profiler's busy share
 integer operations over 67e12/s, the larger) are the harness's and the
 roofline's (`eval/bench.py`, `eval/roofline.py`).
 
-Prints a `{"kernels": [...]}` line with all eighteen kernels, every TPU
-kernel's port (the launches of the KITTI six from step 3, those of
+Prints a `{"kernels": [...]}` line with all nineteen kernels, every TPU
+kernel's port (the launches of the KITTI seven from step 3, those of
 `sad_wta` and `wta_lr` from their presets' runs in step 6,
 `transpose_hw`'s from step 9, `transpose_sum_hw`'s and `sgm_sweep_bidir`'s
 from step 10, `dr_consistency_hits`'s from step 13, `bitonic_sort`'s from
-step 15 and kernel 13's five from step 17; `sgm_sweep` and
-`sweep_bwd_wta` also carry `adaptive_launches` and `adaptive_ms` from
-step 18, the KITTI six `odometry_launches` from step 19 and
+step 15 and kernel 13's five from step 17; `sgm_sweep`,
+`sgm_sweep_fused` and `sweep_bwd_wta` also carry `adaptive_launches` and
+`adaptive_ms` from step 18, the KITTI seven `odometry_launches` from step
+19 and
 `tiled_launches` from step 20, and `sgm_sweep` its carry forms'
 `carry_launches` (exact mode, 2 strips, 8 frames), `carry_ms`,
 `carry_bound_ms` and `carry_max_abs_err` from step 20, and the KITTI
@@ -314,6 +332,8 @@ KERNELS = {
                            "tpustereo/kernels/cost_pallas.py:164"),
     "sgm_sweep": ("tpustereo_torch/csrc/sgm_sweep.cu",
                   "tpustereo/kernels/sgm_pallas.py:664"),
+    "sgm_sweep_fused": ("tpustereo_torch/csrc/sgm_fused.cu",
+                        "tpustereo/kernels/sgm_pallas.py:664"),
     "sweep_bwd_wta": ("tpustereo_torch/csrc/bwd_wta.cu",
                       "tpustereo/kernels/sgm_pallas.py:1225"),
     "dr_consistency": ("tpustereo_torch/csrc/lr_check.cu",
@@ -1750,7 +1770,9 @@ def adaptive_path(card: str, kitti: dict) -> dict:
 
     import torch
     from tpustereo_torch import PRESETS, api, kernels
-    from tpustereo_torch.kernels.sgm import (sgm_sweep_plain,
+    from tpustereo_torch.kernels.sgm import (VERTICAL_DXS,
+                                             sgm_sweep_fused_plain,
+                                             sgm_sweep_plain,
                                              sweep_bwd_wta_plain)
     from tpustereo_torch.ops.sgm import DIRS_4, DIRS_8
     from tpustereo_torch.pipeline import (select_and_refine, sgbm_batched,
@@ -1797,9 +1819,24 @@ def adaptive_path(card: str, kitti: dict) -> dict:
     bwd_err = (disp - disp_p).abs().max().item()
     require(bwd_err <= DISP_TOL, "adaptive sweep_bwd_wta disp differs")
     del disp, valid, d_r, disp_p, valid_p, d_r_p
+    fused_err = 0
+    for first in (1, -1):
+        S_k = kernels.sgm_sweep_fused(C, None, first, VERTICAL_DXS, p1, p2,
+                                      Lf)
+        S_p = sgm_sweep_fused_plain(C, None, first, VERTICAL_DXS, p1, p2, Lf)
+        kernels.sgm_sweep_fused(C, S_k, -first, VERTICAL_DXS, p1, p2, Lf)
+        S_q = sgm_sweep_fused_plain(C, S_p.clone(), -first, VERTICAL_DXS, p1,
+                                    p2, Lf)
+        kernels.sgm_sweep_fused(C, S_p, first, VERTICAL_DXS, p1, p2, Lf)
+        torch.cuda.synchronize()
+        require(torch.equal(S_k, S_q), f"adaptive sgm_sweep_fused differs "
+                f"(dy={first} written, {-first} added)")
+        fused_err = max(fused_err, int_err(S_k, S_q))
+        del S_k, S_p, S_q
     print(f"check adaptive sgm_sweep (8 directions, both forms): max abs "
-          f"diff to plain = {sweep_err}; adaptive sweep_bwd_wta: {bwd_err}",
-          flush=True)
+          f"diff to plain = {sweep_err}; adaptive sgm_sweep_fused (both "
+          f"orders and forms): {fused_err}; adaptive sweep_bwd_wta: "
+          f"{bwd_err}", flush=True)
 
     # --- the path, through the user's entry point, also under BIDIR_VERT
     runs = {}
@@ -1811,20 +1848,24 @@ def adaptive_path(card: str, kitti: dict) -> dict:
             torch.cuda.synchronize()
             runs[bidir] = (out, kernels.launch_counts(),
                            dict(kernels.sgm_sweep.builds),
-                           dict(kernels.sweep_bwd_wta.builds))
+                           dict(kernels.sweep_bwd_wta.builds),
+                           dict(kernels.sgm_sweep_fused.builds))
         finally:
             ksgm.BIDIR_VERT = False
-    out, launches, forms, bwd_builds = runs[False]
+    out, launches, forms, bwd_builds, fused_forms = runs[False]
     print(f"kitti_sgm8 + adaptive_p2 launches: {launches}; sgm_sweep forms: "
-          f"{forms}; sweep_bwd_wta builds: {bwd_builds}", flush=True)
-    for bidir, (o, la, fo, bb) in runs.items():
+          f"{forms}; sgm_sweep_fused forms: {fused_forms}; sweep_bwd_wta "
+          f"builds: {bwd_builds}", flush=True)
+    for bidir, (o, la, fo, bb, ff) in runs.items():
         for name in KERNELS:
             require(la[name] > 0, f"{name} was not launched on the adaptive "
                     f"path (BIDIR_VERT {bidir})")
-        require(fo == dict(forms0, write_adaptive=BATCH // F,
-                           add_adaptive=6 * BATCH // F),
-                f"the adaptive path's sweeps ran {fo}, not one adaptive "
-                f"write and six adaptive adds a set of frames (BIDIR_VERT "
+        require(ff == dict(forms0, write_adaptive=BATCH // F,
+                           add_adaptive=BATCH // F)
+                and fo == dict(forms0, add_adaptive=BATCH // F),
+                f"the adaptive path's sweeps ran {ff} fused and {fo} one "
+                f"direction a launch, not an adaptive fused write and add "
+                f"and the adaptive E add a set of frames (BIDIR_VERT "
                 f"{bidir})")
         require(bb == {"scalar": 0, "adaptive": BATCH // F},
                 f"the adaptive path's sweep_bwd_wta ran {bb} (BIDIR_VERT "
@@ -1886,6 +1927,31 @@ def adaptive_path(card: str, kitti: dict) -> dict:
 
     set_ms = {k: cuda_ms(lambda img=img: sweeps(img), 3) / len(dirs7)
               for k, img in (("scalar", None), ("adaptive", Lf))}
+    # the fused launches, adaptive beside scalar, by graph replay, and the
+    # main path's adaptive launches by events: the fused pair's mean, E
+    fg = {}
+    for kind, img in (("scalar", None), ("adaptive", Lf), ("adaptive2", Lf),
+                      ("scalar2", None)):
+        fg[kind] = [graph_ms(lambda img=img, dy=dy, S_in=S_in:
+                             kernels.sgm_sweep_fused(C, S_in, dy,
+                                                     VERTICAL_DXS, p1, p2,
+                                                     img), 5)
+                    for dy, S_in in ((1, None), (-1, S7.clone()))]
+    S_acc = S7.clone()
+    fused_adaptive_ms = (
+        cuda_ms(lambda: kernels.sgm_sweep_fused(C, None, 1, VERTICAL_DXS,
+                                                p1, p2, Lf), 10)
+        + cuda_ms(lambda: kernels.sgm_sweep_fused(
+            C, S_acc, -1, VERTICAL_DXS, p1, p2, Lf), 10)) / 2
+    e_adaptive_ms = cuda_ms(lambda: kernels.sgm_sweep(C, S_acc, 0, 1, p1, p2,
+                                                      Lf), 10)
+    del S_acc
+    print(f"[{card}] sgm_sweep_fused at KITTI F={F}, graph replay ms "
+          f"(down write, up add): {fg}; bounds "
+          f"{bound(3 * n_cost + n_pix, 0)[0]:.4f}, "
+          f"{bound(5 * n_cost + n_pix, 0)[0]:.4f} adaptive; by events: "
+          f"adaptive fused mean {fused_adaptive_ms:.4f} ms, adaptive E add "
+          f"{e_adaptive_ms:.4f} ms", flush=True)
     S7s = None
     for dy, dx in dirs7:
         S7s = kernels.sgm_sweep(C, S7s, dy, dx, p1, p2)
@@ -2009,7 +2075,10 @@ def adaptive_path(card: str, kitti: dict) -> dict:
           f"{bound(3 * nm_pix * D + 10 * nm_pix, 0)[0]:.4f}", flush=True)
     print(f"step 18: {time.perf_counter() - t_step:.1f} s", flush=True)
     return {"sgm_sweep": (forms["write_adaptive"] + forms["add_adaptive"],
-                          set_ms["adaptive"]),
+                          e_adaptive_ms),
+            "sgm_sweep_fused": (fused_forms["write_adaptive"]
+                                + fused_forms["add_adaptive"],
+                                fused_adaptive_ms),
             "sweep_bwd_wta": (bwd_builds["adaptive"],
                               (bwd["adaptive"][1] + bwd["adaptive2"][1]) / 2)}
 
@@ -2054,7 +2123,7 @@ def sync_sources(fn) -> list:
 def odometry_path(card: str, per_set: dict, shared: dict,
                   dev: str = "cuda") -> dict:
     """Step 19: stereo odometry at KITTI odometry size (see the module's
-    docstring). `per_set` holds the six KITTI kernels' launches of one set
+    docstring). `per_set` holds the seven KITTI kernels' launches of one set
     of frames (step 3); `shared` receives the straight run's sequence and
     trajectory for step 20. Returns {kernel: launches on the straight
     run}."""
@@ -2328,7 +2397,7 @@ def plain_tiled(L, R, cfg, strips: int):
 
 def tiled_path(card: str, per_set: dict, shared: dict) -> dict:
     """Step 20: the strip-tiled matcher at KITTI odometry size (see the
-    module's docstring). `per_set` holds the six KITTI kernels' launches
+    module's docstring). `per_set` holds the seven KITTI kernels' launches
     of one set of frames (step 3), `shared` step 19's straight run.
     Returns {kernel: extra keys of its row}."""
     import warnings
@@ -2553,6 +2622,7 @@ def entry_points_path(card: str, shared: dict) -> None:
     """Step 21: the user's entry points at full width (see the module's
     docstring). `shared` holds step 19's sequence and calibration, and in
     "refs" each path's ms a frame by events from its earlier step."""
+    import gc
     import multiprocessing
     import os
     import shutil
@@ -2569,6 +2639,7 @@ def entry_points_path(card: str, shared: dict) -> None:
     from tpustereo_torch.eval.bench import (odometry_loop, run_benchmark,
                                             run_odometry_benchmark)
     from tpustereo_torch.eval.roofline import roofline, shares
+    from tpustereo_torch.odometry import StereoOdometry
     from tpustereo_torch.eval.runner import (_eval_one, evaluate,
                                              synthetic_cases)
     from tpustereo_torch.pipeline import sgbm_batched
@@ -2899,19 +2970,82 @@ def entry_points_path(card: str, shared: dict) -> None:
     cases["arrays, a thread running the C unfilter"] = beside_thread
     cases["arrays, a process running the C unfilter"] = beside_process
     # three rounds in turns, so that a drift of the host's speed within the
-    # process weighs on every case alike; each case's median
+    # process weighs on every case alike; each case's median. The CLI and
+    # `run_sequence` over the same files at the same prefetch also stamp
+    # each tracked step on the host clock, which splits each run into a
+    # per-run part (up to the first step, after the last) and a per-frame
+    # part (from the first step to the last, over the frames)
     runs = {name: [] for name in cases}
-    for _ in range(3):
-        for name, case in cases.items():
-            value, t = case()
-            runs[name].append(t)
-            if name == "arrays, the adaptive pair":
-                want = value[:, :3, :].reshape(n_static, 12)
-            elif name.startswith("files"):
-                require(np.abs(value[:, :3, :].reshape(n_static, 12)
-                               - want).max() <= 1e-5,
-                        f"the odometry over the {name} differs")
+    split_cases = ("CLI, adaptive files, prefetch 2",
+                   "files, decoded in a thread (prefetch_pairs, 2)")
+    splits = {name: [] for name in split_cases}
+    stamps = []
+    step0 = StereoOdometry.step
+
+    def stamped(self, left, right):
+        t0 = time.perf_counter()
+        pose = step0(self, left, right)
+        stamps.append((t0, time.perf_counter()))
+        return pose
+
+    # the cyclic collector's pauses in a case: ms and gen-2 collections
+    pauses = {"ms": 0.0, "full": 0, "t0": 0.0}
+
+    def collector(phase, info):
+        if phase == "start":
+            pauses["t0"] = time.perf_counter()
+        else:
+            pauses["ms"] += (time.perf_counter() - pauses["t0"]) * 1e3
+            pauses["full"] += info["generation"] == 2
+
+    StereoOdometry.step = stamped
+    gc.callbacks.append(collector)
+    try:
+        for _ in range(3):
+            for name, case in cases.items():
+                stamps.clear()
+                pauses.update(ms=0.0, full=0)
+                t_a = time.perf_counter()
+                value, t = case()
+                t_b = time.perf_counter()
+                runs[name].append(t)
+                if name in splits:
+                    n = len(stamps)
+                    in_steps = sum(b - a for a, b in stamps)
+                    splits[name].append((
+                        (stamps[0][0] - t_a + t_b - stamps[-1][1]) * 1e3,
+                        (stamps[-1][1] - stamps[0][0]) / n * 1e3,
+                        in_steps / n * 1e3,
+                        (stamps[-1][1] - stamps[0][0] - in_steps) / n * 1e3,
+                        pauses["ms"], pauses["full"]))
+                if name == "arrays, the adaptive pair":
+                    want = value[:, :3, :].reshape(n_static, 12)
+                elif name.startswith("files"):
+                    require(np.abs(value[:, :3, :].reshape(n_static, 12)
+                                   - want).max() <= 1e-5,
+                            f"the odometry over the {name} differs")
+    finally:
+        StereoOdometry.step = step0
+        gc.callbacks.remove(collector)
     ms.update({name: float(np.median(t)) for name, t in runs.items()})
+    split = {name: tuple(float(np.median([r[i] for r in rs]))
+                         for i in range(6)) for name, rs in splits.items()}
+    cli_split, seq_split = (split[n] for n in split_cases)
+    print(f"[{card}] the CLI's surplus over run_sequence on the same "
+          f"{n_static} files at prefetch 2, host clock, medians of 3 rounds "
+          f"in turns: per run {cli_split[0] - seq_split[0]:.2f} ms (CLI "
+          f"{cli_split[0]:.2f}, run_sequence {seq_split[0]:.2f}: up to the "
+          f"first step and after the last), per frame "
+          f"{cli_split[1] - seq_split[1]:.3f} ms (CLI {cli_split[1]:.3f}, "
+          f"run_sequence {seq_split[1]:.3f}: first step to last over the "
+          f"frames); CLI / run_sequence "
+          f"{ms[split_cases[0]] / ms[split_cases[1]]:.3f}", flush=True)
+    for name in split_cases:
+        r = split[name]
+        print(f"[{card}] {name}: per run {r[0]:.2f} ms, per frame "
+              f"{r[1]:.3f} ms (in the step {r[2]:.3f}, between steps "
+              f"{r[3]:.3f}); the cyclic collector {r[4]:.2f} ms a run, "
+              f"{r[5]:.0f} full collections", flush=True)
     first = []          # the forked worker's first pair: its start, a decode
     for _ in range(3):
         t0 = time.perf_counter()
@@ -3140,7 +3274,9 @@ def main() -> None:
     from tpustereo_torch.kernels import _build
     from tpustereo_torch.kernels.cost import census_cost_volume_plain
     from tpustereo_torch.kernels.lr import dr_consistency_plain
-    from tpustereo_torch.kernels.sgm import (sgm_sweep_plain,
+    from tpustereo_torch.kernels.sgm import (VERTICAL_DXS,
+                                             sgm_sweep_fused_plain,
+                                             sgm_sweep_plain,
                                              sweep_bwd_wta_plain)
     from tpustereo_torch.ops import (component_big,
                                      connected_component_labels, median3)
@@ -3212,6 +3348,63 @@ def main() -> None:
             S7 = L_k if S7 is None else S_k
         del L_k, L_p, S_k, S_p, base
     err["sgm_sweep"] = sweep_err
+    # the fused sweep in both orders and forms: one set written, the other
+    # added onto it (the main path's down write and up add, and the reverse)
+    fused_err = 0
+    for first in (1, -1):
+        S_k = kernels.sgm_sweep_fused(C, None, first, VERTICAL_DXS, p1, p2)
+        S_p = sgm_sweep_fused_plain(C, None, first, VERTICAL_DXS, p1, p2)
+        torch.cuda.synchronize()
+        require(torch.equal(S_k, S_p),
+                f"sgm_sweep_fused dy={first} write form differs")
+        fused_err = max(fused_err, int_err(S_k, S_p))
+        kernels.sgm_sweep_fused(C, S_k, -first, VERTICAL_DXS, p1, p2)
+        sgm_sweep_fused_plain(C, S_p, -first, VERTICAL_DXS, p1, p2)
+        torch.cuda.synchronize()
+        require(torch.equal(S_k, S_p),
+                f"sgm_sweep_fused dy={-first} add form differs")
+        fused_err = max(fused_err, int_err(S_k, S_p))
+        del S_k, S_p
+    # a frame with more tiles than the card holds blocks (D = 512: tiles of
+    # 8 columns), which each block walks several of, band by band
+    gen = torch.Generator(device=C.device).manual_seed(17)
+    C_w = torch.randint(0, 25, (1, 375, 1242, 512), generator=gen,
+                        device=C.device, dtype=torch.uint8)
+    S_k = kernels.sgm_sweep_fused(C_w, None, 1, VERTICAL_DXS, p1, p2)
+    S_p = sgm_sweep_fused_plain(C_w, None, 1, VERTICAL_DXS, p1, p2)
+    kernels.sgm_sweep_fused(C_w, S_k, -1, VERTICAL_DXS, p1, p2)
+    sgm_sweep_fused_plain(C_w, S_p, -1, VERTICAL_DXS, p1, p2)
+    torch.cuda.synchronize()
+    require(torch.equal(S_k, S_p), "sgm_sweep_fused differs on a 1 x 375 x "
+            "1242 frame at D = 512")
+    fused_err = max(fused_err, int_err(S_k, S_p))
+    del S_p
+
+    def six_w():
+        # the same two sets one direction a launch
+        S = kernels.sgm_sweep(C_w, None, 1, 0, p1, p2)
+        for dy, dx in ((1, 1), (1, -1), (-1, 0), (-1, 1), (-1, -1)):
+            kernels.sgm_sweep(C_w, S, dy, dx, p1, p2)
+
+    # and its first 1,024 columns, 128 tiles: a tile a block on the H100
+    C_n = C_w[:, :, :1024].contiguous()
+    S_n = kernels.sgm_sweep_fused(C_n, None, 1, VERTICAL_DXS, p1, p2)
+    wide_ms = {
+        "fused write": cuda_ms(lambda: kernels.sgm_sweep_fused(
+            C_w, None, 1, VERTICAL_DXS, p1, p2), 3),
+        "fused add": cuda_ms(lambda: kernels.sgm_sweep_fused(
+            C_w, S_k, -1, VERTICAL_DXS, p1, p2), 3),
+        "six one-direction launches": cuda_ms(six_w, 3),
+        "fused write, 1024 columns": cuda_ms(lambda: kernels.sgm_sweep_fused(
+            C_n, None, 1, VERTICAL_DXS, p1, p2), 3),
+        "fused add, 1024 columns": cuda_ms(lambda: kernels.sgm_sweep_fused(
+            C_n, S_n, -1, VERTICAL_DXS, p1, p2), 3)}
+    print(f"[{card}] 1 x 375 x 1242 at D = 512 (several tiles a block), "
+          f"ms by events: { {k: round(v, 4) for k, v in wide_ms.items()} }; "
+          f"byte bound a fused write "
+          f"{bound(3 * C_w.numel(), 27 * C_w.numel())[0]:.4f}", flush=True)
+    del C_w, S_k, C_n, S_n
+    err["sgm_sweep_fused"] = fused_err
 
     disp, valid, d_r = kernels.sweep_bwd_wta(C, S7, cfg)
     disp_p, valid_p, d_r_p = sweep_bwd_wta_plain(C, S7, cfg)
@@ -3276,18 +3469,23 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     sweep_forms = dict(kernels.sgm_sweep.builds)
+    fused_forms = dict(kernels.sgm_sweep_fused.builds)
     # the path's own peak, above what the checks above keep allocated
     peak_gib = (torch.cuda.max_memory_allocated() - resident) / 2**30
     print(f"main path launches: {launches}; sgm_sweep forms: "
-          f"{sweep_forms}", flush=True)
+          f"{sweep_forms}; sgm_sweep_fused forms: {fused_forms}", flush=True)
     for name in KERNELS:
         require(launches[name] > 0, f"{name} was not launched on the main "
                 f"path")
-    # each set of frames' first sweep writes S7 and six add to it
-    require(sweep_forms == dict(dict.fromkeys(sweep_forms, 0),
-                                write=BATCH // F, add=6 * BATCH // F),
-            f"the main path's sweeps ran {sweep_forms}, not one write and "
-            f"six adds a set of frames")
+    # a set of frames: the down set fused writes S7, the up set fused adds
+    # to it, and E, the one direction left, adds by the one-direction kernel
+    zero = dict.fromkeys(sweep_forms, 0)
+    require(fused_forms == dict(zero, write=BATCH // F, add=BATCH // F),
+            f"the main path's fused sweeps ran {fused_forms}, not one write "
+            f"and one add a set of frames")
+    require(sweep_forms == dict(zero, add=BATCH // F),
+            f"the main path's one-direction sweeps ran {sweep_forms}, not "
+            f"the E add alone a set of frames")
     require(out.shape == (BATCH, H, W) and np.isfinite(out).all(),
             "match_batch output has the wrong shape or non-finite values")
 
@@ -3311,15 +3509,36 @@ def main() -> None:
     S_tmp = S7.clone()
 
     def sweeps():
-        # one set of frames' seven sweeps, as `sgm_select` runs them
+        # one set of frames' seven sweeps one direction a launch, the
+        # schedule before the fused kernel
         S = kernels.sgm_sweep(C, None, *dirs7[0], p1, p2)
         for dy, dx in dirs7[1:]:
             kernels.sgm_sweep(C, S, dy, dx, p1, p2)
+        return S
 
+    def fused_sweeps():
+        # the same S7 as `sgm_select` makes it: two fused passes and E
+        S = kernels.sgm_sweep_fused(C, None, 1, VERTICAL_DXS, p1, p2)
+        kernels.sgm_sweep_fused(C, S, -1, VERTICAL_DXS, p1, p2)
+        kernels.sgm_sweep(C, S, 0, 1, p1, p2)
+        return S
+
+    require(torch.equal(sweeps(), fused_sweeps()),
+            "the fused schedule's S7 differs from the seven launches'")
+    fused_one = {
+        "down write": lambda: kernels.sgm_sweep_fused(
+            C, None, 1, VERTICAL_DXS, p1, p2),
+        "up add": lambda: kernels.sgm_sweep_fused(
+            C, S_tmp, -1, VERTICAL_DXS, p1, p2),
+    }
+    e_add = cuda_ms(lambda: kernels.sgm_sweep(C, S_tmp, 0, 1, p1, p2), 10)
     ms = {
         "census_cost_volume": cuda_ms(lambda: kernels.census_cost_volume(
             Lf, Rf, D, cfg.max_census_cost, cfg.census_window, d0), 20),
-        "sgm_sweep": cuda_ms(sweeps, 3) / len(dirs7),
+        # what the main path launches: E in the add form
+        "sgm_sweep": e_add,
+        "sgm_sweep_fused": sum(cuda_ms(f, 10) for f in fused_one.values())
+        / len(fused_one),
         "sweep_bwd_wta": cuda_ms(lambda: kernels.sweep_bwd_wta(C, S7, cfg),
                                  10),
         "dr_consistency": cuda_ms(lambda: kernels.dr_consistency(
@@ -3356,12 +3575,51 @@ def main() -> None:
                   f"{graph_ms(one, 5):.4f} ms, bound "
                   f"{bound(nbytes * n_cost, 9 * n_cost)[0]:.4f} ms",
                   flush=True)
+    # the fused launches beside their bounds, then a set's sweeps and
+    # `sgm_select` both ways in turns on the same volume: the package's
+    # fused schedule against the seven one-direction launches (composed
+    # here from `kernels.sgm_sweep`); the set's function bound is one read
+    # of C: the down set written, the up set and E added
+    fused_bounds = {"down write": bound(3 * n_cost, 27 * n_cost)[0],
+                    "up add": bound(5 * n_cost, 27 * n_cost)[0]}
+    for what, fn in fused_one.items():
+        print(f"[{card}] sgm_sweep_fused {what}: events "
+              f"{cuda_ms(fn, 10):.4f} ms, graph replay "
+              f"{graph_ms(fn, 10):.4f} ms, bound {fused_bounds[what]:.4f} "
+              f"ms", flush=True)
+    set_bound = (fused_bounds["down write"] + fused_bounds["up add"]
+                 + bound(5 * n_cost, 9 * n_cost)[0])
+    set_ms, select_ms = {}, {}
+    for kind in ("seven", "fused", "fused2", "seven2"):
+        fn = sweeps if kind.startswith("seven") else fused_sweeps
+        set_ms[kind] = cuda_ms(fn, 5)
+        select_ms[kind] = cuda_ms(
+            (lambda: kernels.sweep_bwd_wta(C, sweeps(), cfg))
+            if kind.startswith("seven") else
+            (lambda: kernels.sgm_select(C, cfg)), 5)
+    print(f"[{card}] a set's sweeps at KITTI F={F} by events, in turns: "
+          f"fused (2 fused + E) {set_ms['fused']:.4f}, "
+          f"{set_ms['fused2']:.4f} ms; seven one-direction launches "
+          f"{set_ms['seven']:.4f}, {set_ms['seven2']:.4f} ms; the "
+          f"function's bound {set_bound:.4f} ms", flush=True)
+    print(f"[{card}] sgm_select at KITTI F={F} by events, in turns: the "
+          f"package's fused schedule {select_ms['fused']:.4f}, "
+          f"{select_ms['fused2']:.4f} ms; seven launches + sweep_bwd_wta "
+          f"{select_ms['seven']:.4f}, {select_ms['seven2']:.4f} ms",
+          flush=True)
+    require(max(set_ms["fused"], set_ms["fused2"])
+            < min(set_ms["seven"], set_ms["seven2"]),
+            "the fused set is not faster than the seven launches")
+    require(max(select_ms["fused"], select_ms["fused2"])
+            < min(select_ms["seven"], select_ms["seven2"]),
+            "sgm_select is not faster than the seven-launch composition")
     plain_ms = {
         "census_cost_volume": cuda_ms(lambda: census_cost_volume_plain(
             Lf, Rf, D, cfg.max_census_cost, cfg.census_window, d0), 2),
-        "sgm_sweep": sum(cuda_ms(
-            lambda dy=dy, dx=dx: sgm_sweep_plain(C, S_tmp, dy, dx, p1, p2),
-            1, warmup=0) for dy, dx in dirs7) / len(dirs7),
+        "sgm_sweep": cuda_ms(
+            lambda: sgm_sweep_plain(C, S_tmp, 0, 1, p1, p2), 1, warmup=0),
+        "sgm_sweep_fused": cuda_ms(lambda: sgm_sweep_fused_plain(
+            C, S_tmp, -1, VERTICAL_DXS, p1, p2), 1, warmup=0),
         "sweep_bwd_wta": cuda_ms(lambda: sweep_bwd_wta_plain(C, S7, cfg), 1),
         "dr_consistency": cuda_ms(lambda: dr_consistency_plain(
             d_r, disp, D, cfg.disp12_max_diff, d0), 10),
@@ -3392,9 +3650,12 @@ def main() -> None:
         # inputs read once, output written once; ops: xor, popcount,
         # compare, select per cost
         "census_cost_volume": bound(2 * n_pix + n_cost, 4 * n_cost),
-        # C read and S written (the first of the seven), or C and S read
-        # and S written (the other six); ~9 integer ops per cost
-        "sgm_sweep": bound((3 + 5 * 6) / 7 * n_cost, 9 * n_cost),
+        # C and S read and S written (E, the add form); ~9 integer ops a
+        # cost
+        "sgm_sweep": bound(5 * n_cost, 9 * n_cost),
+        # the mean of the down write (C read, S written) and the up add
+        # (C and S read, S written); ~9 ops a cost and direction
+        "sgm_sweep_fused": bound(4 * n_cost, 27 * n_cost),
         # C and S7 read, disp + valid + d_r written; ~17 ops per cost
         "sweep_bwd_wta": bound(3 * n_cost + 9 * n_pix, 17 * n_cost),
         # d_r and disp read, ok written; ~8 ops per pixel
@@ -3418,8 +3679,10 @@ def main() -> None:
     off_ms = cuda_ms(lambda: sgbm_batched(L, R, cfg_off), reps)
     print(f"[{card}] whole path, full preset: {BATCH * 1e3 / dev_ms:.2f} "
           f"frames/s on device tensors ({dev_ms:.3f} ms per batch of "
-          f"{BATCH}); {api_fps:.2f} frames/s through match_batch (numpy "
-          f"in/out); peak memory {peak_gib:.2f} GiB", flush=True)
+          f"{BATCH}, by events; 7.586-7.596 ms with seven sweep launches "
+          f"a set, an earlier schedule); {api_fps:.2f} frames/s through "
+          f"match_batch (numpy in/out); peak memory {peak_gib:.2f} GiB",
+          flush=True)
     print(f"[{card}] whole path, speckle and median off: "
           f"{BATCH * 1e3 / off_ms:.2f} frames/s on device tensors "
           f"({off_ms:.3f} ms per batch of {BATCH}); the two stages cost "
@@ -3427,7 +3690,7 @@ def main() -> None:
     in_kernels = {n: launches[n] * ms[n] for n in KERNELS}
     print(f"[{card}] batch of {BATCH}, ms in each kernel (launches x "
           f"ms/launch): {in_kernels}; component_big "
-          f"{BATCH // F * big_ms:.3f} ms; outside the six kernels "
+          f"{BATCH // F * big_ms:.3f} ms; outside the seven kernels "
           f"(component_big included): "
           f"{dev_ms - sum(in_kernels.values()):.3f} ms", flush=True)
     busy = device_busy(lambda: sgbm_batched(L, R, cfg))
@@ -3464,11 +3727,12 @@ def main() -> None:
     sad_wide_path(card)
     rows += micro_path(card)
     print(f"steps 16-17: {time.perf_counter() - t_steps:.1f} s", flush=True)
-    # rows 2 and 3 also carry the adaptive path's launches and ms a launch
+    # the sweeps and sweep_bwd_wta also carry the adaptive path's launches
+    # and ms a launch
     for name, (n, a_ms) in adaptive_path(card, kitti).items():
         row = next(r for r in rows if r["name"] == name)
         row.update(adaptive_launches=n, adaptive_ms=a_ms)
-    # the KITTI six also carry their launches on the odometry path
+    # the KITTI seven also carry their launches on the odometry path
     per_set = {n: launches[n] // (BATCH // F) for n in KERNELS}
     shared: dict = {"refs": refs}
     for name, n in odometry_path(card, per_set, shared).items():
@@ -3477,7 +3741,7 @@ def main() -> None:
     for name, extra in tiled_path(card, per_set, shared).items():
         next(r for r in rows if r["name"] == name).update(extra)
     entry_points_path(card, shared)
-    # the KITTI six also carry their launches a frame on one of 2 ranks
+    # the KITTI seven also carry their launches a frame on one of 2 ranks
     for name, extra in multirank_path(card, kitti, shared).items():
         next(r for r in rows if r["name"] == name).update(extra)
     print(json.dumps({"kernels": rows}))

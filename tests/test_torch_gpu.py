@@ -34,6 +34,7 @@ from tpustereo_torch.kernels.median import median3_plain
 from tpustereo_torch.kernels.sad import sad_wta_plain
 from tpustereo_torch.kernels.sgm import (bidir_fits_s16x2,
                                          sgm_sweep_bidir_plain,
+                                         sgm_sweep_fused_plain,
                                          sgm_sweep_plain, sweep_bwd_wta_plain)
 from tpustereo_torch.kernels.transpose import (transpose_hw_plain,
                                                transpose_sum_hw_plain)
@@ -296,6 +297,175 @@ def test_sweep_kernel_takes_unaligned_volumes(cuda, form, direction, D):
     got = kernels.sgm_sweep(C, S, *direction, 10, 120, img)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+# (B, H, W): the fused kernel's tiles hold 24 columns (8 at D = 512) and
+# exchange their edges every 8 rows: one row, one column, widths below, at
+# and across a tile, heights below, at and across a band, several tiles and
+# bands, the KITTI width
+FUSED_SHAPES = [(1, 1, 1), (1, 1, 24), (2, 1, 40), (1, 8, 15), (2, 9, 16),
+                (2, 17, 25), (1, 16, 8), (2, 19, 43), (3, 40, 33),
+                (2, 25, 100), (1, 3, 1242)]
+FUSED_DXS = [(0, 1, -1), (1, -1), (0,), (1,), (-1,), (-1, 0)]
+
+
+@pytest.mark.parametrize("D", [16, 40, 128, 512])
+@pytest.mark.parametrize("dxs", FUSED_DXS)
+@pytest.mark.parametrize("dy", [1, -1])
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+@pytest.mark.parametrize("form", ["add", "write"])
+def test_fused_kernel_matches_plain(cuda, D, dxs, dy, shape, form):
+    """Both forms of `sgm_sweep_fused` against its plain version, bit for
+    bit; D = 40 is not a multiple of K (the plain-load fill)."""
+    C = _volume(cuda, *shape, D, seed=21)
+    kernels.reset_launch_counts()
+    if form == "add":
+        got = torch.full(C.shape, 7, dtype=torch.int16, device=cuda)
+        ref = got.clone()
+        assert kernels.sgm_sweep_fused(C, got, dy, dxs, 10, 120) is got
+        sgm_sweep_fused_plain(C, ref, dy, dxs, 10, 120)
+    else:
+        got = kernels.sgm_sweep_fused(C, None, dy, dxs, 10, 120)
+        ref = sgm_sweep_fused_plain(C, None, dy, dxs, 10, 120)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert kernels.sgm_sweep_fused.builds == dict(FORMS, **{form: 1})
+    assert kernels.sgm_sweep_fused.launches == 1
+    assert kernels.sgm_sweep.launches == 0
+
+
+@pytest.mark.parametrize("D", [16, 128])
+@pytest.mark.parametrize("dxs", [(0, 1, -1), (1, -1)])
+@pytest.mark.parametrize("dy", [1, -1])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 9, 16), (2, 19, 43),
+                                   (1, 70, 70), (1, 3, 1242)])
+@pytest.mark.parametrize("form", ["add", "write"])
+def test_fused_kernel_adaptive_matches_plain(cuda, D, dxs, dy, shape, form):
+    """Adaptive P2: each direction's P2' from its own gradient."""
+    C = _volume(cuda, *shape, D, seed=22)
+    img = _image(cuda, *shape, seed=22)
+    kernels.reset_launch_counts()
+    S = (torch.full(C.shape, 7, dtype=torch.int16, device=cuda)
+         if form == "add" else None)
+    ref = sgm_sweep_fused_plain(C, None if S is None else S.clone(), dy, dxs,
+                                10, 120, img)
+    got = kernels.sgm_sweep_fused(C, S, dy, dxs, 10, 120, img)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert kernels.sgm_sweep_fused.builds == dict(
+        FORMS, **{form + "_adaptive": 1})
+
+
+@pytest.mark.parametrize("p1,p2", [(40, 40), (0, 0), (3, 4000), (10, 32000)])
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_fused_kernel_penalty_edges(cuda, p1, p2, adaptive):
+    """P1 = P2, P2 = 0, a P2 whose adaptive quotients span 15 to 4000, and
+    255 + P2 just below 2^15 (the carry's int16 bound)."""
+    C = _volume(cuda, 2, 19, 43, 128, seed=23)
+    img = _image(cuda, 2, 19, 43, seed=23) if adaptive else None
+    if adaptive and p2 == 32000:
+        p1, p2 = 10, 32512 - 1
+    for dy in (1, -1):
+        got = kernels.sgm_sweep_fused(C, None, dy, (0, 1, -1), p1, p2, img)
+        ref = sgm_sweep_fused_plain(C, None, dy, (0, 1, -1), p1, p2, img)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+
+
+def test_fused_kernel_refuses_a_carry_past_int16(cuda):
+    C = _volume(cuda, 1, 4, 6, 16)
+    with pytest.raises(ValueError, match="2\\^15"):
+        kernels.sgm_sweep_fused(C, None, 1, (0,), 0, 32513)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.sgm_sweep_fused(C.transpose(1, 2), None, 1, (0,), 10, 120)
+
+
+@pytest.mark.parametrize("form", ["add", "write"])
+@pytest.mark.parametrize("D", [40, 128])
+def test_fused_kernel_takes_unaligned_volumes(cuda, form, D):
+    """C (and S) 8 bytes off 16: the plain-load fill and scalar stores."""
+    C = _unaligned(_volume(cuda, 2, 19, 43, D, seed=24))
+    img = _image(cuda, 2, 19, 43, seed=24)
+    for im in (None, img):
+        S = (_unaligned(torch.full(C.shape, 5, dtype=torch.int16,
+                                   device=cuda)) if form == "add" else None)
+        ref = sgm_sweep_fused_plain(C, None if S is None else S.clone(), -1,
+                                    (0, 1, -1), 10, 120, im)
+        got = kernels.sgm_sweep_fused(C, S, -1, (0, 1, -1), 10, 120, im)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+
+
+def test_fused_kernel_writes_into_out(cuda):
+    C = _volume(cuda, 2, 19, 43, 128, seed=25)
+    out = torch.full(C.shape, 3, dtype=torch.int16, device=cuda)
+    got = kernels.sgm_sweep_fused(C, None, 1, (0, 1, -1), 10, 120, out=out)
+    torch.cuda.synchronize()
+    assert got is out
+    assert torch.equal(out, sgm_sweep_fused_plain(C, None, 1, (0, 1, -1), 10,
+                                                  120))
+
+
+# frames with more tiles than the H100 holds blocks at once, so that each
+# block walks several tiles band by band: D = 512 (8-column tiles) at the
+# KITTI width and past 2,112 columns, D = 256 (24-column tiles) past 3,168
+# and 6,336, D = 128 past 9,504; a last band shorter than 8 rows; frames
+# walked one after another
+@pytest.mark.parametrize("D,shape", [
+    (512, (1, 375, 1242)), (512, (1, 27, 2500)), (256, (1, 375, 3200)),
+    (256, (1, 19, 6400)), (128, (1, 17, 10000)), (512, (3, 20, 2500))])
+@pytest.mark.parametrize("form", ["add", "write", "add_adaptive"])
+def test_fused_kernel_wide_frames(cuda, D, shape, form):
+    """Both orders; the int32 build at D = 512 and 256 and with dxs
+    (1, -1), the s16x2 build at D = 128 with dxs (0, 1, -1)."""
+    C = _volume(cuda, *shape, D, seed=27)
+    img = _image(cuda, *shape, seed=27) if "adaptive" in form else None
+    for dy, dxs in ((1, (0, 1, -1)), (-1, (1, -1))):
+        S = (torch.full(C.shape, 7, dtype=torch.int16, device=cuda)
+             if form.startswith("add") else None)
+        ref = sgm_sweep_fused_plain(C, None if S is None else S.clone(), dy,
+                                    dxs, 10, 120, img)
+        got = kernels.sgm_sweep_fused(C, S, dy, dxs, 10, 120, img)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+        del S, ref, got
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_sgm_select_wide_frame_cuda_matches_plain(cuda, adaptive):
+    """`sgm_select` and `aggregate_volume` with 8 paths at D = 512 on a
+    KITTI-wide frame, whose fused sweeps walk several tiles a block."""
+    C = _volume(cuda, 1, 375, 1242, 512, seed=28)
+    img = _image(cuda, 1, 375, 1242, seed=28)
+    cfg = Config(num_disparities=512, p1=10, p2=120, adaptive_p2=adaptive)
+    im = img if adaptive else None
+    kernels.reset_launch_counts()
+    disp, valid, d_r = kernels.sgm_select(C, cfg, img)
+    S = kernels.aggregate_volume(C, cfg, img)
+    assert kernels.sgm_sweep_fused.launches == 4
+    S7 = torch.zeros(C.shape, dtype=torch.int16, device=cuda)
+    for dy, dx in DIRS_8:
+        if (dy, dx) != (0, -1):
+            sgm_sweep_plain(C, S7, dy, dx, cfg.p1, cfg.p2, im)
+    disp_p, valid_p, d_r_p = sweep_bwd_wta_plain(C, S7, cfg, im)
+    torch.cuda.synchronize()
+    assert torch.equal(valid, valid_p) and torch.equal(d_r, d_r_p)
+    assert (disp - disp_p).abs().max().item() <= 1e-6
+    del S7, disp_p, valid_p, d_r_p
+    assert torch.equal(S, aggregate(C, cfg, img))
+
+
+@pytest.mark.parametrize("shape", [(4, 375, 1242), (1, 1988, 2964)])
+def test_fused_kernel_full_size(cuda, shape):
+    """KITTI at F = 4 and one Middlebury frame, both forms, both orders:
+    the frames' tiles all resident, several frames in flight."""
+    C = _volume(cuda, *shape, 128, seed=26)
+    S = kernels.sgm_sweep_fused(C, None, 1, (0, 1, -1), 10, 120)
+    kernels.sgm_sweep_fused(C, S, -1, (0, 1, -1), 10, 120)
+    ref = sgm_sweep_fused_plain(C, None, 1, (0, 1, -1), 10, 120)
+    sgm_sweep_fused_plain(C, ref, -1, (0, 1, -1), 10, 120)
+    torch.cuda.synchronize()
+    assert torch.equal(S, ref)
 
 
 # the ring and chunk of bwd_wta: 32 columns a chunk, one warp a row, 4 rows
@@ -729,13 +899,20 @@ def test_pipeline_past_fused_bound_cuda_matches_cpu(cuda, paths, d0, p2):
                  frames_per_step=2)
     counts = _run_on_both(cfg)
     expected = dict.fromkeys(counts, 0)
-    expected.update(census_cost_volume=2, sgm_sweep=2 * paths,
-                    transpose_hw=2 * 3, wta_lr=2,
+    # 8 paths: the down and up sets fused (a write and an add a set),
+    # then E and W one direction a launch; 4 paths: all one a launch
+    fused = 2 if paths == 8 else 0
+    expected.update(census_cost_volume=2, sgm_sweep=2 * (paths - 3 * fused),
+                    sgm_sweep_fused=2 * fused, transpose_hw=2 * 3, wta_lr=2,
                     connected_component_labels=2, median3=2)
     assert counts == expected
     # each set of frames' first sweep writes S: no zero fill
-    assert kernels.sgm_sweep.builds == dict(FORMS, write=2,
-                                            add=2 * (paths - 1))
+    if paths == 8:
+        assert kernels.sgm_sweep.builds == dict(FORMS, add=2 * 2)
+        assert kernels.sgm_sweep_fused.builds == dict(FORMS, write=2, add=2)
+    else:
+        assert kernels.sgm_sweep.builds == dict(FORMS, write=2,
+                                                add=2 * (paths - 1))
 
 
 @pytest.mark.parametrize("mode,paths,d0", [
@@ -748,7 +925,14 @@ def test_pipeline_cuda_matches_cpu(cuda, mode, paths, d0):
     counts = _run_on_both(cfg)
     expected = dict.fromkeys(counts, 0)
     expected.update(connected_component_labels=2, median3=2)
-    if mode == "sgm":
+    if mode == "sgm" and paths == 8:
+        # a set: the down set fused (write), the up set fused (add), E
+        expected.update(census_cost_volume=2, sgm_sweep=2,
+                        sgm_sweep_fused=2 * 2, sweep_bwd_wta=2,
+                        dr_consistency=2)
+        assert kernels.sgm_sweep.builds == dict(FORMS, add=2)
+        assert kernels.sgm_sweep_fused.builds == dict(FORMS, write=2, add=2)
+    elif mode == "sgm":
         expected.update(census_cost_volume=2, sgm_sweep=2 * (paths - 1),
                         sweep_bwd_wta=2, dr_consistency=2)
         # each set of frames' first sweep writes S7: no zero fill
@@ -1035,8 +1219,13 @@ def test_aggregate_volume_adaptive_cuda_matches_plain(cuda, paths):
                  adaptive_p2=True)
     kernels.reset_launch_counts()
     got = kernels.aggregate_volume(C, cfg, img)
-    assert kernels.sgm_sweep.builds == dict(
-        FORMS, write_adaptive=1, add_adaptive=paths - 1)
+    if paths == 8:   # the down and up sets fused, then E and W
+        assert kernels.sgm_sweep.builds == dict(FORMS, add_adaptive=2)
+        assert kernels.sgm_sweep_fused.builds == dict(
+            FORMS, write_adaptive=1, add_adaptive=1)
+    else:
+        assert kernels.sgm_sweep.builds == dict(
+            FORMS, write_adaptive=1, add_adaptive=paths - 1)
     torch.cuda.synchronize()
     assert torch.equal(got, aggregate(C, cfg, img))
 
@@ -1055,9 +1244,20 @@ def test_pipeline_adaptive_cuda_matches_cpu(cuda, paths, d0, p1, p2, fill):
     counts = _run_on_both(cfg)
     volume = paths * (cfg.max_census_cost + p2) >= 4096
     n_sweeps = paths if volume else paths - 1
-    assert counts["sgm_sweep"] == 2 * n_sweeps
-    assert kernels.sgm_sweep.builds == dict(
-        FORMS, write_adaptive=2, add_adaptive=2 * (n_sweeps - 1))
+    if paths == 8:
+        # the down and up sets fused (a write and an add a set); the one-
+        # direction kernel runs the rest (E, and W on the volume route)
+        assert counts["sgm_sweep"] == 2 * (n_sweeps - 6)
+        assert counts["sgm_sweep_fused"] == 2 * 2
+        assert kernels.sgm_sweep.builds == dict(
+            FORMS, add_adaptive=2 * (n_sweeps - 6))
+        assert kernels.sgm_sweep_fused.builds == dict(
+            FORMS, write_adaptive=2, add_adaptive=2)
+    else:
+        assert counts["sgm_sweep"] == 2 * n_sweeps
+        assert counts["sgm_sweep_fused"] == 0
+        assert kernels.sgm_sweep.builds == dict(
+            FORMS, write_adaptive=2, add_adaptive=2 * (n_sweeps - 1))
     assert counts["sweep_bwd_wta"] == (0 if volume else 2)
     assert kernels.sweep_bwd_wta.builds == {"scalar": 0,
                                             "adaptive": 0 if volume else 2}
@@ -1079,8 +1279,9 @@ def test_bidir_vert_adaptive_cuda_takes_the_default_schedule(cuda,
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
     assert counts["sgm_sweep_bidir"] == 0 and counts["transpose_hw"] == 0
-    assert kernels.sgm_sweep.builds == dict(FORMS, write_adaptive=2,
-                                            add_adaptive=12)
+    assert kernels.sgm_sweep.builds == dict(FORMS, add_adaptive=2)
+    assert kernels.sgm_sweep_fused.builds == dict(FORMS, write_adaptive=2,
+                                                  add_adaptive=2)
 
 
 def test_volume_route_adaptive_cuda_matches_fused(cuda):
@@ -1215,8 +1416,9 @@ def test_kitti_odometry_width_cuda_matches_cpu(cuda):
     assert (got - ref).abs().max().item() <= 1e-6
     assert (ref > 0).float().mean() > 0.5
     expected = dict.fromkeys(counts, 0)
-    expected.update(census_cost_volume=1, sgm_sweep=7, sweep_bwd_wta=1,
-                    dr_consistency=1, connected_component_labels=1, median3=1)
+    expected.update(census_cost_volume=1, sgm_sweep=1, sgm_sweep_fused=2,
+                    sweep_bwd_wta=1, dr_consistency=1,
+                    connected_component_labels=1, median3=1)
     assert counts == expected
 
 

@@ -10,6 +10,7 @@ card: its compile-time sizes, and the source with one part cut out.
     python3 -m tpustereo_torch.bench.kernel_micro sgm_bidir
     python3 -m tpustereo_torch.bench.kernel_micro median3
     python3 -m tpustereo_torch.bench.kernel_micro sgm_sweep
+    python3 -m tpustereo_torch.bench.kernel_micro sgm_fused
     python3 -m tpustereo_torch.bench.kernel_micro lr_check
     python3 -m tpustereo_torch.bench.kernel_micro NAME --against DIR
 
@@ -40,8 +41,11 @@ directions of `sgm_select` in the write form (S = L_r) and the add form
 (S += L_r, on a partial sum of path costs), each with the scalar P2 and
 with adaptive P2 (the left image of those frames, `kitti_sgm8` with
 `adaptive_p2=True`), and the S direction's add form on 4 frames of
-1988 x 2964 (`middlebury_sgm4`); `bwd_wta` with the scalar and the
-adaptive P2 the same way; `lr_check` (its hits
+1988 x 2964 (`middlebury_sgm4`); `sgm_fused` on the census volume of the
+4 KITTI frames, the fused down set written and the up set added (column
+shifts (0, 1, -1), as `sgm_select` runs them), each with the scalar and
+the adaptive P2; `bwd_wta` with the
+scalar and the adaptive P2 the same way; `lr_check` (its hits
 kernel) on the d_r and disparity of those 4 KITTI frames, and on 4 rows of
 240,000 columns (D = 128; the shipped builds only: a checkout from before
 the tiled design refuses such rows).
@@ -80,7 +84,9 @@ from tpustereo_torch.kernels.cost import _SIGS as _COST_SIGS
 from tpustereo_torch.kernels.median import _SIGS as _MEDIAN_SIGS
 from tpustereo_torch.kernels.sad import _SIGS as _SAD_SIGS
 from tpustereo_torch.kernels.lr import _SIGS as _LR_SIGS
-from tpustereo_torch.kernels.sgm import _BIDIR_SIGS, _BWD_SIGS, _SWEEP_SIGS
+from tpustereo_torch.kernels.sgm import (_BIDIR_SIGS, _BWD_SIGS,
+                                         _FUSED_SIGS, _SWEEP_SIGS,
+                                         VERTICAL_DXS)
 from tpustereo_torch.kernels.wta import _SIGS as _WTA_SIGS
 from tpustereo_torch.ops import component_big
 from tpustereo_torch.ops.postproc import speckle_conn
@@ -93,6 +99,7 @@ SIGS = {"bwd_wta": _BWD_SIGS, "census_cost": _COST_SIGS,
         "bitonic": {"bitonic_launch": _BITONIC_SIGS["bitonic_launch"]},
         "cc_labels": _CC_SIGS, "sgm_bidir": _BIDIR_SIGS,
         "median3": _MEDIAN_SIGS, "sgm_sweep": _SWEEP_SIGS,
+        "sgm_fused": _FUSED_SIGS,
         "lr_check": {"lr_hits_launch": _LR_SIGS["lr_hits_launch"]}}
 # earlier C interfaces that `--against` builds keep: sgm_bidir_launch
 # before its `packed` argument (one int32 build), sgm_sweep_launch and
@@ -152,6 +159,12 @@ SIZES = {
         **{f"ring{n}": [f"-DSWEEP_RING_DEPTH={n}"] for n in (1, 2, 4, 8, 16)},
         "scalar_stores": ["-DSWEEP_SCALAR_STORES=1"],
         "s16x2": ["-DSWEEP_S16X2=1"],
+    },
+    # rows in flight a warp; own columns a tile (with 8 halo columns a
+    # side): wider tiles spend less on halos, and fewer fit on the card
+    "sgm_fused": {
+        **{f"ring{n}": [f"-DFUSED_RING={n}"] for n in (4, 8)},
+        **{f"tw{n}": [f"-DFUSED_TW={n}"] for n in (8, 16, 32)},
     },
     # the hits kernel's tile: groups of 4 pixels a thread, threads a block
     "lr_check": {
@@ -307,6 +320,26 @@ ABLATIONS = {
         # a group's loads and P2' (every P2' stays the scalar P2)
         "p2_no_group": ("if ((t & 31) == 0) {  // a group starts",
                         "if (false) {  // a group starts"),
+    },
+    "sgm_fused": {
+        # the waits for the neighbour tiles' edges (a tile may read them
+        # before they are written)
+        "no_waits": ("if (threadIdx.x == 0) {\n              if (tile > 0)",
+                     "if (false) {\n              if (tile > 0)"),
+        # the barrier that ends each row (warps read their neighbours' row
+        # buffers whenever they get to them)
+        "no_row_barrier": ("      __syncthreads();  // row t's q is in the",
+                           "      //"),
+        # the wait for the ring's oldest row
+        "no_ring_wait": ("cp_async_wait<RING - 1>();  // row t's", "//"),
+        # the fence before a band's flag (its edges may land after it)
+        "no_fence": ("        __threadfence();\n", "\n"),
+        # the s16x2 build's stores of S
+        "no_s_store": ("if (j > 0 && j < SPW - 1 && inside)",
+                       "if (j < 0 && inside)"),
+        # the s16x2 build's warp minimums (each lane keeps its own)
+        "no_warp_min": ("m[j][k] = __reduce_min_sync(FULL_MASK, m[j][k]) "
+                        "* 0x10001u;", "m[j][k] = m[j][k] * 0x10001u;"),
     },
     "lr_check": {
         # the hits scatter (the flags stay clear)
@@ -466,6 +499,53 @@ def _sweep_cases(dev) -> list:
     return cases
 
 
+def _fused_cases(dev) -> list:
+    """The `sgm_fused` cases at KITTI F = 4: the down set written and the up
+    set added (on the down set's sum), with the scalar P2 and with
+    adaptive P2 (the frames' left images). Each launch zeroes the tiles'
+    flags first, as the wrapper does; the edge buffer is sized for the
+    narrowest tile any build takes (8 columns), the carries between bands
+    for the widest (32)."""
+    cfg = PRESETS["kitti_sgm8"]
+    L, R = _frames((375, 1242), cfg.frames_per_step, 40.0, dev)
+    D, p1, p2 = cfg.num_disparities, cfg.p1, cfg.p2
+    C = kernels.census_cost_volume(L, R, D, cfg.max_census_cost,
+                                   cfg.census_window, cfg.min_disparity)
+    del R
+    B, H, W, _ = C.shape
+    tiles = B * -(-W // 8)
+    flags = torch.zeros(tiles, dtype=torch.int32, device=dev)
+    edges = torch.empty(tiles * 2 * 2 * 8 * D, dtype=torch.int16,
+                        device=dev)
+    state = torch.empty((W + 32) * 3 * D, dtype=torch.int16, device=dev)
+    S0 = kernels.sgm_sweep_fused(C, None, 1, VERTICAL_DXS, p1, p2)
+    cases = []
+    for (dy, form), img in [(c, i) for c in ((1, "write"), (-1, "add"))
+                            for i in (None, L)]:
+        acc = form == "add"
+        ref = (kernels.sgm_sweep_fused(C, S0.clone() if acc else None, dy,
+                                       VERTICAL_DXS, p1, p2, img),)
+        outs = (torch.empty_like(S0),)
+
+        def launch(lib, outs=outs, dy=dy, acc=acc, img=img):
+            flags.zero_()
+            return lib.sgm_fused_launch(
+                _build.ptr(C), _build.ptr(outs[0]),
+                None if img is None else _build.ptr(img), _build.ptr(flags),
+                _build.ptr(edges), _build.ptr(state), B, H, W, D, dy,
+                len(VERTICAL_DXS), *VERTICAL_DXS, p1, p2, int(acc),
+                _build.stream_ptr(C))
+
+        def reset(outs=outs, acc=acc):
+            if acc:
+                outs[0].copy_(S0)
+        label = (f"kitti_F4_{'down' if dy > 0 else 'up'}_{form}"
+                 f"{'' if img is None else '_adaptive'}")
+        cases.append((label, [B, H, W, D], ref, outs, launch,
+                      {"reset": reset}))
+    return cases
+
+
 def _hits_cases(dev) -> list:
     """The hits kernel on the KITTI path's d_r and disparity of 4 frames,
     and on 4 rows of 240,000 columns."""
@@ -506,6 +586,8 @@ def _cases(name: str, dev) -> list:
     builds out of the case."""
     if name == "sgm_sweep":
         return _sweep_cases(dev)
+    if name == "sgm_fused":
+        return _fused_cases(dev)
     if name == "lr_check":
         return _hits_cases(dev)
     cases = []

@@ -8,6 +8,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 import types
 import typing
 
@@ -183,6 +184,30 @@ def cmd_eval(args) -> int:
     return 0
 
 
+class _Progress:
+    """The odometry's line a frame on stderr, written in batches: at most
+    one write a second, and the rest at the end. A write a frame cost the
+    loop a system call a frame, and milliseconds where stderr is a pipe
+    that its reader drains late."""
+
+    def __init__(self, every_s: float = 1.0):
+        self.lines: list = []
+        self.every_s = every_s
+        self.last = time.perf_counter()
+
+    def add(self, line: str) -> None:
+        self.lines.append(line)
+        if time.perf_counter() - self.last >= self.every_s:
+            self.flush()
+
+    def flush(self) -> None:
+        if self.lines:
+            sys.stderr.write("\n".join(self.lines) + "\n")
+            sys.stderr.flush()
+            self.lines = []
+        self.last = time.perf_counter()
+
+
 def cmd_odometry(args) -> int:
     from tpustereo_torch.data.datasets import kitti_odometry_sequence
     from tpustereo_torch.odometry import OdometryConfig, StereoOdometry
@@ -210,14 +235,19 @@ def cmd_odometry(args) -> int:
         odo = StereoOdometry(calib, cfg, ocfg, device=args.device)
         start = 0
 
-    for i, (L, R) in enumerate(frames):
-        if i < start:
-            continue
-        pose = odo.step(L, R)
-        if args.checkpoint and odo.kf is not None and (i + 1) % args.checkpoint_every == 0:
-            odo.save(args.checkpoint)
-        print(f"frame {i}: t=({pose[0,3]:+.3f}, {pose[1,3]:+.3f}, {pose[2,3]:+.3f})",
-              file=sys.stderr)
+    progress = _Progress()
+    try:
+        for i, (L, R) in enumerate(frames):
+            if i < start:
+                continue
+            pose = odo.step(L, R)
+            if (args.checkpoint and odo.kf is not None
+                    and (i + 1) % args.checkpoint_every == 0):
+                odo.save(args.checkpoint)
+            progress.add(f"frame {i}: t=({pose[0,3]:+.3f}, {pose[1,3]:+.3f}, "
+                         f"{pose[2,3]:+.3f})")
+    finally:
+        progress.flush()
     traj = odo.trajectory()
     if args.gt_poses:
         gt = np.loadtxt(args.gt_poses).reshape(-1, 3, 4)

@@ -23,8 +23,9 @@ None of it depends on which kernels implement the stages, on the route
 toggles (`kernels.sgm.BIDIR_VERT`, `ops.postproc.BITONIC_SPECKLE`), on
 tiling or on how the work is split into launches, so a redesign moves the
 measured time against a fixed yardstick. The counts are a floor of the
-work, not of what a kernel moves: the port's seven sweeps each read all of
-C, so a share well under 1 says how much traffic a design adds.
+work, not of what a kernel moves: the port's sweeps of a set (two fused
+passes and E) each read all of C, so a share well under 1 says how much
+traffic a design adds.
 
 `device_busy_fraction` reads a `torch.profiler` Chrome trace: the span
 from the first device kernel's start to the last one's end, and the share

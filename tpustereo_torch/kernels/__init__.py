@@ -16,7 +16,8 @@ from tpustereo_torch.kernels.lr import (  # noqa: F401
 from tpustereo_torch.kernels.median import median3  # noqa: F401
 from tpustereo_torch.kernels.sad import sad_wta  # noqa: F401
 from tpustereo_torch.kernels.sgm import (  # noqa: F401
-    aggregate_volume, sgm_select, sgm_sweep, sgm_sweep_bidir, sweep_bwd_wta)
+    aggregate_volume, sgm_select, sgm_sweep, sgm_sweep_bidir, sgm_sweep_fused,
+    sweep_bwd_wta)
 from tpustereo_torch.kernels.transpose import (  # noqa: F401
     transpose_hw, transpose_sum_hw)
 from tpustereo_torch.kernels.width_micro import (  # noqa: F401
@@ -28,7 +29,8 @@ WRAPPERS = (census_cost_volume, sgm_sweep, sweep_bwd_wta, dr_consistency,
             connected_component_labels, median3, wta_lr, sad_wta,
             transpose_hw, transpose_sum_hw, sgm_sweep_bidir,
             dr_consistency_hits, bitonic_sort, sweep_micro, elem_chain_micro,
-            roll_chain_micro, reg_chain_micro, bf16_roll_chain_micro)
+            roll_chain_micro, reg_chain_micro, bf16_roll_chain_micro,
+            sgm_sweep_fused)
 
 
 def launch_counts() -> dict:

@@ -22,7 +22,7 @@ CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "build")
 NAMES = ("census_cost", "sgm_sweep", "bwd_wta", "lr_check", "cc_labels",
          "median3", "wta_lr", "sad_wta", "transpose", "sgm_bidir", "bitonic",
-         "width_micro")
+         "width_micro", "sgm_fused")
 
 SMEM_MAX = 232448  # bytes of shared memory one block may use on Hopper
 

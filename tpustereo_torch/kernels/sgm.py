@@ -2,15 +2,21 @@
 plain versions, and the compositions built of them.
 
 Counterparts of the JAX package's `kernels/sgm_pallas.py`: `sgm_sweep`
-(`csrc/sgm_sweep.cu`), `sgm_sweep_bidir` (`csrc/sgm_bidir.cu`),
+with one direction (`csrc/sgm_sweep.cu`) and with its `dxs`, the
+directions of one scan order fused (`sgm_sweep_fused`,
+`csrc/sgm_fused.cu`), `sgm_sweep_bidir` (`csrc/sgm_bidir.cu`),
 `sweep_bwd_wta` (`csrc/bwd_wta.cu`), and the Python compositions
 `sgm_select` (`sgm_select_pallas`) and `aggregate_volume`
 (`aggregate_pallas`). The kernels take the plain (B, H, W, D) layout for
 every direction; nothing is padded.
 
 The default `sgm_select` needs no transpose: its sweeps read (B, H, W, D)
-directly. `aggregate_volume` and the `BIDIR_VERT` route of `sgm_select`
-keep the JAX package's schedule, horizontal sweeps as column sweeps of the
+directly. With 8 paths it runs the JAX schedule's vertical sweeps, the
+down set {S, SE, SW} and the up set {N, NE, NW} each in one fused pass
+over C, then E by the one-direction kernel; with 4 paths every scan order
+has one direction and the one-direction kernel runs them.
+`aggregate_volume` and the `BIDIR_VERT` route of `sgm_select` keep the
+JAX package's schedule, horizontal sweeps as column sweeps of the
 transposed pair (`kernels.transpose`), so they run its relayout kernels.
 
 Adaptive P2 (the JAX `p2_maps` operand of `sgm_sweep` and `sweep_bwd_wta`):
@@ -27,7 +33,8 @@ The ring hand-off between strips (the JAX `init_carry` and
 runs): `sgm_sweep(..., carry=q, return_carry=True)` seeds the strip's
 first row from the q = L - min_d L slab of the previous strip's last row
 and returns its own last row's q, one direction a launch (the JAX kernel
-fuses K directions, so its (K, N, D) carry is K of the port's).
+fuses K directions, so its (K, N, D) carry is K of the port's; the fused
+kernel takes no carry).
 """
 
 from __future__ import annotations
@@ -50,6 +57,16 @@ _SWEEP_SIGS = {
     # when not given), B, H, W, D, dy, dx, p1, p2, accumulate, stream
     "sgm_sweep_launch": ([_P] * 6 + [_I] * 9 + [_P], _I),
 }
+_FUSED_SIGS = {
+    # C, S, img (null: scalar P2), flags, edge buffer, carries between
+    # bands (the last three null without an exchange), B, H, W, D, dy, the
+    # number of directions and their dx (three slots), p1, p2, accumulate,
+    # stream
+    "sgm_fused_launch": ([_P] * 6 + [_I] * 12 + [_P], _I),
+    # B, W, D -> the flag ints and the int16 elements of the edge buffer
+    # and of the carries between bands
+    "sgm_fused_scratch": ([_I] * 3 + [_P], _I),
+}
 _BIDIR_SIGS = {
     # C, Sd, Su, B, H, W, D, dx, p1, p2, accumulate, packed, stream
     "sgm_bidir_launch": ([_P] * 3 + [_I] * 9 + [_P], _I),
@@ -67,6 +84,12 @@ MAX_D = 512  # 32 lanes x 16 registers of carry per warp
 # transposes them in one pass, and adds the E sweep in the transposed
 # layout. The outputs are the same.
 BIDIR_VERT = False
+
+# the column shifts of the down and up sets of 8 paths, in the JAX order
+VERTICAL_DXS = (0, 1, -1)
+# a fused sweep of more rows than this, with a diagonal, swaps its tiles'
+# edges through device memory (csrc/sgm_fused.cu's FR)
+EXCHANGE_ROWS = 8
 
 
 def _check_cost(C: torch.Tensor) -> None:
@@ -181,8 +204,8 @@ def sgm_sweep(C: torch.Tensor, S: torch.Tensor | None, dy: int, dx: int,
     """L_r for direction r = (dy, dx): with S None a new int16 volume
     S = L_r (the JAX `sgm_sweep(C, None, ...)`, which reads no S), or L_r
     written into `out`, an int16 volume of C's shape, where given; else
-    S += L_r in place, returning S (the pipeline's one accumulator of the
-    seven sweeps: it saves a volume).
+    S += L_r in place, returning S (the pipeline's one accumulator of its
+    sweeps: it saves a volume).
 
     C (B, H, W, D) uint8, S int16 of the same shape. With img, the left
     image (B, H, W) uint8, each pixel's P2 is the adaptive P2' of the
@@ -246,6 +269,108 @@ sgm_sweep.carry_forms = dict(sgm_sweep.builds)
 
 
 # ---------------------------------------------------------------------------
+# the directions of one scan order in one pass
+# ---------------------------------------------------------------------------
+
+def _check_dxs(dxs) -> tuple:
+    dxs = tuple(dxs)
+    if not dxs or len(set(dxs)) != len(dxs) or not set(dxs) <= {-1, 0, 1}:
+        raise ValueError(f"dxs must be distinct shifts of -1, 0, 1, got "
+                         f"{dxs}")
+    return dxs
+
+
+def sgm_sweep_fused_plain(C: torch.Tensor, S: torch.Tensor | None, dy: int,
+                          dxs, p1: int, p2: int,
+                          img: torch.Tensor | None = None,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: the sum over dxs of
+    `ops.sgm.path_costs`, in int16 (wrapping, as the kernel's sums do)."""
+    L = None
+    for dx in dxs:
+        Lr = path_costs(C, dy, dx, p1, p2, img)
+        L = Lr if L is None else L.add_(Lr)
+    if S is not None:
+        S += L
+        return S
+    return L if out is None else out.copy_(L)
+
+
+def sgm_sweep_fused(C: torch.Tensor, S: torch.Tensor | None, dy: int, dxs,
+                    p1: int, p2: int, img: torch.Tensor | None = None,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """The sum over dx in dxs of L_(dy, dx), the directions of one scan
+    order in one pass over C (the JAX `sgm_sweep(C, S_in, dxs, reverse,
+    ...)`, dy = +1 its forward order, -1 `reverse`): with S None a new int16
+    volume, or written into `out`, an int16 volume of C's shape, where
+    given; else added to S in place, returning S.
+
+    dxs: distinct column shifts from {-1, 0, +1}. C (B, H, W, D) uint8, D
+    <= 512, S int16 of the same shape. With img, the left image (B, H, W)
+    uint8, each direction takes the adaptive P2' of its own gradient
+    I(p) - I(p - r) (`ops.sgm.adaptive_p2_map`), else the scalar p2.
+
+    CUDA tensors run the kernel, its form counted in
+    `sgm_sweep_fused.builds` ("write", "add", "write_adaptive",
+    "add_adaptive"); CPU tensors the plain version. The kernel keeps each
+    direction's renormalised carry in int16, so on the card it takes
+    255 + P2 < 2^15 (`p2_max` under adaptive P2). Any H and W: a frame
+    with more tiles than the card holds blocks has each block walk several
+    tiles band by band. No carry: the ring hand-off runs the one-direction
+    `sgm_sweep`."""
+    if S is None:
+        _check_cost(C)
+    else:
+        _check_volume(C, S, "S")
+    if out is not None:
+        if S is not None:
+            raise ValueError("out goes with S None, the write form")
+        _check_volume(C, out, "out")
+    _check_img(C, img)
+    dxs = _check_dxs(dxs)
+    if dy not in (1, -1):
+        raise ValueError(f"dy must be +1 (down) or -1 (up), got {dy}")
+    if not 0 <= p1 <= p2:
+        raise ValueError("need 0 <= p1 <= p2")
+    if C.device.type == "cpu":
+        return sgm_sweep_fused_plain(C, S, dy, dxs, p1, p2, img, out)
+    p2_top = p2_max(p1, p2, img is not None)
+    if 255 + p2_top >= 1 << 15:
+        raise ValueError(f"P2 = {p2_top} unsupported: the carry q <= 255 + "
+                         f"P2 must stay below 2^15")
+    add = S is not None
+    if not add:
+        S = (torch.empty(C.shape, dtype=torch.int16, device=C.device)
+             if out is None else out)
+    B, H, W, D = C.shape
+    lib = _build.load("sgm_fused", _FUSED_SIGS)
+    flags = edges = state = None
+    if H > EXCHANGE_ROWS and any(dxs):   # the tiles swap their edges
+        n = (ctypes.c_longlong * 3)()
+        _build.check(lib, lib.sgm_fused_scratch(B, W, D, n),
+                     "sgm_sweep_fused")
+        flags = torch.zeros(n[0], dtype=torch.int32, device=C.device)
+        edges = torch.empty(n[1], dtype=torch.int16, device=C.device)
+        state = torch.empty(n[2], dtype=torch.int16, device=C.device)
+    pad = dxs + (0,) * (3 - len(dxs))
+    ptrs = [None if x is None else _build.ptr(x)
+            for x in (img, flags, edges, state)]
+    rc = lib.sgm_fused_launch(_build.ptr(C), _build.ptr(S), *ptrs, B, H, W,
+                              D, dy, len(dxs), *pad, p1, p2, int(add),
+                              _build.stream_ptr(C))
+    _build.check(lib, rc, "sgm_sweep_fused")
+    form = ("add" if add else "write") + ("" if img is None else "_adaptive")
+    sgm_sweep_fused.launches += 1
+    sgm_sweep_fused.builds[form] += 1
+    return S
+
+
+sgm_sweep_fused.launches = 0
+sgm_sweep_fused.builds = {"write": 0, "add": 0, "write_adaptive": 0,
+                          "add_adaptive": 0}
+
+
+# ---------------------------------------------------------------------------
 # down + up vertical sweeps in one kernel
 # ---------------------------------------------------------------------------
 
@@ -278,10 +403,7 @@ def sgm_sweep_bidir(C: torch.Tensor, dxs, p1: int, p2: int):
     writes S_down and S_up, the later ones add to them. CUDA tensors run
     the kernel, its s16x2 or int32 build by `bidir_fits_s16x2` (counted in
     `sgm_sweep_bidir.builds`), CPU tensors the plain version."""
-    dxs = tuple(dxs)
-    if not dxs or len(set(dxs)) != len(dxs) or not set(dxs) <= {-1, 0, 1}:
-        raise ValueError(f"dxs must be distinct shifts of -1, 0, 1, got "
-                         f"{dxs}")
+    dxs = _check_dxs(dxs)
     if not 0 <= p1 <= p2:
         raise ValueError("need 0 <= p1 <= p2")
     _check_cost(C)
@@ -375,30 +497,44 @@ sweep_bwd_wta.builds = {"scalar": 0, "adaptive": 0}
 # composition
 # ---------------------------------------------------------------------------
 
+def _vertical_sets(C: torch.Tensor, p1: int, p2: int,
+                   img: torch.Tensor | None) -> torch.Tensor:
+    """The down set {S, SE, SW} written and the up set {N, NE, NW} added,
+    each one fused pass over C (the JAX schedule's two vertical sweeps)."""
+    S = sgm_sweep_fused(C, None, 1, VERTICAL_DXS, p1, p2, img)
+    return sgm_sweep_fused(C, S, -1, VERTICAL_DXS, p1, p2, img)
+
+
 def sgm_select(C: torch.Tensor, cfg: Config,
                img: torch.Tensor | None = None):
     """Aggregation + WTA + uniqueness + subpixel + right-view disparity.
 
     The sweeps of every direction but W make one int16 S7; the backward
     sweep completes S column by column and selects, so the full S is never
-    stored. C (B, H, W, D) uint8 -> (disp, valid, d_r) as in
-    `sweep_bwd_wta`; img (B, H, W) uint8, the left image, is read under
-    `cfg.adaptive_p2`, which needs it. `BIDIR_VERT` picks how S7 is made
-    (the JAX `sgm_select_pallas` schedules); adaptive P2 always takes the
-    default one, as there."""
+    stored. With 8 paths S7 takes three passes over C: the down set
+    written and the up set added by `sgm_sweep_fused`, then E; with 4
+    paths E, S and N one direction a launch. C (B, H, W, D) uint8 ->
+    (disp, valid, d_r) as in `sweep_bwd_wta`; img (B, H, W) uint8, the
+    left image, is read under `cfg.adaptive_p2`, which needs it.
+    `BIDIR_VERT` picks how S7 is made (the JAX `sgm_select_pallas`
+    schedules); adaptive P2 always takes the default one, as there."""
     p1, p2 = cfg.p1, cfg.p2
     img = sweep_image(cfg, img)
     if BIDIR_VERT and img is None:
-        dxs = (0, 1, -1) if cfg.paths == 8 else (0,)
+        dxs = VERTICAL_DXS if cfg.paths == 8 else (0,)
         Sd, Su = sgm_sweep_bidir(C, dxs, p1, p2)
         St = transpose_sum_hw(Sd, Su)
         del Sd, Su
         sgm_sweep(transpose_hw(C), St, 1, 0, p1, p2)   # E
         S7 = transpose_hw(St)
         del St
+    elif cfg.paths == 8:
+        # the down and up sets fused, then E: three passes over C
+        S7 = _vertical_sets(C, p1, p2, img)
+        sgm_sweep(C, S7, 0, 1, p1, p2, img)
     else:
         S7 = None   # the first sweep writes S7, the others add to it
-        for dy, dx in (DIRS_4 if cfg.paths == 4 else DIRS_8):
+        for dy, dx in DIRS_4:
             if (dy, dx) != (0, -1):
                 S7 = sgm_sweep(C, S7, dy, dx, p1, p2, img)
     return sweep_bwd_wta(C, S7, cfg, img)
@@ -410,7 +546,8 @@ def aggregate_volume(C: torch.Tensor, cfg: Config,
     equal to `ops.aggregate`; img as in `sgm_select`.
 
     The JAX `aggregate_pallas` schedule: the vertical and diagonal sweeps
-    into S, then S and C transposed so that E and W run as column sweeps of
+    into S (with 8 paths the down and up sets, each one `sgm_sweep_fused`
+    pass), then S and C transposed so that E and W run as column sweeps of
     the pair (with the transposed image under adaptive P2, as the JAX
     `_p2_stack` transposes its maps), then S transposed back. Each
     intermediate is freed once the next step has what it needs, so besides
@@ -418,10 +555,11 @@ def aggregate_volume(C: torch.Tensor, cfg: Config,
     a time."""
     p1, p2 = cfg.p1, cfg.p2
     img = sweep_image(cfg, img)
-    S = None    # the first sweep writes S, the others add to it
-    for dy, dx in (DIRS_4 if cfg.paths == 4 else DIRS_8):
-        if dy != 0:
-            S = sgm_sweep(C, S, dy, dx, p1, p2, img)
+    if cfg.paths == 8:
+        S = _vertical_sets(C, p1, p2, img)
+    else:
+        S = sgm_sweep(C, None, 1, 0, p1, p2, img)   # S writes, N adds
+        sgm_sweep(C, S, -1, 0, p1, p2, img)
     St = transpose_hw(S)
     del S
     Ct = transpose_hw(C)

@@ -94,17 +94,21 @@ def _sgm_bound(cfg: Config) -> int:
 
 
 def check_slice(cfg: Config) -> None:
-    """Raise `NotImplementedError` for a configuration the port cannot run
-    yet (ROADMAP.md, "Modules still to port"). Census windows over 64 bits
-    need no check here: `Config` refuses them."""
-    todo = []
+    """Raise `NotImplementedError` for a configuration the port refuses,
+    with the reason (ROADMAP.md, "Wide configurations"). Census windows
+    over 64 bits need no check here: `Config` refuses them."""
+    refused = []
     if cfg.num_disparities > 512:
-        todo.append("num_disparities > 512 (ROADMAP: wide configs)")
+        refused.append("num_disparities > 512: a sweep warp holds at most "
+                       "512 disparities in registers (ROADMAP: wide "
+                       "configs)")
     if cfg.mode == "sgm" and _sgm_bound(cfg) >= S16_BOUND:
-        todo.append("paths * (census_bits + p2) >= 2^15 (ROADMAP: wide "
-                    "configs)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+        refused.append("paths * (census_bits + p2) >= 2^15: the int16 sums "
+                       "of the paths would wrap; the JAX package's TPU "
+                       "path refuses such configurations too (ROADMAP: wide "
+                       "configs)")
+    if refused:
+        raise NotImplementedError("refused: " + "; ".join(refused))
 
 
 def _census(left: torch.Tensor, right: torch.Tensor, cfg: Config):
