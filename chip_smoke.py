@@ -20,8 +20,11 @@ D = 128, 8 frames, 4 per set of kernel launches):
    sweep in both forms (S = L_r and S += L_r) in all eight directions,
    and the fused sweep (`sgm_sweep_fused`: the down set {S, SE, SW} or
    the up set {N, NE, NW} in one pass) written in one order and added in
-   the other, also on one 375 x 1242 frame at D = 512, whose tiles
-   outnumber the blocks the card holds;
+   the other, also on one 375 x 1242 frame at D = 256 and 512 (at 512 its
+   tiles outnumber the blocks the card holds), where it times the 8-path
+   vertical sets as `sgm_select` runs them (past `FUSED_MAX_D` = 256 the
+   six one-direction launches, decided from D) beside the fused pair, in
+   turns;
 3. drives `api.match_batch` on 8 synthetic pairs with every launch counter
    set to 0 just before, requires every kernel of the path to have
    launched, the sweeps as a fused write, a fused add and the one-direction
@@ -202,21 +205,27 @@ in exact mode, at 376 x 1241, D = 128:
 20. holds `sgm_sweep`'s carry forms against their plain version on two
    frames' census volume (the six y-scanning directions, write and add,
    scalar and adaptive P2, random q carries), and the kernel chained over
-   2 and 4 strips against one launch, bit for bit; drives
+   2 and 4 strips against one launch, bit for bit; the same for
+   `sgm_sweep_fused`'s carry forms (the down and up sets, random (3, B,
+   W, D) q carries); drives
    `dist.sgbm_tiled_batched` on 8 synthetic pairs of that size in halo
    mode against the plain composition on the card (`plain_tiled`; no
    kernel runs in it), with step 3's bar, and `api.match_pair_tiled` on
    one; exact mode at 2 and 4 strips against the untiled `sgbm` (invalid
-   pattern exact, disparity within 1e-6) with the ring on the carry
-   forms; `api.run_sequence` over step 19's straight run with the preset
-   as shipped, with the counters set to 0 just before (the seven kernels'
+   pattern exact, disparity within 1e-6) with the ring on the fused carry
+   forms (exactly one launch a scan order a strip, the down set written
+   and the up set added, and E the one `sgm_sweep`); `api.run_sequence`
+   over step 19's straight run with the preset as shipped, with the
+   counters set to 0 just before (the seven kernels'
    counts of one set of frames times 32, nothing else), the bars of step
    19 and, against its strips=1 run, 0.02 m and 0.01 (the JAX
    `test_odometry_tiled.py` bars), and one host synchronisation of a
    tracked step (from `odometry/`; none from `dist/`); times one frame
    through each mode and the untiled `sgbm` by events, with its launches
-   and the profiler's busy share, and the carry form of a launch by graph
-   replay beside the same launch without one. Prints `step 20: ... s`.
+   and the profiler's busy share, and the carry forms of a launch (the
+   one-direction add and the fused down set's) on one 192-row strip by
+   graph replay beside the same launch without one. Prints `step 20:
+   ... s`.
 
 The user's entry points (`cli`, `eval.bench`, `eval.roofline`,
 `eval.runner`, `bench`, `data.io`), at full width:
@@ -279,7 +288,8 @@ built before any rank starts):
    call, rank 0's `dist.comm` messages and kB a frame and each rank's ms
    a frame (CUDA events; the odometry by the host clock), labelled as
    ranks sharing one card, not scaling; requires the seven KITTI kernels
-   on the 2-rank halo path. Where the machine has two cards, the 2-rank
+   on the 2-rank halo path and, on each exact call, one (3, F, W, D)
+   carry message from rank 0. Where the machine has two cards, the 2-rank
    checks run again under `nccl`, one rank a card; else one line says
    that phase needs two cards. Then `eval.multihost.run_multihost_bench(2,
    tiled=True)` at 376 x 1241 (2 ranks a host, so 2 then 4 ranks on the
@@ -299,9 +309,10 @@ step 15 and kernel 13's five from step 17; `sgm_sweep`,
 `sgm_sweep_fused` and `sweep_bwd_wta` also carry `adaptive_launches` and
 `adaptive_ms` from step 18, the KITTI seven `odometry_launches` from step
 19 and
-`tiled_launches` from step 20, and `sgm_sweep` its carry forms'
-`carry_launches` (exact mode, 2 strips, 8 frames), `carry_ms`,
-`carry_bound_ms` and `carry_max_abs_err` from step 20, and the KITTI
+`tiled_launches` from step 20, and `sgm_sweep` and `sgm_sweep_fused`
+their carry forms' `carry_launches` (exact mode, 2 strips, 8 frames:
+the fused ones with 8 paths), `carry_ms`, `carry_bound_ms` and
+`carry_max_abs_err` from step 20, and the KITTI
 six `multirank_launches_per_frame`, rank 0's launches a frame on step
 22's 2-rank halo path), then
 `{"ok": true, "device": ...}` as the last line. Exits non-zero, with no
@@ -2405,7 +2416,9 @@ def tiled_path(card: str, per_set: dict, shared: dict) -> dict:
     import torch
     from tpustereo_torch import PRESETS, api, dist, kernels
     from tpustereo_torch.eval import ate
-    from tpustereo_torch.kernels.sgm import sgm_sweep_plain
+    from tpustereo_torch.kernels.sgm import (VERTICAL_DXS,
+                                             sgm_sweep_fused_plain,
+                                             sgm_sweep_plain)
     from tpustereo_torch.odometry import OdometryConfig, StereoOdometry
     from tpustereo_torch.pipeline import sgbm, sgbm_batched
 
@@ -2478,6 +2491,60 @@ def tiled_path(card: str, per_set: dict, shared: dict) -> dict:
           f"{carry_err}; chains over 2 and 4 strips equal to one launch",
           flush=True)
 
+    # --- the fused carry forms (the exact ring's launches with 8 paths):
+    # the down and up sets, both forms, scalar and adaptive, random (3, B,
+    # W, D) q carries, against their plain version; chained over 2 and 4
+    # strips against one launch
+    fused_carry_err = 0
+    for dy in (1, -1):
+        q = rng.integers(0, 160, (3, 2, W, D)).astype(np.int32)
+        q = torch.from_numpy(q - q.min(-1, keepdims=True)).to(dev)
+        prev = torch.from_numpy(rng.integers(0, 256, (2, W),
+                                             dtype=np.uint8)).to(dev)
+        for form in ("write", "add"):
+            for im in (None, img):
+                pv = None if im is None else prev
+                S0 = (None if form == "write" else torch.from_numpy(
+                    rng.integers(-900, 900, C.shape, dtype=np.int16)).to(dev))
+                got, got_q = kernels.sgm_sweep_fused(
+                    C, None if S0 is None else S0.clone(), dy, VERTICAL_DXS,
+                    p1, p2, im, carry=q, return_carry=True, img_prev=pv)
+                ref, ref_q = sgm_sweep_fused_plain(
+                    C, None if S0 is None else S0.clone(), dy, VERTICAL_DXS,
+                    p1, p2, im, carry=q, return_carry=True, img_prev=pv)
+                torch.cuda.synchronize()
+                require(torch.equal(got, ref) and torch.equal(got_q, ref_q),
+                        f"sgm_sweep_fused dy={dy} {form} carry form "
+                        f"{'adaptive ' if im is not None else ''}differs "
+                        f"from plain")
+                fused_carry_err = max(fused_carry_err, int_err(got, ref),
+                                      int((got_q - ref_q).abs().max().item()))
+    for strips in (2, 4):
+        cuts = np.array_split(np.arange(H), strips)
+        for dy in (1, -1):
+            for im in (None, img):
+                ref, ref_q = kernels.sgm_sweep_fused(
+                    C, None, dy, VERTICAL_DXS, p1, p2, im, return_carry=True)
+                parts, q = {}, None
+                for rows in (cuts if dy > 0 else cuts[::-1]):
+                    r0, r1 = int(rows[0]), int(rows[-1]) + 1
+                    pv = (im[:, r0 - 1 if dy > 0 else r1].contiguous()
+                          if im is not None and q is not None else None)
+                    parts[r0], q = kernels.sgm_sweep_fused(
+                        C[:, r0:r1].contiguous(), None, dy, VERTICAL_DXS, p1,
+                        p2, None if im is None else im[:, r0:r1].contiguous(),
+                        carry=q, return_carry=True, img_prev=pv)
+                torch.cuda.synchronize()
+                require(torch.equal(torch.cat([parts[k] for k in
+                                               sorted(parts)], 1), ref)
+                        and torch.equal(q, ref_q),
+                        f"sgm_sweep_fused dy={dy} chained over {strips} "
+                        f"strips differs from one launch")
+    print(f"step 20: sgm_sweep_fused carry forms (down and up sets, write "
+          f"and add, scalar and adaptive, random q) equal to plain, max abs "
+          f"diff {fused_carry_err}; chains over 2 and 4 strips equal to one "
+          f"launch", flush=True)
+
     # --- halo mode as shipped (2 strips, halo 32) against the plain
     # composition, and exact mode at 2 and 4 strips against untiled sgbm
     mesh2 = dist.make_mesh(1, 2)
@@ -2522,6 +2589,7 @@ def tiled_path(card: str, per_set: dict, shared: dict) -> dict:
         out = dist.sgbm_tiled_batched(L, R, exact, dist.make_mesh(1, strips))
         torch.cuda.synchronize()
         exact_counts[strips] = (kernels.launch_counts(),
+                                dict(kernels.sgm_sweep_fused.carry_forms),
                                 dict(kernels.sgm_sweep.carry_forms))
         out = out.cpu().numpy()
         require(np.array_equal(out == -1.0, untiled == -1.0),
@@ -2530,12 +2598,22 @@ def tiled_path(card: str, per_set: dict, shared: dict) -> dict:
         e = float(np.abs(out - untiled).max())
         require(e <= DISP_TOL, f"exact mode at {strips} strips differs "
                 f"from untiled by {e}")
+        launched, fused_forms, one_forms = exact_counts[strips]
         print(f"exact mode, {strips} strips, 8 frames: max abs diff to "
               f"untiled sgbm {e}; launches "
-              f"{ {k: v for k, v in exact_counts[strips][0].items() if v} }"
-              f"; carry forms {exact_counts[strips][1]}", flush=True)
-        require(sum(exact_counts[strips][1].values()) == 6 * strips,
-                "exact mode's ring did not run on the carry forms")
+              f"{ {k: v for k, v in launched.items() if v} }"
+              f"; fused carry forms {fused_forms}; one-direction carry "
+              f"forms {one_forms}", flush=True)
+        # the ring with 8 paths: the down set written and the up set added,
+        # one fused carry launch a strip each (2 a strip, not six
+        # one-direction launches); E the one sgm_sweep
+        require(fused_forms == {"write": strips, "add": strips,
+                                "write_adaptive": 0, "add_adaptive": 0}
+                and launched["sgm_sweep_fused"] == 2 * strips
+                and sum(one_forms.values()) == 0
+                and launched["sgm_sweep"] == 1,
+                f"exact mode's ring at {strips} strips did not run one fused "
+                f"carry launch a scan order a strip")
 
     # --- run_sequence over step 19's straight run, the preset as shipped
     calib, frames, gt = shared["calib"], shared["frames"], shared["gt"]
@@ -2595,8 +2673,10 @@ def tiled_path(card: str, per_set: dict, shared: dict) -> dict:
     print(f"[{card}] halo mode, {BATCH} frames in one call: "
           f"{batch_ms / BATCH:.4f} ms a frame", flush=True)
 
-    # the carry form per launch at the exact path's strip shape (one
-    # frame's 192-row strip), beside the same launch without a carry
+    # the carry forms per launch at the exact path's strip shape (one
+    # frame's 192-row strip), beside the same launch without a carry: the
+    # one-direction sweep (the ring's form with 4 paths) and the fused
+    # down set (with 8 paths)
     Hs = 192
     Cs = C[:1, :Hs].contiguous()
     Ss = kernels.sgm_sweep(Cs, None, 1, 0, p1, p2)
@@ -2610,11 +2690,25 @@ def tiled_path(card: str, per_set: dict, shared: dict) -> dict:
           f"graph replay: with the carry in and out {carry_ms:.4f} ms, "
           f"without {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})",
           flush=True)
+    q3 = torch.zeros((3, 1, W, D), dtype=torch.int32, device=dev)
+    fcarry_ms = graph_ms(lambda: kernels.sgm_sweep_fused(
+        Cs, Ss, 1, VERTICAL_DXS, p1, p2, carry=q3, return_carry=True), 10)
+    fplain_ms = graph_ms(lambda: kernels.sgm_sweep_fused(
+        Cs, Ss, 1, VERTICAL_DXS, p1, p2), 10)
+    fb_ms, fb_by = bound(5 * n_cost + 2 * 3 * W * D * 4, 27 * n_cost)
+    print(f"[{card}] sgm_sweep_fused add form (the down set) on a (1, {Hs}, "
+          f"{W}, {D}) strip by graph replay: with the (3, 1, {W}, {D}) "
+          f"carry in and out {fcarry_ms:.4f} ms, without {fplain_ms:.4f} "
+          f"ms; bound {fb_ms:.4f} ms ({fb_by})", flush=True)
     print(f"step 20: {time.perf_counter() - t_step:.1f} s", flush=True)
     out = {k: {"tiled_launches": launches[k]} for k in per_set}
     out["sgm_sweep"].update(
-        carry_launches=sum(exact_counts[2][1].values()), carry_ms=carry_ms,
+        carry_launches=sum(exact_counts[2][2].values()), carry_ms=carry_ms,
         carry_bound_ms=b_ms, carry_max_abs_err=carry_err)
+    out["sgm_sweep_fused"].update(
+        carry_launches=sum(exact_counts[2][1].values()),
+        carry_ms=fcarry_ms, carry_bound_ms=fb_ms,
+        carry_max_abs_err=fused_carry_err)
     return out
 
 
@@ -3234,6 +3328,17 @@ def multirank_path(card: str, kitti: dict, shared: dict) -> dict:
                       f"port bit for bit on every rank; rank 0 per frame: "
                       f"messages {per_frame}, kB {kbytes}; ms a frame per "
                       f"rank by the {clock}: {ms}", flush=True)
+                if name.startswith("exact"):
+                    # rank 0 holds the top strip: it sends the down set's
+                    # carry, one (3, F, W, D) int32 message a call (three
+                    # before the fused carry)
+                    F, W = len(tiled["lefts"]), ODO_SHAPE[1]
+                    D = PRESETS["kitti_odometry"].num_disparities
+                    require(r0["comm"]["carry"] == {
+                        "messages": 1, "bytes": 3 * F * W * D * 4},
+                        f"step 22 {name}: rank 0 sent carries "
+                        f"{r0['comm']['carry']}, not one (3, {F}, {W}, {D}) "
+                        f"message")
                 if name == "halo, (1, 2)" and backend == "gloo":
                     for k in KERNELS:
                         require(r0["launches"][k] > 0, f"{k} was not "
@@ -3274,7 +3379,8 @@ def main() -> None:
     from tpustereo_torch.kernels import _build
     from tpustereo_torch.kernels.cost import census_cost_volume_plain
     from tpustereo_torch.kernels.lr import dr_consistency_plain
-    from tpustereo_torch.kernels.sgm import (VERTICAL_DXS,
+    from tpustereo_torch.kernels.sgm import (FUSED_MAX_D, VERTICAL_DXS,
+                                             _vertical_sets,
                                              sgm_sweep_fused_plain,
                                              sgm_sweep_plain,
                                              sweep_bwd_wta_plain)
@@ -3366,44 +3472,51 @@ def main() -> None:
         fused_err = max(fused_err, int_err(S_k, S_p))
         del S_k, S_p
     # a frame with more tiles than the card holds blocks (D = 512: tiles of
-    # 8 columns), which each block walks several of, band by band
+    # 8 columns), which each block walks several of, band by band, and the
+    # same frame at D = 256; at both D the 8-path vertical sets as
+    # `sgm_select` runs them (`vertical_orders`: past FUSED_MAX_D the six
+    # one-direction launches, decided from D) beside the fused pair, in
+    # turns
     gen = torch.Generator(device=C.device).manual_seed(17)
-    C_w = torch.randint(0, 25, (1, 375, 1242, 512), generator=gen,
-                        device=C.device, dtype=torch.uint8)
-    S_k = kernels.sgm_sweep_fused(C_w, None, 1, VERTICAL_DXS, p1, p2)
-    S_p = sgm_sweep_fused_plain(C_w, None, 1, VERTICAL_DXS, p1, p2)
-    kernels.sgm_sweep_fused(C_w, S_k, -1, VERTICAL_DXS, p1, p2)
-    sgm_sweep_fused_plain(C_w, S_p, -1, VERTICAL_DXS, p1, p2)
-    torch.cuda.synchronize()
-    require(torch.equal(S_k, S_p), "sgm_sweep_fused differs on a 1 x 375 x "
-            "1242 frame at D = 512")
-    fused_err = max(fused_err, int_err(S_k, S_p))
-    del S_p
+    for Dw in (256, 512):
+        C_w = torch.randint(0, 25, (1, 375, 1242, Dw), generator=gen,
+                            device=C.device, dtype=torch.uint8)
+        S_k = kernels.sgm_sweep_fused(C_w, None, 1, VERTICAL_DXS, p1, p2)
+        S_p = sgm_sweep_fused_plain(C_w, None, 1, VERTICAL_DXS, p1, p2)
+        kernels.sgm_sweep_fused(C_w, S_k, -1, VERTICAL_DXS, p1, p2)
+        sgm_sweep_fused_plain(C_w, S_p, -1, VERTICAL_DXS, p1, p2)
+        torch.cuda.synchronize()
+        require(torch.equal(S_k, S_p), f"sgm_sweep_fused differs on a 1 x "
+                f"375 x 1242 frame at D = {Dw}")
+        fused_err = max(fused_err, int_err(S_k, S_p))
+        del S_p, S_k
 
-    def six_w():
-        # the same two sets one direction a launch
-        S = kernels.sgm_sweep(C_w, None, 1, 0, p1, p2)
-        for dy, dx in ((1, 1), (1, -1), (-1, 0), (-1, 1), (-1, -1)):
-            kernels.sgm_sweep(C_w, S, dy, dx, p1, p2)
+        def fused_pair(C_w=C_w):
+            S = kernels.sgm_sweep_fused(C_w, None, 1, VERTICAL_DXS, p1, p2)
+            return kernels.sgm_sweep_fused(C_w, S, -1, VERTICAL_DXS, p1, p2)
 
-    # and its first 1,024 columns, 128 tiles: a tile a block on the H100
-    C_n = C_w[:, :, :1024].contiguous()
-    S_n = kernels.sgm_sweep_fused(C_n, None, 1, VERTICAL_DXS, p1, p2)
-    wide_ms = {
-        "fused write": cuda_ms(lambda: kernels.sgm_sweep_fused(
-            C_w, None, 1, VERTICAL_DXS, p1, p2), 3),
-        "fused add": cuda_ms(lambda: kernels.sgm_sweep_fused(
-            C_w, S_k, -1, VERTICAL_DXS, p1, p2), 3),
-        "six one-direction launches": cuda_ms(six_w, 3),
-        "fused write, 1024 columns": cuda_ms(lambda: kernels.sgm_sweep_fused(
-            C_n, None, 1, VERTICAL_DXS, p1, p2), 3),
-        "fused add, 1024 columns": cuda_ms(lambda: kernels.sgm_sweep_fused(
-            C_n, S_n, -1, VERTICAL_DXS, p1, p2), 3)}
-    print(f"[{card}] 1 x 375 x 1242 at D = 512 (several tiles a block), "
-          f"ms by events: { {k: round(v, 4) for k, v in wide_ms.items()} }; "
-          f"byte bound a fused write "
-          f"{bound(3 * C_w.numel(), 27 * C_w.numel())[0]:.4f}", flush=True)
-    del C_w, S_k, C_n, S_n
+        def route(C_w=C_w):
+            return _vertical_sets(C_w, p1, p2, None)
+        kernels.reset_launch_counts()
+        require(torch.equal(route(), fused_pair()), f"the vertical sets at "
+                f"D = {Dw} differ from the fused pair")
+        routed = kernels.launch_counts()
+        fused_route = Dw <= FUSED_MAX_D
+        require(routed["sgm_sweep_fused"] == 2 + 2 * fused_route
+                and routed["sgm_sweep"] == 6 * (not fused_route),
+                f"the vertical sets at D = {Dw} did not take the route "
+                f"decided from D: {routed}")
+        turns = [("route", route), ("fused pair", fused_pair),
+                 ("fused pair", fused_pair), ("route", route)]
+        ms = [(k, round(cuda_ms(fn, 3), 4)) for k, fn in turns]
+        how = "fused" if fused_route else "six one-direction launches"
+        print(f"[{card}] 1 x 375 x 1242 at D = {Dw}: the vertical sets as "
+              f"sgm_select runs them ({how}) and the fused pair, ms by "
+              f"events in turns: {ms}; byte "
+              f"bound a fused write "
+              f"{bound(3 * C_w.numel(), 27 * C_w.numel())[0]:.4f}",
+              flush=True)
+        del C_w
     err["sgm_sweep_fused"] = fused_err
 
     disp, valid, d_r = kernels.sweep_bwd_wta(C, S7, cfg)

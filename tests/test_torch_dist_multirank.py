@@ -55,6 +55,8 @@ BASE = {"num_disparities": D, "speckle_window_size": 20}
 CASES = {
     "exact8": {"paths": 8, "exact_tiling": True},
     "exact_adaptive": {"paths": 4, "exact_tiling": True, "adaptive_p2": True},
+    "exact8_adaptive": {"paths": 8, "exact_tiling": True,
+                        "adaptive_p2": True},
     "exact_min_disp": {"paths": 8, "exact_tiling": True, "min_disparity": 3},
     "exact_hirschmuller": {"paths": 8, "exact_tiling": True,
                            "fill_mode": "hirschmuller"},
@@ -77,14 +79,16 @@ CASES = {
 TILED = {
     2: [(48, (1, 2), list(CASES)),
         (45, (1, 2), ["exact8", "halo12"])],
-    4: [(45, (1, 4), ["exact8", "exact_adaptive", "sad", "halo12"]),
+    4: [(45, (1, 4), ["exact8", "exact_adaptive", "exact8_adaptive", "sad",
+                      "halo12"]),
         (45, (2, 2), ["exact8", "census_wta", "halo12"])],
 }
 # the cases also held to the JAX package (the others match JAX through
 # their one-process runs in test_torch_tiling.py)
 JAX_CASES = {
-    2: [(48, (1, 2), ["exact8", "exact_adaptive", "exact_min_disp",
-                      "exact_hirschmuller", "sad", "census_wta",
+    2: [(48, (1, 2), ["exact8", "exact_adaptive", "exact8_adaptive",
+                      "exact_min_disp", "exact_hirschmuller", "sad",
+                      "census_wta",
                       "halo12", "halo_adaptive"]),
         (45, (1, 2), ["exact8", "halo12"])],
     4: [(45, (1, 4), ["exact8"]), (45, (2, 2), ["halo12"])],
@@ -373,10 +377,11 @@ def test_comm_counts_messages_and_bytes(clusters, n):
     counts = res[0]["counts"]
     exact = counts[_key("exact8", rows, shape)]
     strips = shape[1]
-    # rank 0 holds the top strip: it sends the down carries of the three
-    # down directions, one a direction
-    assert exact["carry"]["messages"] == (3 if strips > 1 else 0)
-    assert exact["carry"]["bytes"] == 3 * 2 * W * D * 4
+    # rank 0 holds the top strip: it sends the down set's carry, one (3,
+    # F, W, D) message for the three down directions of its fused launch
+    assert exact["carry"]["messages"] == (1 if strips > 1 else 0)
+    assert exact["carry"]["bytes"] == (3 * 2 * W * D * 4 if strips > 1
+                                       else 0)
     assert counts[_key("halo12", rows, shape)]["carry"]["messages"] == 0
     assert exact["gather_rows"]["messages"] == strips - 1
 

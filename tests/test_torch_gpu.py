@@ -309,7 +309,7 @@ FUSED_SHAPES = [(1, 1, 1), (1, 1, 24), (2, 1, 40), (1, 8, 15), (2, 9, 16),
 FUSED_DXS = [(0, 1, -1), (1, -1), (0,), (1,), (-1,), (-1, 0)]
 
 
-@pytest.mark.parametrize("D", [16, 40, 128, 512])
+@pytest.mark.parametrize("D", [16, 40, 128, 256, 512])
 @pytest.mark.parametrize("dxs", FUSED_DXS)
 @pytest.mark.parametrize("dy", [1, -1])
 @pytest.mark.parametrize("shape", FUSED_SHAPES)
@@ -434,7 +434,8 @@ def test_fused_kernel_wide_frames(cuda, D, shape, form):
 @pytest.mark.parametrize("adaptive", [False, True])
 def test_sgm_select_wide_frame_cuda_matches_plain(cuda, adaptive):
     """`sgm_select` and `aggregate_volume` with 8 paths at D = 512 on a
-    KITTI-wide frame, whose fused sweeps walk several tiles a block."""
+    KITTI-wide frame: past `FUSED_MAX_D` their y sweeps take the six
+    one-direction launches (`vertical_orders`), decided from D."""
     C = _volume(cuda, 1, 375, 1242, 512, seed=28)
     img = _image(cuda, 1, 375, 1242, seed=28)
     cfg = Config(num_disparities=512, p1=10, p2=120, adaptive_p2=adaptive)
@@ -442,7 +443,9 @@ def test_sgm_select_wide_frame_cuda_matches_plain(cuda, adaptive):
     kernels.reset_launch_counts()
     disp, valid, d_r = kernels.sgm_select(C, cfg, img)
     S = kernels.aggregate_volume(C, cfg, img)
-    assert kernels.sgm_sweep_fused.launches == 4
+    # sgm_select: six y launches and E; aggregate_volume: six, E and W
+    assert kernels.sgm_sweep_fused.launches == 0
+    assert kernels.sgm_sweep.launches == 7 + 8
     S7 = torch.zeros(C.shape, dtype=torch.int16, device=cuda)
     for dy, dx in DIRS_8:
         if (dy, dx) != (0, -1):
@@ -1480,6 +1483,125 @@ def test_sweep_kernel_carry_matches_plain(cuda, D, direction, form,
         assert kernels.sgm_sweep.carry_forms == dict(FORMS, **{key: 1})
 
 
+# (B, H, W): one row and one column, heights below, at and across a band
+# (8 rows), widths below, at and across a tile (24 columns, 8 at D = 512),
+# the KITTI odometry width, and frames whose blocks walk several tiles
+FUSED_CARRY_SHAPES = [(1, 1, 1), (2, 5, 9), (1, 8, 24), (2, 19, 43),
+                      (1, 4, 1241), (2, 25, 100)]
+
+
+def _q_carries(cuda, K, B, W, D, seed):
+    return torch.stack([_q_carry(cuda, B, W, D, seed + 7 * k)
+                        for k in range(K)])
+
+
+@pytest.mark.parametrize("D", [16, 40, 128, 256, 512])
+@pytest.mark.parametrize("dxs", [(0, 1, -1), (1, -1), (-1, 0, 1)])
+@pytest.mark.parametrize("dy", [1, -1])
+@pytest.mark.parametrize("form", ["add", "write"])
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_fused_kernel_carry_matches_plain(cuda, D, dxs, dy, form, adaptive):
+    """The fused carry forms: a random (K, B, W, D) q carry in (one slab a
+    direction, in dxs order: (-1, 0, 1) takes the s16x2 build's slab
+    reorder), the last row's q out, against the plain version; counted in
+    `carry_forms`."""
+    for seed, shape in enumerate(FUSED_CARRY_SHAPES):
+        B, H, W = shape
+        C = _volume(cuda, *shape, D, seed=seed)
+        img = _image(cuda, *shape, seed=seed) if adaptive else None
+        prev = (_image(cuda, B, 1, W, seed=seed + 50)[:, 0].contiguous()
+                if adaptive else None)
+        q = _q_carries(cuda, len(dxs), B, W, D, seed)
+        S = (torch.full(C.shape, 7, dtype=torch.int16, device=cuda)
+             if form == "add" else None)
+        kernels.reset_launch_counts()
+        ref, ref_q = sgm_sweep_fused_plain(
+            C, None if S is None else S.clone(), dy, dxs, 10, 120, img,
+            carry=q, return_carry=True, img_prev=prev)
+        got, got_q = kernels.sgm_sweep_fused(C, S, dy, dxs, 10, 120, img,
+                                             carry=q, return_carry=True,
+                                             img_prev=prev)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), shape
+        assert torch.equal(got_q, ref_q), shape
+        key = form + ("_adaptive" if adaptive else "")
+        assert kernels.sgm_sweep_fused.carry_forms == dict(FORMS,
+                                                           **{key: 1})
+        assert kernels.sgm_sweep_fused.launches == 1
+        assert kernels.sgm_sweep.launches == 0
+
+
+@pytest.mark.parametrize("D,shape", [(512, (1, 375, 1242)),
+                                     (128, (1, 17, 10000)),
+                                     (128, (4, 192, 1241))])
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_fused_kernel_carry_wide_frames(cuda, D, shape, adaptive):
+    """The carry in and out where each block walks several tiles band by
+    band (D = 512 at the KITTI width, 10,000 columns), and on 4 frames of
+    the exact ring's 192-row strip of a KITTI odometry frame."""
+    B, H, W = shape
+    C = _volume(cuda, *shape, D, seed=31)
+    img = _image(cuda, *shape, seed=31) if adaptive else None
+    prev = (_image(cuda, B, 1, W, seed=81)[:, 0].contiguous() if adaptive
+            else None)
+    q = _q_carries(cuda, 3, B, W, D, 31)
+    for dy in (1, -1):
+        ref = sgm_sweep_fused_plain(C, None, dy, (0, 1, -1), 10, 120, img,
+                                    carry=q, return_carry=True,
+                                    img_prev=prev)
+        got = kernels.sgm_sweep_fused(C, None, dy, (0, 1, -1), 10, 120, img,
+                                      carry=q, return_carry=True,
+                                      img_prev=prev)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        del ref, got
+
+
+@pytest.mark.parametrize("form", ["add", "write"])
+@pytest.mark.parametrize("D", [40, 128])
+def test_fused_kernel_carry_takes_unaligned_volumes(cuda, form, D):
+    C = _unaligned(_volume(cuda, 2, 19, 43, D, seed=32))
+    q = _q_carries(cuda, 3, 2, 43, D, 32)
+    S = (_unaligned(torch.full(C.shape, 5, dtype=torch.int16, device=cuda))
+         if form == "add" else None)
+    ref = sgm_sweep_fused_plain(C, None if S is None else S.clone(), 1,
+                                (0, 1, -1), 10, 120, None, carry=q,
+                                return_carry=True)
+    got = kernels.sgm_sweep_fused(C, S, 1, (0, 1, -1), 10, 120, carry=q,
+                                  return_carry=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("strips", [2, 4])
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("D", [16, 128])
+def test_fused_kernel_carry_chain_equals_one_launch(cuda, strips, adaptive,
+                                                    D):
+    """Strips of a 2 x 37 x 70 volume chained through the fused carry
+    equal one launch, output and final carry, both scan orders."""
+    B, H, W = 2, 37, 70
+    C = _volume(cuda, B, H, W, D, seed=33)
+    img = _image(cuda, B, H, W, seed=33) if adaptive else None
+    cuts = np.array_split(np.arange(H), strips)
+    for dy in (1, -1):
+        ref, ref_q = kernels.sgm_sweep_fused(C, None, dy, (0, 1, -1), 10,
+                                             120, img, return_carry=True)
+        parts, q = {}, None
+        for rows in cuts if dy > 0 else cuts[::-1]:
+            r0, r1 = int(rows[0]), int(rows[-1]) + 1
+            pv = (img[:, r0 - 1 if dy > 0 else r1].contiguous()
+                  if img is not None and q is not None else None)
+            parts[r0], q = kernels.sgm_sweep_fused(
+                C[:, r0:r1].contiguous(), None, dy, (0, 1, -1), 10, 120,
+                None if img is None else img[:, r0:r1].contiguous(),
+                carry=q, return_carry=True, img_prev=pv)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat([parts[k] for k in sorted(parts)], 1),
+                           ref)
+        assert torch.equal(q, ref_q)
+
+
 @pytest.mark.parametrize("D", [40, 128])
 @pytest.mark.parametrize("direction", [(1, 0), (-1, 1)])
 def test_sweep_kernel_carry_takes_unaligned_volumes(cuda, D, direction):
@@ -1527,6 +1649,7 @@ TILED_CASES = {
     "halo": dict(halo=12),
     "exact": dict(exact_tiling=True),
     "exact_adaptive": dict(exact_tiling=True, paths=4, adaptive_p2=True),
+    "exact8_adaptive": dict(exact_tiling=True, paths=8, adaptive_p2=True),
     "halo_hirschmuller": dict(halo=12, fill_mode="hirschmuller"),
     "exact_volume": dict(exact_tiling=True, paths=4, p2=1000),
 }
@@ -1547,8 +1670,15 @@ def test_sgbm_tiled_cuda_matches_cpu(cuda, name, strips):
                                   dist.make_mesh(1, strips)).cpu()
     assert kernels.launch_counts()["census_cost_volume"] == 1
     if cfg.exact_tiling:
-        assert kernels.sgm_sweep.carry_forms["add"] + \
-            kernels.sgm_sweep.carry_forms["add_adaptive"] > 0
+        # the ring: one carry launch a scan order a strip, the down one
+        # writing each strip's S and the up one adding; fused with 8 paths
+        ring, other = kernels.sgm_sweep_fused, kernels.sgm_sweep
+        if cfg.paths == 4:
+            ring, other = other, ring
+        tag = "_adaptive" if cfg.adaptive_p2 else ""
+        assert ring.carry_forms == dict(FORMS, **{"write" + tag: strips,
+                                                  "add" + tag: strips})
+        assert sum(other.carry_forms.values()) == 0
         untiled = sgbm(L[0].to(cuda), R[0].to(cuda), cfg).cpu()
         assert torch.equal(got[0], untiled)
     assert torch.equal(got == -1.0, ref == -1.0)

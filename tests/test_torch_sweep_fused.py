@@ -6,6 +6,12 @@ with the JAX `p2_maps` from its `_p2_stack`); `sgm_select` and
 `sgm_select_pallas` and `aggregate_pallas` in interpret mode; the
 wrapper's refusals and launch counts.
 
+The fused carry form (the ring hand-off of the exact strip tiling):
+`sgm_sweep_fused(..., carry=, return_carry=True, img_prev=)` against the
+JAX `sgm_sweep(..., init_carry=, return_final_carry=True)` with its
+(K, N, D) q-form carry, both the output and the carry; chains over
+strips against one pass; the refusals.
+
 The JAX sweep takes one frame in its (T, N, D) layout with D padded to
 128 and N to 8 (zeros, as `aggregate_pallas` pads them); `reverse` is the
 up order, dy = -1. Inputs are made from a seed with numpy and handed to
@@ -25,8 +31,9 @@ from tpustereo.config import Config as JConfig
 from tpustereo.kernels import aggregate_pallas, sgm_select_pallas
 from tpustereo.kernels.sgm_pallas import _p2_stack
 from tpustereo.kernels.sgm_pallas import sgm_sweep as j_sgm_sweep
+from tpustereo.ops import sgm as jsgm
 from tpustereo_torch import kernels
-from tpustereo_torch.convert import config_from_jax
+from tpustereo_torch.convert import config_from_jax, sweep_carry_from_jax
 from tpustereo_torch.kernels.sgm import sgm_sweep_fused_plain
 from tpustereo_torch.ops.sgm import path_costs
 
@@ -138,6 +145,162 @@ def test_plain_sums_wrap_as_int16(rng):
 
 
 # ---------------------------------------------------------------------------
+# the carry form: the ring hand-off between strips
+# ---------------------------------------------------------------------------
+
+_BIG = 1 << 24
+
+
+def _q(rng, shape, top=120):
+    """A random q-form carry: each column's minimum over d is 0."""
+    q = rng.integers(0, top, shape).astype(np.int32)
+    return q - q.min(-1, keepdims=True)
+
+
+def _jax_fused_carry(C, S0, img, prev, dy, dxs, q):
+    """One (T, N, D) frame's fused sweep by the JAX Pallas sweep in
+    interpret mode, seeded with the (K, N, D) q carry, padded as the exact
+    tiled path pads (lanes past D hold a large value, as the tiling tests'
+    one-direction carry does); under adaptive P2 each direction's map over
+    the image extended by the carry's row. -> (S real part, the (K, 1, N,
+    D) final carry's real columns and lanes)."""
+    T, N, Dr = C.shape
+    K = len(dxs)
+    Np, Dp = _round_up(N, 8), _round_up(Dr, 128)
+    pad = ((0, 0), (0, Np - N), (0, Dp - Dr))
+    init = np.zeros((K, Np, Dp), np.int32)
+    init[:, :, Dr:] = _BIG
+    init[:, :N, :Dr] = q
+    maps = None
+    if img is not None:
+        ext = np.concatenate([prev[None], img] if dy > 0
+                             else [img, prev[None]])
+        jcfg = JConfig(p1=P1, p2=P2, adaptive_p2=True)
+        m = np.stack([np.asarray(jsgm.p2_map(jnp.asarray(ext), dy, dx, jcfg))
+                      for dx in dxs], -1)
+        m = m[1:] if dy > 0 else m[:-1]
+        maps = jnp.asarray(np.pad(m, ((0, 0), (0, Np - N), (0, 0))))
+    res, fin = j_sgm_sweep(
+        jnp.asarray(np.pad(C, pad)),
+        None if S0 is None else jnp.asarray(np.pad(S0, pad)), tuple(dxs),
+        dy < 0, P1, P2, N, Dr, p2_maps=maps, init_carry=jnp.asarray(init),
+        return_final_carry=True, interpret=True)
+    fin = np.asarray(fin)
+    return (np.asarray(res)[:, :N, :Dr],
+            torch.stack([sweep_carry_from_jax(f, N, Dr) for f in fin]))
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("form", ["write", "add"])
+@pytest.mark.parametrize("dy", [1, -1])
+@pytest.mark.parametrize("dxs", [(0, 1, -1), (1, -1)])
+@pytest.mark.parametrize("H,W,D", GEOMETRIES)
+def test_fused_carry_matches_pallas_interpret(H, W, D, dxs, dy, form,
+                                              adaptive):
+    """The output and the (K, B, W, D) final carry, bit for bit, from a
+    random q carry (and, under adaptive P2, the carry's image row)."""
+    rng = np.random.default_rng([H, len(dxs), dy + 1, form == "add",
+                                 adaptive])
+    C, S0 = _inputs(rng, H, W, D, form)
+    q = _q(rng, (len(dxs), 2, W, D))
+    imgs = (rng.integers(0, 256, (2, H, W), dtype=np.uint8) if adaptive
+            else None)
+    prev = rng.integers(0, 256, (2, W), dtype=np.uint8) if adaptive else None
+    S = None if S0 is None else _t(S0)
+    got, fin = kernels.sgm_sweep_fused(
+        _t(C), S, dy, dxs, P1, P2, None if imgs is None else _t(imgs),
+        carry=_t(q), return_carry=True,
+        img_prev=None if prev is None else _t(prev))
+    assert fin.dtype == torch.int32 and fin.shape == (len(dxs), 2, W, D)
+    if S is not None:
+        assert got is S
+    for f in range(2):
+        ref, ref_fin = _jax_fused_carry(
+            C[f], None if S0 is None else S0[f],
+            None if imgs is None else imgs[f],
+            None if prev is None else prev[f], dy, dxs, q[:, f])
+        np.testing.assert_array_equal(got[f].numpy(), ref)
+        assert torch.equal(fin[:, f], ref_fin[:, 0])
+
+
+@pytest.mark.parametrize("strips", [2, 3])
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("dy", [1, -1])
+def test_fused_carry_chain_equals_one_pass(strips, adaptive, dy):
+    """The fused sweep over strips of 11 rows, each seeded with the carry
+    of the one before it in path order (the later strips' first row's
+    image predecessor from img_prev), equals one pass bit for bit, and the
+    last strip's carry is the pass's."""
+    rng = np.random.default_rng([strips, adaptive, dy + 1])
+    B, Hc, Wc, Dc = 2, 11, 9, 16
+    C = _t(rng.integers(0, 40, (B, Hc, Wc, Dc), dtype=np.uint8))
+    img = (_t(rng.integers(0, 256, (B, Hc, Wc), dtype=np.uint8)) if adaptive
+           else None)
+    dxs = (0, 1, -1)
+    ref, ref_fin = kernels.sgm_sweep_fused(C, None, dy, dxs, P1, P2, img,
+                                           return_carry=True)
+    cuts = np.array_split(np.arange(Hc), strips)
+    parts, carry = {}, None
+    for rows in cuts if dy > 0 else cuts[::-1]:
+        r0, r1 = int(rows[0]), int(rows[-1]) + 1
+        prev = None
+        if img is not None and carry is not None:
+            prev = img[:, r0 - 1 if dy > 0 else r1].contiguous()
+        parts[r0], carry = kernels.sgm_sweep_fused(
+            C[:, r0:r1].contiguous(), None, dy, dxs, P1, P2,
+            None if img is None else img[:, r0:r1].contiguous(),
+            carry=carry, return_carry=True, img_prev=prev)
+    got = torch.cat([parts[k] for k in sorted(parts)], 1)
+    assert torch.equal(got, ref)
+    assert torch.equal(carry, ref_fin)
+
+
+def test_fused_carry_is_the_one_direction_carries(rng):
+    """Each slab of the fused carry is its direction's `sgm_sweep` carry,
+    in `dxs` order; a zero carry is a fresh start."""
+    C = _t(rng.integers(0, 40, (2, 5, 7, 16), dtype=np.uint8))
+    q = _t(_q(rng, (3, 2, 7, 16)))
+    for dy in (1, -1):
+        dxs = (1, -1, 0)
+        got, fin = kernels.sgm_sweep_fused(C, None, dy, dxs, P1, P2,
+                                           carry=q, return_carry=True)
+        ref = None
+        for k, dx in enumerate(dxs):
+            ref, f = kernels.sgm_sweep(C, ref, dy, dx, P1, P2, carry=q[k],
+                                       return_carry=True)
+            assert torch.equal(fin[k], f)
+        assert torch.equal(got, ref)
+        zero = torch.zeros_like(q)
+        assert torch.equal(
+            kernels.sgm_sweep_fused(C, None, dy, dxs, P1, P2, carry=zero),
+            kernels.sgm_sweep_fused(C, None, dy, dxs, P1, P2))
+
+
+def test_fused_carry_refusals(rng):
+    C = _t(rng.integers(0, 25, (2, 4, 6, 16), dtype=np.uint8))
+    img = torch.zeros((2, 4, 6), dtype=torch.uint8)
+    q = torch.zeros((3, 2, 6, 16), dtype=torch.int32)
+    fused = kernels.sgm_sweep_fused
+    for bad in (q[:2], q[:, :1], q[:, :, :5], q[..., :15], q[0],
+                q.to(torch.int16), q.to(torch.int64)):
+        with pytest.raises(ValueError, match="carry must be"):
+            fused(C, None, 1, (0, 1, -1), P1, P2, carry=bad)
+    with pytest.raises(ValueError, match="carry must be"):
+        fused(C, None, 1, (0, 1), P1, P2, carry=q)
+    with pytest.raises(ValueError, match="device"):
+        fused(C, None, 1, (0, 1, -1), P1, P2, carry=q.to("meta"))
+    with pytest.raises(ValueError, match="needs img_prev"):
+        fused(C, None, 1, (0, 1, -1), P1, P2, img, carry=q)
+    with pytest.raises(ValueError, match="img_prev goes with"):
+        fused(C, None, 1, (0, 1, -1), P1, P2, carry=q, img_prev=img[:, 0])
+    with pytest.raises(ValueError, match="img_prev goes with"):
+        fused(C, None, 1, (0, 1, -1), P1, P2, img, img_prev=img[:, 0])
+    with pytest.raises(ValueError, match="img_prev must be"):
+        fused(C, None, 1, (0, 1, -1), P1, P2, img, carry=q,
+              img_prev=img[:, 0, :5])
+
+
+# ---------------------------------------------------------------------------
 # the compositions that run it
 # ---------------------------------------------------------------------------
 
@@ -223,6 +386,24 @@ def test_cpu_runs_count_no_launch(rng):
     assert kernels.launch_counts()["sgm_sweep_fused"] == 0
     S = kernels.sgm_sweep_fused(C, None, 1, (0, 1, -1), P1, P2)
     kernels.sgm_sweep_fused(C, S, -1, (0, 1, -1), P1, P2)
+    kernels.sgm_sweep_fused(C, None, 1, (0, 1, -1), P1, P2,
+                            return_carry=True)
     assert kernels.sgm_sweep_fused.launches == 0
     assert kernels.sgm_sweep_fused.builds == {
         "write": 0, "add": 0, "write_adaptive": 0, "add_adaptive": 0}
+    assert kernels.sgm_sweep_fused.carry_forms == {
+        "write": 0, "add": 0, "write_adaptive": 0, "add_adaptive": 0}
+
+
+@pytest.mark.parametrize("D", [16, 128, 256, 512])
+def test_vertical_orders(D):
+    """8 paths: the down and up sets, each one fused launch up to
+    `FUSED_MAX_D`, one direction a launch past it; 4 paths: S and N."""
+    from tpustereo_torch.kernels.sgm import FUSED_MAX_D, vertical_orders
+    orders = vertical_orders(8, D)
+    if D <= FUSED_MAX_D:
+        assert orders == ((1, (0, 1, -1)), (-1, (0, 1, -1)))
+    else:
+        assert orders == tuple((dy, (dx,)) for dy in (1, -1)
+                               for dx in (0, 1, -1))
+    assert vertical_orders(4, D) == ((1, (0,)), (-1, (0,)))

@@ -274,6 +274,9 @@ CASES = {
     "halo_adaptive": (_base(paths=4, halo=12, adaptive_p2=True), 2),
     "halo_min_disp": (_base(paths=8, halo=12, min_disparity=3), 2),
     "exact_adaptive": (_base(paths=4, exact_tiling=True, adaptive_p2=True), 4),
+    # the fused carry form of the down and up sets, adaptive P2 (img_prev)
+    "exact8_adaptive": (_base(paths=8, exact_tiling=True, adaptive_p2=True),
+                        4),
     "exact_hirschmuller": (_base(paths=8, exact_tiling=True,
                                  fill_mode="hirschmuller"), 4),
     "halo_hirschmuller": (_base(paths=8, halo=12, fill_mode="hirschmuller",
@@ -315,6 +318,52 @@ def test_tiled_exact_matches_pallas_ring(pair):
     """The JAX exact ring on its Pallas q-carry sweeps (interpret mode)."""
     _same(*_both(*pair, _base(paths=8, exact_tiling=True,
                               backend="pallas"), 2))
+
+
+@pytest.mark.parametrize("paths,strips,d", [(8, 2, D), (8, 3, D), (4, 2, D),
+                                            (8, 2, 264)])
+def test_exact_ring_launches_a_scan_order_a_strip(monkeypatch, pair, paths,
+                                                  strips, d):
+    """With 8 paths the ring runs the fused carry form once a scan order a
+    strip (the down set, then the up set: 2 * strips calls, a (3, F, W, D)
+    carry across each boundary); with 4 paths, and with 8 past
+    `FUSED_MAX_D` (`vertical_orders`), the one-direction carry form once a
+    direction a strip. The output stays the untiled one."""
+    from tpustereo_torch.kernels import sgm as ksgm
+    from tpustereo_torch.kernels.sgm import vertical_orders
+    calls = {"fused": [], "one": []}
+
+    def counted(fn, key):
+        def wrapper(*args, **kw):
+            if "carry" in kw:
+                carry = kw["carry"]
+                calls[key].append((args[2], args[3], None if carry is None
+                                   else tuple(carry.shape),
+                                   kw["return_carry"]))
+            return fn(*args, **kw)
+        return wrapper
+
+    monkeypatch.setattr(ksgm, "sgm_sweep_fused",
+                        counted(ksgm.sgm_sweep_fused, "fused"))
+    monkeypatch.setattr(ksgm, "sgm_sweep", counted(ksgm.sgm_sweep, "one"))
+    L, R = pair
+    cfg = _cfg(_base(paths=paths, exact_tiling=True, num_disparities=d))
+    got = dist.sgbm_tiled(_t(L), _t(R), cfg,
+                          dist.make_mesh(1, strips, device="cpu")).numpy()
+    np.testing.assert_array_equal(got, sgbm(_t(L), _t(R), cfg).numpy())
+    orders = vertical_orders(paths, d)
+    fused = len(orders[0][1]) > 1
+    assert fused == (paths == 8 and d == D)
+    ring = calls["fused"] if fused else calls["one"]
+    assert not (calls["one"] if fused else calls["fused"])
+    assert len(ring) == len(orders) * strips   # one call a strip an order
+    shape = (3, 1, W, d) if fused else (1, W, d)
+    for o, (dy, dxs) in enumerate(orders):
+        seq = ring[o * strips:(o + 1) * strips]
+        assert [c[0] for c in seq] == [dy] * strips
+        assert [c[1] for c in seq] == [dxs if fused else dxs[0]] * strips
+        assert [c[2] for c in seq] == [None] + [shape] * (strips - 1)
+        assert [c[3] for c in seq] == [True] * (strips - 1) + [False]
 
 
 def test_halo_clamp_warns_in_both(pair):

@@ -13,6 +13,7 @@ card: its compile-time sizes, and the source with one part cut out.
     python3 -m tpustereo_torch.bench.kernel_micro sgm_fused
     python3 -m tpustereo_torch.bench.kernel_micro lr_check
     python3 -m tpustereo_torch.bench.kernel_micro NAME --against DIR
+    python3 -m tpustereo_torch.bench.kernel_micro NAME --only B1,B2
 
 For the kernel named (`csrc/<name>.cu`) this script compiles the source once
 per entry of `SIZES[name]` (`-D` macros that the source reads in place of
@@ -54,20 +55,40 @@ of another checkout (`DIR/tpustereo_torch/csrc/<name>.cu`, the same C
 interface, or the one `AGAINST_SIGS` names) one more build, named after
 DIR (a parent commit unpacked into `parent/`, say), held to the shipped
 outputs in the cases it takes (a checkout's `sgm_sweep` and `bwd_wta`
-from before adaptive P2 take the scalar cases alone). It prints the
-card's name and power limit,
+from before adaptive P2 take the scalar cases alone). `--only` keeps the
+builds named (sizes, ablations, checkouts), and may name none (`--only
+""`). It prints the card's name and power limit,
 then one JSON line: ms per launch of each build in each case, by CUDA
 events (mean of 20 launches after a warm-up) and by CUDA-graph replay (20
 launches captured in one graph: the device's time without the host's per
 launch), in turns shipped, builds..., shipped, and each build's device ms
 a call in each of its kernels (`profile_ms`, by `torch.profiler`).
+
+`sgm_fused` also runs, at 1 x 375 x 1242 with D = 256 and 512, the down
+set written and the up set added (every build); and prints `anatomy`:
+the shipped library's SASS of each s16x2 build by opcode class
+(`cuobjdump -sass`, split at its block barriers: the segment with the
+warp minimums is the row's body), each build's registers and spills
+(`-Xptxas -v`), its blocks an SM (`cudaOccupancyMaxActiveBlocksPerMulti
+processor`) and the card's SM clocks; with the `phases` build (the
+source's `FUSED_PHASES` stamps), each case's cycles a warp a row by phase;
+and `routes`, in turns by events and graph replay: the fused down and up
+sets against the six one-direction launches on one 375 x 1242 frame at D
+= 128, 256 and 512, and the fused carry form on one 192-row strip of a
+376 x 1241 frame (`kitti_odometry`'s exact ring at 2 strips) beside the
+same launch without a carry; and `pipeline`, in turns by events, the
+shipped build against each `--against` build under the wrapper: a set at
+KITTI F=4 (the two fused passes and E) and a `kitti_sgm8` batch of 8
+frames, outputs held equal.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -103,8 +124,13 @@ SIGS = {"bwd_wta": _BWD_SIGS, "census_cost": _COST_SIGS,
         "lr_check": {"lr_hits_launch": _LR_SIGS["lr_hits_launch"]}}
 # earlier C interfaces that `--against` builds keep: sgm_bidir_launch
 # before its `packed` argument (one int32 build), sgm_sweep_launch and
-# bwd_wta_launch before their image argument (scalar P2 alone)
+# bwd_wta_launch before their image argument (scalar P2 alone),
+# sgm_fused_launch before its carry arguments
 AGAINST_SIGS = {
+    "sgm_fused": {"sgm_fused_launch": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
+        ctypes.c_int),
+        "sgm_fused_scratch": _FUSED_SIGS["sgm_fused_scratch"]},
     "sgm_bidir": {"sgm_bidir_launch": (
         _BIDIR_SIGS["sgm_bidir_launch"][0][:11] + [ctypes.c_void_p],
         ctypes.c_int)},
@@ -161,10 +187,16 @@ SIZES = {
         "s16x2": ["-DSWEEP_S16X2=1"],
     },
     # rows in flight a warp; own columns a tile (with 8 halo columns a
-    # side): wider tiles spend less on halos, and fewer fit on the card
+    # side): wider tiles spend less on halos, and fewer fit on the card;
+    # the s16x2 build compiled for 3 blocks an SM (80 registers); an s16x2
+    # build at D = 512 too (the shipped one takes int32 there); the
+    # shipped sizes with the phase stamps (`FUSED_PHASES`)
     "sgm_fused": {
         **{f"ring{n}": [f"-DFUSED_RING={n}"] for n in (4, 8)},
         **{f"tw{n}": [f"-DFUSED_TW={n}"] for n in (8, 16, 32)},
+        "minb3": ["-DFUSED_MINB=3"],
+        "s16x2_d512": ["-DFUSED_PACKED_MAXK=16"],
+        "phases": ["-DFUSED_PHASES"],
     },
     # the hits kernel's tile: groups of 4 pixels a thread, threads a block
     "lr_check": {
@@ -326,20 +358,28 @@ ABLATIONS = {
         # before they are written)
         "no_waits": ("if (threadIdx.x == 0) {\n              if (tile > 0)",
                      "if (false) {\n              if (tile > 0)"),
-        # the barrier that ends each row (warps read their neighbours' row
-        # buffers whenever they get to them)
-        "no_row_barrier": ("      __syncthreads();  // row t's q is in the",
-                           "      //"),
-        # the wait for the ring's oldest row
-        "no_ring_wait": ("cp_async_wait<RING - 1>();  // row t's", "//"),
+        # the barrier that ends each row in the s16x2 build (warps read
+        # their neighbours' row buffers, and the block's ring, whenever they
+        # get to them)
+        "no_row_barrier": ("__syncthreads();  // row t's q and row t + 1's",
+                           "//"),
+        # the s16x2 build's wait for the next ring row's copies
+        "no_ring_wait": ("            cp_async_wait<0>();\n            "
+                         "PHASE(1);", "            PHASE(1);"),
         # the fence before a band's flag (its edges may land after it)
-        "no_fence": ("        __threadfence();\n", "\n"),
+        "no_fence": ("              __threadfence();\n", "\n"),
+        # no band exchange at all: no edge stores, flags, waits or edge
+        # loads (the halos keep what they computed)
+        "no_exchange": [
+            ("if (a.exchange && t % FR == 0 && t > 0) {", "if (false) {"),
+            ("if (a.exchange && (t + 1) % FR == 0 && t + 1 < H) {",
+             "if (false) {")],
         # the s16x2 build's stores of S
         "no_s_store": ("if (j > 0 && j < SPW - 1 && inside)",
                        "if (j < 0 && inside)"),
         # the s16x2 build's warp minimums (each lane keeps its own)
-        "no_warp_min": ("m[j][k] = __reduce_min_sync(FULL_MASK, m[j][k]) "
-                        "* 0x10001u;", "m[j][k] = m[j][k] * 0x10001u;"),
+        "no_warp_min": ("m[j][k] = __reduce_min_sync(FULL_MASK, m[j][k]);",
+                        "m[j][k] = m[j][k];"),
     },
     "lr_check": {
         # the hits scatter (the flags stay clear)
@@ -367,7 +407,17 @@ ABLATIONS = {
 }
 
 
-def _compile(name: str, against: tuple = ()) -> dict:
+def _same_interface(name: str, src: str) -> bool:
+    """Whether another checkout's source takes the current C interface
+    (`sgm_fused` with its carry arguments); the others take
+    `AGAINST_SIGS`."""
+    if name != "sgm_fused":
+        return False
+    with open(src) as f:
+        return "const int* cin" in f.read()
+
+
+def _compile(name: str, against: tuple = (), only=None) -> dict:
     os.makedirs(OUT, exist_ok=True)
     nvcc = _build._nvcc()
     src = os.path.join(_build.CSRC, f"{name}.cu")
@@ -381,6 +431,8 @@ def _compile(name: str, against: tuple = ()) -> dict:
         builds[b] = (os.path.join(csrc, f"{name}.cu"), ["-I", csrc])
         others.add(b)
     for b, cut in ABLATIONS[name].items():
+        if only is not None and b not in only:
+            continue
         cut_text = text
         for old, new in [cut] if isinstance(cut[0], str) else cut:
             if cut_text.count(old) != 1:
@@ -390,6 +442,8 @@ def _compile(name: str, against: tuple = ()) -> dict:
         with open(path, "w") as f:
             f.write(cut_text)
         builds[b] = (path, ["-I", _build.CSRC])
+    if only is not None:
+        builds = {b: v for b, v in builds.items() if b in only}
     procs = {}
     for b, (path, flags) in builds.items():
         lib = os.path.join(OUT, f"lib{name}_{b}.so")
@@ -406,7 +460,7 @@ def _compile(name: str, against: tuple = ()) -> dict:
                 print(f"  ptxas {b}: {line.strip()}")
         lib = ctypes.CDLL(path)
         sigs = SIGS[name]
-        if b in others:
+        if b in others and not _same_interface(name, builds[b][0]):
             sigs = AGAINST_SIGS.get(name, sigs)
             lib.tps_against = True
         for fn, (argtypes, restype) in sigs.items():
@@ -499,51 +553,299 @@ def _sweep_cases(dev) -> list:
     return cases
 
 
+def _fused_scratch(B: int, W: int, D: int, dev):
+    """Flags, edges and carries between bands for any build's tiles (edge
+    buffer for tiles of 8 columns, carries for tiles of up to 32)."""
+    tiles = B * -(-W // 8)
+    return (torch.zeros(tiles, dtype=torch.int32, device=dev),
+            torch.empty(tiles * 2 * 2 * 8 * D, dtype=torch.int16, device=dev),
+            torch.empty((W + 32) * 3 * D, dtype=torch.int16, device=dev))
+
+
 def _fused_cases(dev) -> list:
     """The `sgm_fused` cases at KITTI F = 4: the down set written and the up
     set added (on the down set's sum), with the scalar P2 and with
-    adaptive P2 (the frames' left images). Each launch zeroes the tiles'
-    flags first, as the wrapper does; the edge buffer is sized for the
-    narrowest tile any build takes (8 columns), the carries between bands
-    for the widest (32)."""
+    adaptive P2 (the frames' left images); and the same pair, scalar, on
+    one 375 x 1242 frame at D = 256 and 512 (the census volume of a
+    synthetic frame at that D). Each launch zeroes the tiles' flags
+    first, as the wrapper does."""
     cfg = PRESETS["kitti_sgm8"]
     L, R = _frames((375, 1242), cfg.frames_per_step, 40.0, dev)
-    D, p1, p2 = cfg.num_disparities, cfg.p1, cfg.p2
-    C = kernels.census_cost_volume(L, R, D, cfg.max_census_cost,
-                                   cfg.census_window, cfg.min_disparity)
-    del R
-    B, H, W, _ = C.shape
-    tiles = B * -(-W // 8)
-    flags = torch.zeros(tiles, dtype=torch.int32, device=dev)
-    edges = torch.empty(tiles * 2 * 2 * 8 * D, dtype=torch.int16,
-                        device=dev)
-    state = torch.empty((W + 32) * 3 * D, dtype=torch.int16, device=dev)
-    S0 = kernels.sgm_sweep_fused(C, None, 1, VERTICAL_DXS, p1, p2)
+    p1, p2 = cfg.p1, cfg.p2
     cases = []
-    for (dy, form), img in [(c, i) for c in ((1, "write"), (-1, "add"))
-                            for i in (None, L)]:
-        acc = form == "add"
-        ref = (kernels.sgm_sweep_fused(C, S0.clone() if acc else None, dy,
-                                       VERTICAL_DXS, p1, p2, img),)
-        outs = (torch.empty_like(S0),)
+    for D, F in ((cfg.num_disparities, cfg.frames_per_step), (256, 1),
+                 (512, 1)):
+        C = kernels.census_cost_volume(L[:F].contiguous(),
+                                       R[:F].contiguous(), D,
+                                       cfg.max_census_cost,
+                                       cfg.census_window, cfg.min_disparity)
+        B, H, W, _ = C.shape
+        flags, edges, state = _fused_scratch(B, W, D, dev)
+        S0 = kernels.sgm_sweep_fused(C, None, 1, VERTICAL_DXS, p1, p2)
+        for (dy, form), img in [(c, i) for c in ((1, "write"), (-1, "add"))
+                                for i in ((None, L) if F > 1 else (None,))]:
+            acc = form == "add"
+            ref = (kernels.sgm_sweep_fused(C, S0.clone() if acc else None,
+                                           dy, VERTICAL_DXS, p1, p2, img),)
+            outs = (torch.empty_like(S0),)
 
-        def launch(lib, outs=outs, dy=dy, acc=acc, img=img):
-            flags.zero_()
-            return lib.sgm_fused_launch(
-                _build.ptr(C), _build.ptr(outs[0]),
-                None if img is None else _build.ptr(img), _build.ptr(flags),
-                _build.ptr(edges), _build.ptr(state), B, H, W, D, dy,
-                len(VERTICAL_DXS), *VERTICAL_DXS, p1, p2, int(acc),
-                _build.stream_ptr(C))
+            def launch(lib, C=C, outs=outs, dy=dy, acc=acc, img=img,
+                       flags=flags, edges=edges, state=state):
+                flags.zero_()
+                # the current interface: no carry in or out, no carry row
+                carry = (() if getattr(lib, "tps_against", False)
+                         else (None, None, None))
+                return lib.sgm_fused_launch(
+                    _build.ptr(C), _build.ptr(outs[0]),
+                    None if img is None else _build.ptr(img),
+                    _build.ptr(flags), _build.ptr(edges), _build.ptr(state),
+                    *carry, *C.shape, dy, len(VERTICAL_DXS), *VERTICAL_DXS,
+                    p1, p2, int(acc), _build.stream_ptr(C))
 
-        def reset(outs=outs, acc=acc):
-            if acc:
-                outs[0].copy_(S0)
-        label = (f"kitti_F4_{'down' if dy > 0 else 'up'}_{form}"
-                 f"{'' if img is None else '_adaptive'}")
-        cases.append((label, [B, H, W, D], ref, outs, launch,
-                      {"reset": reset}))
+            def reset(outs=outs, acc=acc, S0=S0):
+                if acc:
+                    outs[0].copy_(S0)
+            where = "kitti_F4" if F > 1 else f"d{D}_1x375x1242"
+            label = (f"{where}_{'down' if dy > 0 else 'up'}_{form}"
+                     f"{'' if img is None else '_adaptive'}")
+            cases.append((label, [B, H, W, D], ref, outs, launch,
+                          {"reset": reset}))
     return cases
+
+
+def _sass_classes(sass: str, fn: str) -> dict:
+    """Opcode counts of function fn in `cuobjdump -sass` text, split into
+    segments at its block barriers (`BAR.SYNC`): {"segments": [{class:
+    count}], "row": the index of the segment with the warp minimums
+    (`REDUX`), the row's body}."""
+    lines, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = line.split("Function :")[1].strip() == fn
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     line)
+        if inside and m:
+            lines.append(m.group(1))
+    segs, cur = [], collections.Counter()
+
+    def klass(op: str) -> str:
+        base = op.split(".")[0]
+        if base.startswith("VI") or base in ("VHMNMX",):
+            return "dpx"
+        if base == "PRMT":
+            return "prmt"
+        if base in ("LDS", "STS", "LDSM", "ATOMS"):
+            return "shared"
+        if base in ("SHFL", "REDUX", "VOTE", "MATCH"):
+            return "warp"
+        if base in ("LDG", "STG", "LDGSTS", "LDGDEPBAR", "DEPBAR", "LD",
+                    "ST", "RED", "ATOM", "ATOMG", "CCTL", "MEMBAR",
+                    "FENCE", "ERRBAR"):
+            return "global"
+        if base in ("LEA", "IMAD") and (".WIDE" in op or ".X" in op
+                                         or ".HI" in op):
+            return "address"
+        if base == "IADD3" and ".X" in op:
+            return "address"
+        if base in ("BAR", "BRA", "BSSY", "BSYNC", "EXIT", "RET", "CALL",
+                    "WARPSYNC", "YIELD", "NOP", "BPT", "S2R", "S2UR", "CS2R",
+                    "NANOSLEEP", "BMOV", "ELECT"):
+            return "control"
+        if base.startswith("U") and base not in ("UMOV",):
+            return "uniform"
+        return "int_alu"
+
+    for op in lines:
+        cur[klass(op)] += 1
+        cur["_all"] += 1
+        if op.startswith("REDUX"):
+            cur["_redux"] += 1
+        if op.startswith("BAR"):
+            segs.append(dict(cur))
+            cur = collections.Counter()
+    segs.append(dict(cur))
+    row = max(range(len(segs)), key=lambda i: (segs[i].get("_redux", 0),
+                                                segs[i].get("_all", 0)))
+    return {"segments": segs, "row": row, "total": len(lines)}
+
+
+def _fused_anatomy(lib) -> dict:
+    """The shipped `sgm_fused` library's SASS by opcode class for each
+    s16x2 build, registers and spills from its build log, blocks an SM of
+    the build each D takes (int32 at D = 512), and the SM clocks."""
+    out = {}
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", _build.lib_path("sgm_fused")],
+                          capture_output=True, text=True, timeout=300).stdout
+    fns = sorted(set(re.findall(r"Function : (\S*sgm_fused_kernel\S*)",
+                                sass)))
+    out["sass"] = {}
+    for fn in fns:
+        # _Z16sgm_fused_kernelILi4ELb0ELb0ELb1EEv9FusedArgs: K, ACC, ADAPT,
+        # PACKED
+        m = re.search(r"ILi(\d+)ELb(\d)ELb(\d)ELb(\d)E", fn)
+        if not m or m.group(4) != "1":
+            continue
+        key = (f"K{m.group(1)}_{'add' if m.group(2) == '1' else 'write'}"
+               f"{'_adaptive' if m.group(3) == '1' else ''}")
+        out["sass"][key] = _sass_classes(sass, fn)
+    with open(_build.log_path("sgm_fused")) as f:
+        log = f.read()
+    out["ptxas"] = [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln
+                    or "Compiling entry" in ln]
+    occ = {}
+    lib.sgm_fused_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.sgm_fused_occupancy.restype = ctypes.c_int
+    for D, packed in ((128, 1), (256, 1), (512, 0)):
+        for acc in (0, 1):
+            for ad in (0, 1):
+                v = (ctypes.c_int * 3)()
+                rc = lib.sgm_fused_occupancy(D, acc, ad, packed, v)
+                occ[f"D{D}_{'add' if acc else 'write'}"
+                    f"{'_adaptive' if ad else ''}"] = {
+                    "rc": rc, "blocks_per_sm": v[0], "smem": v[1],
+                    "registers": v[2]}
+    out["occupancy"] = occ
+    out["clocks"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    return out
+
+
+def _phase_split(lib, run) -> dict:
+    """Cycles a warp a row by phase of one launch of the `phases` build."""
+    names = ("xch_in", "ring_wait", "loads", "steps", "warp_min", "stores",
+             "fill", "barrier", "xch_out", "other")
+    buf = (ctypes.c_ulonglong * (len(names) + 1))()
+    lib.sgm_fused_phases.argtypes = [ctypes.c_void_p]
+    lib.sgm_fused_phases.restype = ctypes.c_int
+    torch.cuda.synchronize()
+    lib.sgm_fused_phases(buf)        # zero the sums
+    run(lib)
+    torch.cuda.synchronize()
+    if lib.sgm_fused_phases(buf) != 0:
+        raise RuntimeError("sgm_fused_phases failed")
+    rows = max(buf[len(names)], 1)
+    split = {n: buf[i] / rows for i, n in enumerate(names)}
+    split["warp_rows"] = buf[len(names)]
+    return split
+
+
+class _CarrylessLib:
+    """Another checkout's `sgm_fused` library, whose C interface predates
+    the carry arguments, behind the current one, so that the wrapper (and
+    the pipeline above it) can run it: calls with no carry only."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        lib.tps_error_string.argtypes = [ctypes.c_int]
+        lib.tps_error_string.restype = ctypes.c_char_p
+
+    def sgm_fused_launch(self, *args):
+        if any(x is not None for x in args[6:9]):
+            raise ValueError("this build takes no carry")
+        return self._lib.sgm_fused_launch(*args[:6], *args[9:])
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
+def _fused_pipeline(libs: dict, dev) -> dict:
+    """In turns by events, the shipped build against each `--against`
+    build through the wrapper: a set at KITTI F=4 (the down set written,
+    the up set added, then the E sweep's add) and a `kitti_sgm8` batch of
+    8 frames (`pipeline.sgbm_batched`), the batch's output held equal."""
+    from tpustereo_torch.pipeline import sgbm_batched
+    cfg = PRESETS["kitti_sgm8"]
+    p1, p2 = cfg.p1, cfg.p2
+    L, R = _frames((375, 1242), 8, 40.0, dev)
+    F = cfg.frames_per_step
+    C = kernels.census_cost_volume(L[:F].contiguous(), R[:F].contiguous(),
+                                   cfg.num_disparities, cfg.max_census_cost,
+                                   cfg.census_window, cfg.min_disparity)
+
+    def a_set():
+        S = kernels.sgm_sweep_fused(C, None, 1, VERTICAL_DXS, p1, p2)
+        kernels.sgm_sweep_fused(C, S, -1, VERTICAL_DXS, p1, p2)
+        kernels.sgm_sweep(C, S, 0, 1, p1, p2)
+
+    def batch():
+        return sgbm_batched(L, R, cfg)
+    shipped = _build.load("sgm_fused", _FUSED_SIGS)
+    others = {b: _CarrylessLib(lib) if getattr(lib, "tps_against", False)
+              else lib for b, lib in libs.items() if b not in
+              ABLATIONS["sgm_fused"] and b not in SIZES["sgm_fused"]}
+    ref = batch()
+    turns = [("shipped_first", shipped), *others.items(),
+             ("shipped_last", shipped)]
+    out = {"set_ms": {}, "batch_ms": {}}
+    try:
+        for key, lib in turns:
+            _build._libs["sgm_fused"] = lib
+            if not torch.equal(batch(), ref):
+                raise SystemExit(f"kernel_micro: the kitti_sgm8 batch with "
+                                 f"build {key} differs from the shipped one")
+            out["set_ms"][key] = _ms(a_set)
+            out["batch_ms"][key] = _ms(batch, 10)
+    finally:
+        _build._libs["sgm_fused"] = shipped
+    return out
+
+
+def _fused_routes(dev) -> dict:
+    """In turns, events and graph replay: on one 375 x 1242 frame at D =
+    128, 256 and 512 the fused down and up sets (a write and an add)
+    against the six one-direction launches (S written, the others added);
+    and the fused carry form, in and out, on one 192-row strip of a 376 x
+    1241 frame against the same launch without a carry."""
+    cfg = PRESETS["kitti_sgm8"]
+    p1, p2 = cfg.p1, cfg.p2
+    L, R = _frames((375, 1242), 1, 40.0, dev)
+    out = {}
+    for D in (128, 256, 512):
+        C = kernels.census_cost_volume(L, R, D, cfg.max_census_cost,
+                                       cfg.census_window, cfg.min_disparity)
+
+        def fused(C=C):
+            S = kernels.sgm_sweep_fused(C, None, 1, VERTICAL_DXS, p1, p2)
+            return kernels.sgm_sweep_fused(C, S, -1, VERTICAL_DXS, p1, p2)
+
+        def six(C=C):
+            S = None
+            for dy in (1, -1):
+                for dx in VERTICAL_DXS:
+                    S = kernels.sgm_sweep(C, S, dy, dx, p1, p2)
+            return S
+        if not torch.equal(fused(), six()):
+            raise SystemExit(f"kernel_micro: the fused sets differ from the "
+                             f"six launches at D = {D}")
+        res = {}
+        for key, fn in (("six_first", six), ("fused_first", fused),
+                        ("fused_last", fused), ("six_last", six)):
+            res[key] = {"ms": _ms(fn), "graph_ms": _graph_ms(fn)}
+        out[f"d{D}_1x375x1242"] = res
+    ocfg = PRESETS["kitti_odometry"]
+    L, R = _frames((376, 1241), 1, 45.0, dev)
+    D = ocfg.num_disparities
+    C = kernels.census_cost_volume(L, R, D, ocfg.max_census_cost,
+                                   ocfg.census_window,
+                                   ocfg.min_disparity)[:, :192].contiguous()
+    _, _, W, _ = C.shape
+    q = torch.zeros((3, 1, W, D), dtype=torch.int32, device=dev)
+    S = kernels.sgm_sweep_fused(C, None, 1, VERTICAL_DXS, p1, p2)
+    with_carry = (lambda: kernels.sgm_sweep_fused(
+        C, S, 1, VERTICAL_DXS, p1, p2, carry=q, return_carry=True))
+    without = (lambda: kernels.sgm_sweep_fused(C, S, 1, VERTICAL_DXS, p1,
+                                               p2))
+    res = {}
+    for key, fn in (("without_first", without), ("carry_first", with_carry),
+                    ("carry_last", with_carry), ("without_last", without)):
+        res[key] = {"ms": _ms(fn), "graph_ms": _graph_ms(fn)}
+    out["carry_add_1x192x1241"] = res
+    return out
 
 
 def _hits_cases(dev) -> list:
@@ -818,7 +1120,7 @@ def _ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def main(name: str, against: tuple = ()) -> None:
+def main(name: str, against: tuple = (), only=None) -> None:
     if name not in SIGS:
         raise SystemExit(f"kernel_micro: name one of {sorted(SIGS)}")
     if not torch.cuda.is_available():
@@ -829,9 +1131,9 @@ def main(name: str, against: tuple = ()) -> None:
     print(card, flush=True)
     dev = torch.device("cuda")
     cases = _cases(name, dev)
-    libs = _compile(name, against)
+    libs = _compile(name, against, only)
     shipped = _build.load(name, SIGS[name])
-    result = {}
+    result, differs = {}, []
     for label, shape, ref, outs, launch, *extra in cases:
         extra = extra[0] if extra else {}
 
@@ -843,15 +1145,18 @@ def main(name: str, against: tuple = ()) -> None:
         builds = {b: lib for b, lib in libs.items()
                   if not (extra.get("skip_against")
                           and getattr(lib, "tps_against", False))}
-        for b, lib in builds.items():
+        for b, lib in list(builds.items()):
             if "reset" in extra:
                 extra["reset"]()
             run(lib)
             torch.cuda.synchronize()
             if b not in ABLATIONS[name] and not all(
                     _same(o, r) for o, r in zip(outs, ref)):
-                raise SystemExit(f"kernel_micro: {name} build {b} differs "
-                                 f"from the shipped kernel ({label})")
+                # reported, left out of the timings, and the run fails
+                print(f"kernel_micro: {name} build {b} differs from the "
+                      f"shipped kernel ({label})", flush=True)
+                differs.append((b, label))
+                del builds[b]
         res, gres = {}, {}
         for key, lib in [("shipped_first", shipped), *builds.items(),
                          ("shipped_last", shipped)]:
@@ -865,15 +1170,34 @@ def main(name: str, against: tuple = ()) -> None:
         if "copy" in extra:
             result[label]["copy_ms"] = _ms(extra["copy"])
             result[label]["copy_graph_ms"] = _graph_ms(extra["copy"])
+        if "phases" in builds:
+            result[label]["phase_cycles_per_warp_row"] = _phase_split(
+                builds["phases"], run)
         print(f"{label}: {json.dumps(result[label])}", flush=True)
-    print(json.dumps({"card": card, "kernel": name, "cases": result}))
+    record = {"card": card, "kernel": name, "cases": result}
+    if name == "sgm_fused":
+        record["anatomy"] = _fused_anatomy(shipped)
+        print(f"anatomy: {json.dumps(record['anatomy'])}", flush=True)
+        record["routes"] = _fused_routes(dev)
+        print(f"routes: {json.dumps(record['routes'])}", flush=True)
+        record["pipeline"] = _fused_pipeline(libs, dev)
+        print(f"pipeline: {json.dumps(record['pipeline'])}", flush=True)
+    record["differs"] = differs
+    print(json.dumps(record))
+    if differs:
+        raise SystemExit(f"kernel_micro: builds differ from the shipped "
+                         f"kernel: {differs}")
 
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    against = []
+    against, only = [], None
     while "--against" in args:
         at = args.index("--against")
         against.append(args[at + 1])
         del args[at:at + 2]
-    main(args[0] if args else "", tuple(against))
+    if "--only" in args:
+        at = args.index("--only")
+        only = {b for b in args[at + 1].split(",") if b}
+        del args[at:at + 2]
+    main(args[0] if args else "", tuple(against), only)

@@ -10,9 +10,14 @@ strips, in one of two modes, as in the JAX package:
   `sgbm_tiled`'s in this mode.
 * **exact ring hand-off** (`cfg.exact_tiling`): each y-scanning sweep runs
   strip after strip in path order, each strip's launch seeded with the
-  previous strip's final carry (`kernels.sgm_sweep(..., carry=,
-  return_carry=)`). Equal to the untiled pipeline bit for bit at any strip
-  count; the y sweeps serialise across strips. The JAX ring runs every
+  previous strip's final carry. With 8 paths a scan order's three
+  directions run in one launch a strip, as the JAX `_ring_sweep_pallas`
+  runs them (`kernels.sgm_sweep_fused(..., carry=, return_carry=)`, a
+  (3, F, W, D) carry; past `kernels.sgm.FUSED_MAX_D` one direction a
+  launch, as the untiled route); with 4 paths each one direction a launch
+  (`kernels.sgm_sweep(..., carry=, return_carry=)`). Equal to the untiled
+  pipeline bit for bit at any strip count; the y sweeps serialise across
+  strips. The JAX ring runs every
   strip's sweep at every step and keeps the owner's (SPMD); here only the
   owner's runs, with the same outputs.
 
@@ -35,9 +40,9 @@ Across ranks (one process a device), each rank holds one strip of its
 data shard, as a JAX shard does: the rows beyond it come over `dist.comm`
 (`exchange_halo` for the halo, the census margin and the window margin of
 census_wta and SAD; `send_carry` / `recv_carry` for the ring, which
-passes each y-scanning direction's carry strip after strip in path
-order), each rank selects on its own strip (the volume route too: no
-volume crosses ranks), and `all_gather_rows` hands every rank of the
+passes each scan order's carry strip after strip in path order), each
+rank selects on its own strip (the volume route too: no volume crosses
+ranks), and `all_gather_rows` hands every rank of the
 strip axis the maps that post-processing needs, as the JAX `all_gather`
 does. The same functions run both forms: `_Place` says which strips of
 how many this process holds.
@@ -59,7 +64,7 @@ from tpustereo_torch.dist import comm
 from tpustereo_torch.dist.mesh import Mesh
 from tpustereo_torch.kernels import (aggregate_volume, sgm_select, sgm_sweep,
                                      sweep_bwd_wta)
-from tpustereo_torch.ops.sgm import DIRS_4, DIRS_8
+from tpustereo_torch.kernels.sgm import vertical_orders, vertical_sweep
 from tpustereo_torch.pipeline.sgbm import (_census, _lr_check, _postproc,
                                            _select, _volume_select,
                                            check_slice, sgbm_volume,
@@ -221,27 +226,29 @@ def _exact_costs(lp, rp, cfg: Config, place: _Place, n_real: int):
 def _exact_sweeps(C: torch.Tensor, S: torch.Tensor, cfg: Config, img,
                   rows: torch.Tensor, base: int, place: _Place):
     """The y-scanning path costs of C (count, F, Hs, W, D) into S (int16,
-    its shape): each direction's sweep runs strip after strip in path
+    its shape): each scan order's sweep runs strip after strip in path
     order (down sweeps from the top strip, up sweeps from the bottom one),
     each launch seeded with the previous strip's final carry, received
     from the rank before this one's strips in path order and sent on to
     the rank after them; a strip's first sweep writes its S, the later
-    ones add. img (count, F, Hs, W) is the held strips' left image under
-    adaptive P2 (else None); rows (F, R, W) the left image rows around
-    them, held strip i's row j at rows[:, base + i * Hs + j], which gives
-    the carry's image row."""
+    ones add. The scan orders are `kernels.sgm.vertical_orders`': with 8
+    paths the down set and the up set, one fused launch a strip and one
+    (3, F, W, D) carry across each strip boundary; with 4 paths S and N,
+    one direction a launch and an (F, W, D) carry. img (count, F, Hs, W)
+    is the held strips' left image under adaptive P2 (else None); rows (F,
+    R, W) the left image rows around them, held strip i's row j at
+    rows[:, base + i * Hs + j], which gives the carry's image row."""
     k_n, F, Hs, W, D = C.shape
     first, n = place.first, place.n
     written = [False] * k_n
-    for dy, dx in (DIRS_4 if cfg.paths == 4 else DIRS_8):
-        if dy == 0:
-            continue
+    for dy, dxs in vertical_orders(cfg.paths, D):
         down = dy > 0
         carry = None
         before = first - 1 if down else first + k_n
         if 0 <= before < n:
-            carry = comm.recv_carry((F, W, D), torch.int32, before,
-                                    place.group, C.device)
+            shape = (len(dxs), F, W, D) if len(dxs) > 1 else (F, W, D)
+            carry = comm.recv_carry(shape, torch.int32, before, place.group,
+                                    C.device)
         for i in range(k_n) if down else range(k_n - 1, -1, -1):
             g = first + i
             more = g < n - 1 if down else g > 0
@@ -249,10 +256,11 @@ def _exact_sweeps(C: torch.Tensor, S: torch.Tensor, cfg: Config, img,
             if img is not None and carry is not None:
                 prev = rows[:, base + i * Hs - 1 if down
                             else base + (i + 1) * Hs].contiguous()
-            res = sgm_sweep(C[i], S[i] if written[i] else None, dy, dx,
-                            cfg.p1, cfg.p2, None if img is None else img[i],
-                            carry=carry, return_carry=more, img_prev=prev,
-                            out=None if written[i] else S[i])
+            res = vertical_sweep(
+                C[i], S[i] if written[i] else None, dy, dxs, cfg.p1, cfg.p2,
+                None if img is None else img[i], carry=carry,
+                return_carry=more, img_prev=prev,
+                out=None if written[i] else S[i])
             written[i] = True
             carry = res[1] if more else None
         after = first + k_n if down else first - 1

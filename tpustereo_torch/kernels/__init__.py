@@ -40,7 +40,7 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     """Set every wrapper's count to 0, and its counts by build where it
-    keeps them (`builds`, and `sgm_sweep.carry_forms`)."""
+    keeps them (`builds`, and `carry_forms` of the sweeps)."""
     for w in WRAPPERS:
         w.launches = 0
         for counts in ("builds", "carry_forms"):

@@ -32,9 +32,10 @@ The ring hand-off between strips (the JAX `init_carry` and
 `return_final_carry` of `sgm_sweep`, which `dist.tiling`'s exact mode
 runs): `sgm_sweep(..., carry=q, return_carry=True)` seeds the strip's
 first row from the q = L - min_d L slab of the previous strip's last row
-and returns its own last row's q, one direction a launch (the JAX kernel
-fuses K directions, so its (K, N, D) carry is K of the port's; the fused
-kernel takes no carry).
+and returns its own last row's q, one direction a launch; the fused
+`sgm_sweep_fused(..., carry=q, return_carry=True)` does the same for the K
+directions of one scan order in one launch, its (K, B, W, D) carry the JAX
+(K, N, D) one slab a direction, in `dxs` order.
 """
 
 from __future__ import annotations
@@ -59,10 +60,10 @@ _SWEEP_SIGS = {
 }
 _FUSED_SIGS = {
     # C, S, img (null: scalar P2), flags, edge buffer, carries between
-    # bands (the last three null without an exchange), B, H, W, D, dy, the
-    # number of directions and their dx (three slots), p1, p2, accumulate,
-    # stream
-    "sgm_fused_launch": ([_P] * 6 + [_I] * 12 + [_P], _I),
+    # bands (the last three null without an exchange), carry in, carry out,
+    # img_prev (each null when not given), B, H, W, D, dy, the number of
+    # directions and their dx (three slots), p1, p2, accumulate, stream
+    "sgm_fused_launch": ([_P] * 9 + [_I] * 12 + [_P], _I),
     # B, W, D -> the flag ints and the int16 elements of the edge buffer
     # and of the carries between bands
     "sgm_fused_scratch": ([_I] * 3 + [_P], _I),
@@ -87,6 +88,13 @@ BIDIR_VERT = False
 
 # the column shifts of the down and up sets of 8 paths, in the JAX order
 VERTICAL_DXS = (0, 1, -1)
+# the largest D whose down and up sets of 8 paths run fused
+# (`vertical_orders`): past it the fused pair loses to the six one-direction
+# launches on the H100 (one 375 x 1242 frame, by graph replay: at D = 512
+# 4.32 against 2.45 ms even for an s16x2 build, which csrc/sgm_fused.cu
+# therefore has only up to D = 256; at D = 256 1.21 against 1.21-1.25;
+# `bench/kernel_micro.py sgm_fused`)
+FUSED_MAX_D = 256
 # a fused sweep of more rows than this, with a diagonal, swaps its tiles'
 # edges through device memory (csrc/sgm_fused.cu's FR)
 EXCHANGE_ROWS = 8
@@ -124,15 +132,16 @@ def _check_img(C: torch.Tensor, img: torch.Tensor | None) -> None:
 
 
 def _check_carry(C: torch.Tensor, dy: int, img, carry, return_carry: bool,
-                 img_prev) -> None:
-    """The ring hand-off's operands of `sgm_sweep`: a (B, W, D) int32 carry
-    and a (B, W) uint8 img_prev, y-scanning directions only."""
+                 img_prev, k: int = 0) -> None:
+    """The ring hand-off's operands: a (B, W, D) int32 carry, or (k, B, W,
+    D) for the k directions of a fused sweep, and a (B, W) uint8 img_prev,
+    y-scanning directions only."""
     if carry is None and not return_carry and img_prev is None:
         return
     B, _, W, D = C.shape
     if dy == 0:
         raise ValueError("the carry runs along y: dy must be +-1")
-    named = [("carry", carry, (B, W, D), torch.int32),
+    named = [("carry", carry, (k, B, W, D) if k else (B, W, D), torch.int32),
              ("img_prev", img_prev, (B, W), torch.uint8)]
     for name, t, shape, dtype in named:
         if t is None:
@@ -283,22 +292,36 @@ def _check_dxs(dxs) -> tuple:
 def sgm_sweep_fused_plain(C: torch.Tensor, S: torch.Tensor | None, dy: int,
                           dxs, p1: int, p2: int,
                           img: torch.Tensor | None = None,
-                          out: torch.Tensor | None = None) -> torch.Tensor:
+                          out: torch.Tensor | None = None,
+                          carry: torch.Tensor | None = None,
+                          return_carry: bool = False,
+                          img_prev: torch.Tensor | None = None):
     """The kernel's function in plain PyTorch: the sum over dxs of
-    `ops.sgm.path_costs`, in int16 (wrapping, as the kernel's sums do)."""
-    L = None
-    for dx in dxs:
-        Lr = path_costs(C, dy, dx, p1, p2, img)
+    `ops.sgm.path_costs`, in int16 (wrapping, as the kernel's sums do);
+    with a carry each direction seeded from its slab of the q-form carry,
+    and with `return_carry` the q of the last row, as `sgm_sweep_plain`."""
+    L, fins = None, []
+    for k, dx in enumerate(dxs):
+        res = sgm_sweep_plain(C, None, dy, dx, p1, p2, img,
+                              None if carry is None else carry[k],
+                              return_carry, img_prev)
+        Lr, fin = res if return_carry else (res, None)
+        fins.append(fin)
         L = Lr if L is None else L.add_(Lr)
     if S is not None:
         S += L
-        return S
-    return L if out is None else out.copy_(L)
+        L = S
+    elif out is not None:
+        L = out.copy_(L)
+    return (L, torch.stack(fins)) if return_carry else L
 
 
 def sgm_sweep_fused(C: torch.Tensor, S: torch.Tensor | None, dy: int, dxs,
                     p1: int, p2: int, img: torch.Tensor | None = None,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
+                    out: torch.Tensor | None = None,
+                    carry: torch.Tensor | None = None,
+                    return_carry: bool = False,
+                    img_prev: torch.Tensor | None = None):
     """The sum over dx in dxs of L_(dy, dx), the directions of one scan
     order in one pass over C (the JAX `sgm_sweep(C, S_in, dxs, reverse,
     ...)`, dy = +1 its forward order, -1 `reverse`): with S None a new int16
@@ -310,14 +333,23 @@ def sgm_sweep_fused(C: torch.Tensor, S: torch.Tensor | None, dy: int, dxs,
     uint8, each direction takes the adaptive P2' of its own gradient
     I(p) - I(p - r) (`ops.sgm.adaptive_p2_map`), else the scalar p2.
 
+    The ring hand-off between strips (the JAX `init_carry` and
+    `return_final_carry` with K = len(dxs)): `carry` (K, B, W, D) int32,
+    one q-form slab a direction in `dxs` order, is the q = L - min_d L of
+    the row before C's first in sweep order (None a fresh path start); with
+    `return_carry` the call returns (S, the (K, B, W, D) q of C's last row
+    in sweep order). Under adaptive P2 a carry needs `img_prev` (B, W)
+    uint8, the image row the carry belongs to.
+
     CUDA tensors run the kernel, its form counted in
     `sgm_sweep_fused.builds` ("write", "add", "write_adaptive",
-    "add_adaptive"); CPU tensors the plain version. The kernel keeps each
-    direction's renormalised carry in int16, so on the card it takes
-    255 + P2 < 2^15 (`p2_max` under adaptive P2). Any H and W: a frame
-    with more tiles than the card holds blocks has each block walk several
-    tiles band by band. No carry: the ring hand-off runs the one-direction
-    `sgm_sweep`."""
+    "add_adaptive") and, where it takes or returns a carry, in
+    `sgm_sweep_fused.carry_forms` too; CPU tensors the plain version. The
+    kernel keeps each direction's renormalised carry in int16, so on the
+    card it takes 255 + P2 < 2^15 (`p2_max` under adaptive P2), and a
+    carry of q-form values (at most 255 + P2). Any H and W: a frame with
+    more tiles than the card holds blocks has each block walk several
+    tiles band by band."""
     if S is None:
         _check_cost(C)
     else:
@@ -332,8 +364,10 @@ def sgm_sweep_fused(C: torch.Tensor, S: torch.Tensor | None, dy: int, dxs,
         raise ValueError(f"dy must be +1 (down) or -1 (up), got {dy}")
     if not 0 <= p1 <= p2:
         raise ValueError("need 0 <= p1 <= p2")
+    _check_carry(C, dy, img, carry, return_carry, img_prev, len(dxs))
     if C.device.type == "cpu":
-        return sgm_sweep_fused_plain(C, S, dy, dxs, p1, p2, img, out)
+        return sgm_sweep_fused_plain(C, S, dy, dxs, p1, p2, img, out, carry,
+                                     return_carry, img_prev)
     p2_top = p2_max(p1, p2, img is not None)
     if 255 + p2_top >= 1 << 15:
         raise ValueError(f"P2 = {p2_top} unsupported: the carry q <= 255 + "
@@ -352,9 +386,11 @@ def sgm_sweep_fused(C: torch.Tensor, S: torch.Tensor | None, dy: int, dxs,
         flags = torch.zeros(n[0], dtype=torch.int32, device=C.device)
         edges = torch.empty(n[1], dtype=torch.int16, device=C.device)
         state = torch.empty(n[2], dtype=torch.int16, device=C.device)
+    fin = (torch.empty((len(dxs), B, W, D), dtype=torch.int32,
+                       device=C.device) if return_carry else None)
     pad = dxs + (0,) * (3 - len(dxs))
     ptrs = [None if x is None else _build.ptr(x)
-            for x in (img, flags, edges, state)]
+            for x in (img, flags, edges, state, carry, fin, img_prev)]
     rc = lib.sgm_fused_launch(_build.ptr(C), _build.ptr(S), *ptrs, B, H, W,
                               D, dy, len(dxs), *pad, p1, p2, int(add),
                               _build.stream_ptr(C))
@@ -362,12 +398,15 @@ def sgm_sweep_fused(C: torch.Tensor, S: torch.Tensor | None, dy: int, dxs,
     form = ("add" if add else "write") + ("" if img is None else "_adaptive")
     sgm_sweep_fused.launches += 1
     sgm_sweep_fused.builds[form] += 1
-    return S
+    if carry is not None or return_carry:
+        sgm_sweep_fused.carry_forms[form] += 1
+    return (S, fin) if return_carry else S
 
 
 sgm_sweep_fused.launches = 0
 sgm_sweep_fused.builds = {"write": 0, "add": 0, "write_adaptive": 0,
                           "add_adaptive": 0}
+sgm_sweep_fused.carry_forms = dict(sgm_sweep_fused.builds)
 
 
 # ---------------------------------------------------------------------------
@@ -497,12 +536,42 @@ sweep_bwd_wta.builds = {"scalar": 0, "adaptive": 0}
 # composition
 # ---------------------------------------------------------------------------
 
+def vertical_orders(paths: int, D: int) -> tuple:
+    """The launches of the y-scanning sweeps of `paths` directions at D
+    disparities, as (dy, dxs): with 8 paths the down set {S, SE, SW} and
+    the up set {N, NE, NW}, each one fused pass (the JAX schedule's two
+    vertical sweeps) up to D = `FUSED_MAX_D`, one direction a launch past
+    it (the six launches are faster there; the outputs are the same); with
+    4 paths S and N. Decided from the arguments alone, before any launch,
+    as `kernels.sad.sad_wta_fits` is; not a fallback: `sgm_sweep_fused`
+    itself takes any D up to 512."""
+    if paths == 4:
+        return ((1, (0,)), (-1, (0,)))
+    if D <= FUSED_MAX_D:
+        return ((1, VERTICAL_DXS), (-1, VERTICAL_DXS))
+    return tuple((dy, (dx,)) for dy in (1, -1) for dx in VERTICAL_DXS)
+
+
+def vertical_sweep(C: torch.Tensor, S: torch.Tensor | None, dy: int, dxs,
+                   p1: int, p2: int, img: torch.Tensor | None = None,
+                   **kw):
+    """One launch of `vertical_orders`: the scan order dy's directions dxs
+    in one `sgm_sweep_fused` pass, or the one direction of dxs by
+    `sgm_sweep`; kw (out, carry, return_carry, img_prev) as both take
+    them, a carry (len(dxs), B, W, D) for a fused pass."""
+    if len(dxs) > 1:
+        return sgm_sweep_fused(C, S, dy, dxs, p1, p2, img, **kw)
+    return sgm_sweep(C, S, dy, dxs[0], p1, p2, img, **kw)
+
+
 def _vertical_sets(C: torch.Tensor, p1: int, p2: int,
                    img: torch.Tensor | None) -> torch.Tensor:
-    """The down set {S, SE, SW} written and the up set {N, NE, NW} added,
-    each one fused pass over C (the JAX schedule's two vertical sweeps)."""
-    S = sgm_sweep_fused(C, None, 1, VERTICAL_DXS, p1, p2, img)
-    return sgm_sweep_fused(C, S, -1, VERTICAL_DXS, p1, p2, img)
+    """The y-scanning path costs of 8 paths in the launches of
+    `vertical_orders`: the first writes S, the others add to it."""
+    S = None
+    for dy, dxs in vertical_orders(8, C.shape[-1]):
+        S = vertical_sweep(C, S, dy, dxs, p1, p2, img)
+    return S
 
 
 def sgm_select(C: torch.Tensor, cfg: Config,
@@ -512,8 +581,9 @@ def sgm_select(C: torch.Tensor, cfg: Config,
     The sweeps of every direction but W make one int16 S7; the backward
     sweep completes S column by column and selects, so the full S is never
     stored. With 8 paths S7 takes three passes over C: the down set
-    written and the up set added by `sgm_sweep_fused`, then E; with 4
-    paths E, S and N one direction a launch. C (B, H, W, D) uint8 ->
+    written and the up set added by `sgm_sweep_fused`, then E (past D =
+    `FUSED_MAX_D` the six y directions one a launch, `vertical_orders`);
+    with 4 paths E, S and N one direction a launch. C (B, H, W, D) uint8 ->
     (disp, valid, d_r) as in `sweep_bwd_wta`; img (B, H, W) uint8, the
     left image, is read under `cfg.adaptive_p2`, which needs it.
     `BIDIR_VERT` picks how S7 is made (the JAX `sgm_select_pallas`
