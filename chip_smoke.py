@@ -149,11 +149,16 @@ The SAD route past `sad_wta`'s limits and the width micro-benchmarks:
    against its plain version at the timing shapes (`torch.equal`), and
    times them by CUDA-graph replay: `sweep_micro` at `SWEEP_SHAPES` (µs
    per step, the byte bound, the ratios of `swar_i8` and `bf16_i8` to
-   `v32_i8`) and the chains at `CHAIN_SHAPES`, lengths 64 and 512
-   differenced into ns per operation; times each chain's library call,
-   one `torch.roll` by the chain's sum or one `torch.add` of its closed
-   form, held `torch.equal` to the kernel. Prints the share of the run
-   both steps take (`steps 16-17: ... s`).
+   `v32_i8`) and the chains at `CHAIN_SHAPES` (the rolls on both axes at
+   both), lengths 64 and 512 differenced into ns per operation; the
+   rolls' own floor, the same wrappers on one line ((1, 128) axis 1,
+   (1248, 1) axis 0, (2, 128) bfloat16), whose marginal ns a step must
+   reach `ROLL_FLOOR_NS` (a chain folded into one roll reads about 0);
+   times each chain's library call, one `torch.roll` by the chain's sum
+   (in turns with the kernel, medians of 3) or one `torch.add` of its
+   closed form, held `torch.equal` to the kernel; prints the two axes
+   that row 13c averages. Prints the share of the run both steps take
+   (`steps 16-17: ... s`).
 
 Adaptive P2 (`adaptive_p2=True`, the per-pixel P2' of the left image):
 
@@ -323,6 +328,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -408,6 +414,11 @@ SWEEP_SHAPES = {"r43b": (376, 1280), "kitti_E": (1242, 1500)}
 # int32 chain fills every SM (132 x 2,048 threads of 4 values, twice over)
 CHAIN_SHAPES = {"r43b": (1248, 128), "fill": (16896, 128)}
 CHAINS = (64, 512)
+# the least marginal ns a roll step of one line may read (step 17): the
+# step's 1.5 shuffles (a roll by 1, then by 2) at the H100's published rate
+# of one warp-wide shuffle a clock an SM, at its highest clock of 1.98 GHz;
+# a chain folded into one roll reads about 0
+ROLL_FLOOR_NS = 1.5 / 1.98
 # middlebury_sgm4 at full size: (frame shape, synthetic disparity,
 # valid-fraction floor, bad-2.0 ceiling), the bar the KITTI path keeps,
 # below the plain pipeline's valid 0.980, bad-2.0 0.0023 on these pairs
@@ -1505,8 +1516,10 @@ def micro_path(card: str) -> list:
     sweep at both `SWEEP_SHAPES`, µs per step and its byte bound, and the
     ratios of `swar_i8` and `bf16_i8` to `v32_i8`; the chains at both
     `CHAIN_SHAPES`, lengths 64 and 512 differenced into ns per operation,
-    and each chain's library call. Returns the five rows of the `kernels`
-    line."""
+    the rolls on one line (their floor, required above `ROLL_FLOOR_NS`),
+    and each chain's library call (`torch.roll` in turns with the kernel).
+    Returns the five rows of the `kernels` line (the roll rows with their
+    floors, `roll_chain_micro`'s with the ms of each axis)."""
     import torch
     from tpustereo_torch import kernels
     from tpustereo_torch.kernels import width_micro as wm
@@ -1584,8 +1597,7 @@ def micro_path(card: str) -> list:
         for dt in reg_dts:
             hold("reg_chain_micro", wm.reg_chain_micro(x[dt], ch),
                  wm.reg_chain_micro_plain(x[dt], ch), f"{dt} at {key}")
-        for axis in ((1, 0) if x[torch.int32].shape[0] <= wm.MAX_LINE
-                     else (1,)):
+        for axis in (1, 0):
             hold("roll_chain_micro", wm.roll_chain_micro(
                 x[torch.int32], ch, axis=axis), wm.roll_chain_micro_plain(
                 x[torch.int32], ch, axis), f"axis {axis} at {key}")
@@ -1637,7 +1649,7 @@ def micro_path(card: str) -> list:
             res[f"elem {dname(dt)}"] = chain_ns(wm.elem_chain_micro, x[dt], 3)
         for dt in reg_dts:
             res[f"reg {dname(dt)}"] = chain_ns(wm.reg_chain_micro, x[dt], 3)
-        for axis in ((1, 0) if key == "r43b" else (1,)):
+        for axis in (1, 0):
             res[f"roll axis {axis}"] = chain_ns(
                 lambda v, c, a=axis: wm.roll_chain_micro(v, c, axis=a),
                 x[torch.int32], 1)
@@ -1660,6 +1672,29 @@ def micro_path(card: str) -> list:
         print(f"[{card}] chain ratios at {key}: "
               + ", ".join(f"{k} {r:.4f}" for k, r in ratios.items()),
               flush=True)
+
+    # the chain's own floor: the same wrappers on one line, whose marginal
+    # ns a step is what one line's dependent steps cost, a shuffle's
+    # latency every E / 1.5 steps or one warp's issue of its 1.5 shuffles,
+    # whichever is longer (a chain folded into one roll reads about 0)
+    floor_ns = {}
+    for label, shape, fn in (
+            ("roll axis 1", (1, 128),
+             lambda v, c: wm.roll_chain_micro(v, c, axis=1)),
+            ("roll axis 0", (1248, 1),
+             lambda v, c: wm.roll_chain_micro(v, c, axis=0)),
+            ("bf16 roll", (2, 128), wm.bf16_roll_chain_micro)):
+        xi = torch.randint(0, 200, shape, generator=gen, device=dev,
+                           dtype=torch.int32)
+        v = xi.bfloat16() if label == "bf16 roll" else xi
+        t, ns = chain_ns(fn, v, 1)
+        floor_ns[label] = ns
+        print(f"[{card}] {label} on one line {shape}: ms at chain {CHAINS} "
+              f"{tuple(round(ms, 5) for ms in t.values())}, marginal "
+              f"{ns:.4f} ns a step", flush=True)
+    for label, ns in floor_ns.items():
+        require(ns >= ROLL_FLOOR_NS, f"{label} on one line: {ns:.4f} ns a "
+                f"step < {ROLL_FLOOR_NS:.3f}: the chain does not step")
 
     # --- the rows: each function at the JAX scripts' shapes (the sweep
     # at r43b's, the mean of its five modes; a chain's at (1248, 128),
@@ -1696,18 +1731,41 @@ def micro_path(card: str) -> list:
         "bf16_roll_chain_micro": chain_plain_ms(
             wm.bf16_roll_chain_micro_plain, x[torch.bfloat16], ch),
     }
-    # a chain of rolls is one roll by their sum: torch.roll computes it
+    # a chain of rolls is one roll by their sum: torch.roll computes it,
+    # timed in turns with the kernel (kernel, torch.roll, three rounds; the
+    # medians)
     shift = sum(1 + (i & 1) for i in range(ch))
     library_ms = dict.fromkeys(MICRO_KERNELS)
-    library_ms["roll_chain_micro"] = mean([graph_ms(
-        lambda a=a: torch.roll(x[torch.int32], shift, dims=a), 200)
-        for a in (1, 0)])
-    library_ms["bf16_roll_chain_micro"] = graph_ms(
-        lambda: torch.roll(x[torch.bfloat16], shift, dims=1), 200)
-    for a in (1, 0):
-        require(torch.equal(torch.roll(x[torch.int32], shift, dims=a),
-                            wm.roll_chain_micro(x[torch.int32], ch, axis=a)),
-                "a roll chain is not one roll by its sum")
+    roll_turns = {}
+    for label, v, a, fn in (
+            ("axis 1", x[torch.int32], 1,
+             lambda: wm.roll_chain_micro(x[torch.int32], ch, axis=1)),
+            ("axis 0", x[torch.int32], 0,
+             lambda: wm.roll_chain_micro(x[torch.int32], ch, axis=0)),
+            ("bf16", x[torch.bfloat16], 1,
+             lambda: wm.bf16_roll_chain_micro(x[torch.bfloat16], ch))):
+        require(torch.equal(torch.roll(v, shift, dims=a), fn()),
+                f"the roll chain ({label}) is not one roll by its sum")
+        rounds = [(graph_ms(fn, 200), graph_ms(
+            lambda v=v, a=a: torch.roll(v, shift, dims=a), 200))
+            for _ in range(3)]
+        roll_turns[label] = tuple(statistics.median(r[i] for r in rounds)
+                                  for i in (0, 1))
+        print(f"[{card}] {label} at {CHAIN_SHAPES['r43b']}, chain {ch}, in "
+              f"turns (kernel, torch.roll by {shift}) x 3: "
+              f"{[tuple(round(t, 5) for t in r) for r in rounds]}; medians "
+              f"{roll_turns[label][0]:.5f} / {roll_turns[label][1]:.5f} ms",
+              flush=True)
+    library_ms["roll_chain_micro"] = mean([roll_turns["axis 1"][1],
+                                          roll_turns["axis 0"][1]])
+    library_ms["bf16_roll_chain_micro"] = roll_turns["bf16"][1]
+    axis_ms = {a: ch_ms["r43b"][f"roll axis {a}"][0][ch] for a in (1, 0)}
+    print(f"[{card}] roll_chain_micro at {CHAIN_SHAPES['r43b']}, chain {ch}: "
+          f"axis 1 {axis_ms[1]:.5f} ms, axis 0 {axis_ms[0]:.5f} ms (the row "
+          f"is their mean); at {CHAIN_SHAPES['fill']}: axis 1 "
+          f"{ch_ms['fill']['roll axis 1'][0][ch]:.5f}, axis 0 "
+          f"{ch_ms['fill']['roll axis 0'][0][ch]:.5f}, bf16 "
+          f"{ch_ms['fill']['bf16 roll'][0][ch]:.5f}", flush=True)
     # the add/min chains in closed form, one torch.add each, where the
     # dtype's steps are exact: from i = 1 on both terms of the min are
     # equal, so elem is x + (chain - 1) (int32, int16) and reg is
@@ -1747,18 +1805,27 @@ def micro_path(card: str) -> list:
         "bf16_roll_chain_micro": bound(4 * n, ch * n),
     }
 
+    floors = {"roll_chain_micro": {a: floor_ns[f"roll axis {a}"]
+                                   for a in (1, 0)},
+              "bf16_roll_chain_micro": floor_ns["bf16 roll"]}
     rows = []
     for name, (src, replaces) in MICRO_KERNELS.items():
         b_ms, b_by = bounds[name]
+        floor = (f", one-line floor {floors[name]} ns a step"
+                 if name in floors else "")
         print(f"[{card}] {name}: {ms[name]:.4f} ms/launch, {counts[name]} "
               f"launches in the micro's run (none on any user path), bound "
               f"{b_ms:.4f} ms ({b_by}), plain {plain_ms[name]:.3f} ms, "
-              f"library {library_ms[name]}", flush=True)
+              f"library {library_ms[name]}{floor}", flush=True)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": counts[name],
                      "max_abs_err": err[name], "ms": ms[name],
                      "plain_ms": plain_ms[name], "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": library_ms[name]})
+        if name in floors:
+            rows[-1]["floor_ns_per_step"] = floors[name]
+        if name == "roll_chain_micro":
+            rows[-1]["axis_ms"] = axis_ms
     return rows
 
 

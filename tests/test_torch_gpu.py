@@ -1161,11 +1161,21 @@ def test_chain_kernels_match_plain(cuda, shape, kind, dtype, chain):
     assert got.dtype == dtype and torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("shape", [(8, 128), (37, 9), (2048, 3), (2047, 5),
-                                   (1248, 128), (5, 2048), (3, 2), (2, 1)])
+# lines that fill one warp's threads exactly (128, 2048), one warp's with
+# E - 1 values in some threads (37, 2047, 31, 100, 1000, 3), a ring of two
+# (2, 1), and lines over a block of warps: exact (4096, 16896), with a
+# partial last warp (16896 = 264 x 64), and not exact (2049, 4100, 5000)
+ROLL_SHAPES = [(8, 128), (37, 9), (2048, 3), (2047, 5), (1248, 128),
+               (5, 2048), (3, 2), (2, 1), (100, 3), (1000, 2), (2049, 3),
+               (4096, 2), (4100, 3), (5000, 1), (16896, 2)]
+
+
+@pytest.mark.parametrize("shape", ROLL_SHAPES)
 @pytest.mark.parametrize("axis", [0, 1])
-@pytest.mark.parametrize("chain", [4, 33])
+@pytest.mark.parametrize("chain", [4, 7, 33, 129])
 def test_roll_kernel_matches_plain(cuda, shape, axis, chain):
+    """Chains 7 and 129 are odd and not a multiple of any plan's period
+    of steps, so they start inside a period and end on its odd step."""
     wm = _wm()
     x = torch.from_numpy(np.random.default_rng(23).integers(
         -1000, 1000, shape, dtype=np.int32)).to(cuda)
@@ -1179,15 +1189,44 @@ def test_roll_kernel_matches_plain(cuda, shape, axis, chain):
 
 
 @pytest.mark.parametrize("shape", [(8, 128), (16, 40), (2, 2048), (4, 31),
-                                   (1248, 128)])
-@pytest.mark.parametrize("chain", [4, 31])
+                                   (1248, 128), (2, 2049), (2, 4100),
+                                   (4, 16896), (2, 1), (6, 37)])
+@pytest.mark.parametrize("chain", [4, 7, 31, 129])
 def test_bf16_roll_kernel_matches_plain(cuda, shape, chain):
     wm = _wm()
     x = (torch.from_numpy(np.random.default_rng(24).uniform(
         -300, 300, shape).astype(np.float32)).bfloat16()).to(cuda)
+    kernels.reset_launch_counts()
     got = wm.bf16_roll_chain_micro(x, chain)
+    assert kernels.launch_counts()["bf16_roll_chain_micro"] == 1
     torch.cuda.synchronize()
     assert torch.equal(got, wm.bf16_roll_chain_micro_plain(x, chain))
+    if chain == 4:
+        assert torch.equal(got, torch.roll(x, 6, dims=1))
+
+
+@pytest.mark.parametrize("slots,threads", [(4, 32), (48, 26), (24, 52),
+                                           (12, 104), (64, 20)])
+def test_roll_kernel_takes_other_plans(cuda, slots, threads):
+    """Other exact and inexact plans of a line of 1248 (one warp, blocks of
+    2 and 4 warps) through the C interface: the same rolls. (4, 32) holds
+    128 values, not 1248, so the kernel refuses it; (64, 20) gives each of
+    its threads 62.4, which no plan of at most one short value a thread
+    takes."""
+    wm = _wm()
+    from tpustereo_torch.kernels import _build
+    x = torch.from_numpy(np.random.default_rng(25).integers(
+        -1000, 1000, (1248, 3), dtype=np.int32)).to(cuda)
+    out = torch.empty_like(x)
+    lib = _build.load("width_micro", wm._SIGS)
+    rc = lib.roll_micro_launch(_build.ptr(x), _build.ptr(out), 3, 1248, 1, 3,
+                               0, slots, threads, 33, _build.stream_ptr(x))
+    torch.cuda.synchronize()
+    if slots * threads < 1248 or (slots - 1) * threads >= 1248:
+        assert rc != 0
+    else:
+        assert rc == 0
+        assert torch.equal(out, wm.roll_chain_micro_plain(x, 33, 0))
 
 
 def test_width_micro_refuses_bad_cuda_inputs(cuda):
@@ -1203,9 +1242,19 @@ def test_width_micro_refuses_bad_cuda_inputs(cuda):
     x = torch.zeros((9, 128), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="aligned"):
         wm.elem_chain_micro(x.view(-1)[1:1025].view(8, 128))
-    with pytest.raises(ValueError, match="2048"):
-        wm.roll_chain_micro(torch.zeros((2049, 1), dtype=torch.int32,
+    top = wm.MAX_LINE
+    with pytest.raises(ValueError, match=str(top)):
+        wm.roll_chain_micro(torch.zeros((top + 1, 1), dtype=torch.int32,
                                         device=cuda), axis=0)
+    with pytest.raises(ValueError, match=str(top)):
+        wm.bf16_roll_chain_micro(torch.zeros((2, top + 1),
+                                             dtype=torch.bfloat16,
+                                             device=cuda))
+    got = wm.roll_chain_micro(torch.arange(top, dtype=torch.int32,
+                                           device=cuda).view(top, 1), 3,
+                              axis=0)
+    assert torch.equal(got.view(-1)[:5].cpu(), torch.tensor(
+        [top - 4, top - 3, top - 2, top - 1, 0], dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -192,10 +192,13 @@ def test_reg_chain_bf16_rounds():
     assert not torch.equal(a, b.int())
 
 
-@pytest.mark.parametrize("shape", [(8, 128), (40, 128), (9, 37), (64, 33)])
+@pytest.mark.parametrize("shape", [(8, 128), (40, 128), (9, 37), (64, 33),
+                                   (2100, 3), (4100, 2)])
 @pytest.mark.parametrize("axis", [0, 1])
 @pytest.mark.parametrize("chain", [4, 33])
 def test_roll_chain_plain_matches_jax_interpret(shape, axis, chain):
+    """Lines past 2048 values too (axis 0 of (2100, 3) and (4100, 2)), which
+    the JAX function takes."""
     x = _rng(11).integers(0, 1000, shape).astype(np.int32)
     ref = _jax(jwm.roll_chain_micro, x, chain, axis=axis)
     got = wm.roll_chain_micro_plain(torch.from_numpy(x), chain, axis)
@@ -210,7 +213,7 @@ def test_roll_chain_is_a_roll_by_six(axis):
                        torch.roll(x, 6, dims=axis))
 
 
-@pytest.mark.parametrize("shape", [(8, 128), (16, 40), (2, 129)])
+@pytest.mark.parametrize("shape", [(8, 128), (16, 40), (2, 129), (2, 2100)])
 @pytest.mark.parametrize("chain", [4, 31])
 def test_bf16_roll_chain_plain_matches_jax_interpret(shape, chain):
     jx, tx = _bf16(_slab(13, shape, -300, 300) / 7)
@@ -292,21 +295,49 @@ def test_chain_wrappers_refuse_what_the_kernels_do_not_take():
         wm.elem_chain_micro(x[0])
     with pytest.raises(ValueError, match="axis"):
         wm.roll_chain_micro(x, axis=2)
-    with pytest.raises(ValueError, match="2048"):
-        wm.roll_chain_micro(torch.zeros((2049, 4), dtype=torch.int32),
-                            axis=0)
-    wm.roll_chain_micro(torch.zeros((2048, 4), dtype=torch.int32), 3, axis=0)
-    with pytest.raises(ValueError, match="2048"):
-        wm.bf16_roll_chain_micro(torch.zeros((2, 2049), dtype=torch.bfloat16))
+    # lines past the kernel's limit run the plain version on the CPU
+    long = torch.from_numpy(_rng(17).integers(0, 1000, (wm.MAX_LINE + 1, 2))
+                            .astype(np.int32))
+    assert torch.equal(wm.roll_chain_micro(long, 3, axis=0),
+                       wm.roll_chain_micro_plain(long, 3, 0))
+    longb = long.T.contiguous().bfloat16()
+    assert torch.equal(wm.bf16_roll_chain_micro(longb, 3),
+                       wm.bf16_roll_chain_micro_plain(longb, 3))
+    with pytest.raises(ValueError, match=str(wm.MAX_LINE)):
+        wm._roll_plan(wm.MAX_LINE + 1)
     with pytest.raises(ValueError, match="even"):
         wm.bf16_roll_chain_micro(torch.zeros((3, 8), dtype=torch.bfloat16))
 
 
-@pytest.mark.parametrize("length,plan", [(128, (4, 0)), (2048, (64, 0)),
-                                         (2047, (65, 1)), (1248, (40, 1)),
-                                         (1, (1, 1)), (30, (1, 1)),
-                                         (31, (2, 1)), (1280, (40, 0))])
+@pytest.mark.parametrize("length,plan", [
+    (128, (4, 32)), (2048, (64, 32)), (2047, (64, 32)), (1248, (48, 26)),
+    (1, (2, 1)), (2, (2, 1)), (30, (2, 15)), (31, (3, 11)), (37, (3, 13)),
+    (2049, (48, 43)), (4100, (48, 86)), (16896, (64, 264)),
+    (24576, (64, 384))])
 def test_roll_plan_leaves_room_for_the_wrap(length, plan):
-    slots, pad = wm._roll_plan(length)
-    assert (slots, pad) == plan
-    assert 32 * slots == length if not pad else 32 * slots >= length + 2
+    """The plan's T threads hold the line exactly (E each) or with one
+    short value in some of them (E - 1), every thread at least 2 values
+    (a roll moves at most 2 out of each), in one block; a line of 1 or 2
+    values is a ring of two."""
+    slots, threads = wm._roll_plan(length)
+    assert (slots, threads) == plan
+    assert slots in wm.ROLL_SLOTS and 1 <= threads <= wm.ROLL_MAX_THREADS
+    if length <= 2:
+        return
+    exact = slots * threads == length
+    assert exact or (slots >= 3 and slots * threads > length
+                     > (slots - 1) * threads)
+
+
+def test_roll_plan_covers_every_line_the_kernel_takes():
+    """Every length up to `MAX_LINE` has a plan, one warp's where it fills
+    32 threads exactly or is at most 96 values long; none past it."""
+    for length in range(3, wm.MAX_LINE + 1):
+        slots, threads = wm._roll_plan(length)
+        assert slots * threads == length or (
+            slots >= 3 and (slots - 1) * threads < length < slots * threads)
+        if length <= 96 or (length % 32 == 0
+                             and length // 32 in wm.ROLL_SLOTS):
+            assert threads <= 32, length
+    with pytest.raises(ValueError):
+        wm._roll_plan(wm.MAX_LINE + 1)

@@ -12,6 +12,7 @@ card: its compile-time sizes, and the source with one part cut out.
     python3 -m tpustereo_torch.bench.kernel_micro sgm_sweep
     python3 -m tpustereo_torch.bench.kernel_micro sgm_fused
     python3 -m tpustereo_torch.bench.kernel_micro lr_check
+    python3 -m tpustereo_torch.bench.kernel_micro width_micro
     python3 -m tpustereo_torch.bench.kernel_micro NAME --against DIR
     python3 -m tpustereo_torch.bench.kernel_micro NAME --only B1,B2
 
@@ -49,7 +50,19 @@ the adaptive P2; `bwd_wta` with the
 scalar and the adaptive P2 the same way; `lr_check` (its hits
 kernel) on the d_r and disparity of those 4 KITTI frames, and on 4 rows of
 240,000 columns (D = 128; the shipped builds only: a checkout from before
-the tiled design refuses such rows).
+the tiled design refuses such rows); `width_micro` (its roll kernel, the
+instrument of `roll_chain_micro` and `bf16_roll_chain_micro`) at
+`chip_smoke.py` step 17's shapes and chains: (1248, 128) and (16896, 128)
+int32 on both axes and bfloat16, chains 64 and 512; chain 0 (the loads
+and stores alone, strided on axis 0); one line ((1, 128) axis 1,
+(1248, 1) axis 0, (2, 128) bfloat16), the chain's own floor; and other
+plans of the same lines (threads and values a thread, `_roll_plan`'s
+candidates; the shipped build only). A checkout from before the blocked
+slots (the strided layout, `slots` and `pad` in place of `slots` and
+`threads`) takes lines of at most 2,048 values and its own plan
+(`_strided_roll_plan`). Its builds print each roll kernel's registers and
+spills (`ptxas`); `staged` and `staged4` compile the columns' staging by
+clusters of 8 and 4 blocks (`ROLL_STAGE_COLS`), off in the shipped build.
 Each `--against DIR` (the option may be repeated) makes the same source
 of another checkout (`DIR/tpustereo_torch/csrc/<name>.cu`, the same C
 interface, or the one `AGAINST_SIGS` names) one more build, named after
@@ -109,6 +122,7 @@ from tpustereo_torch.kernels.sgm import (_BIDIR_SIGS, _BWD_SIGS,
                                          _FUSED_SIGS, _SWEEP_SIGS,
                                          VERTICAL_DXS)
 from tpustereo_torch.kernels.wta import _SIGS as _WTA_SIGS
+from tpustereo_torch.kernels import width_micro as wm
 from tpustereo_torch.ops import component_big
 from tpustereo_torch.ops.postproc import speckle_conn
 from tpustereo_torch.ops.sgm import DIRS_8
@@ -121,12 +135,16 @@ SIGS = {"bwd_wta": _BWD_SIGS, "census_cost": _COST_SIGS,
         "cc_labels": _CC_SIGS, "sgm_bidir": _BIDIR_SIGS,
         "median3": _MEDIAN_SIGS, "sgm_sweep": _SWEEP_SIGS,
         "sgm_fused": _FUSED_SIGS,
-        "lr_check": {"lr_hits_launch": _LR_SIGS["lr_hits_launch"]}}
+        "lr_check": {"lr_hits_launch": _LR_SIGS["lr_hits_launch"]},
+        "width_micro": {"roll_micro_launch":
+                        wm._SIGS["roll_micro_launch"]}}
 # earlier C interfaces that `--against` builds keep: sgm_bidir_launch
 # before its `packed` argument (one int32 build), sgm_sweep_launch and
 # bwd_wta_launch before their image argument (scalar P2 alone),
-# sgm_fused_launch before its carry arguments
+# sgm_fused_launch before its carry arguments, roll_micro_launch before the
+# blocked slots (the same types: `slots, pad` in place of `slots, threads`)
 AGAINST_SIGS = {
+    "width_micro": {"roll_micro_launch": wm._SIGS["roll_micro_launch"]},
     "sgm_fused": {"sgm_fused_launch": (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
         ctypes.c_int),
@@ -197,6 +215,17 @@ SIZES = {
         "minb3": ["-DFUSED_MINB=3"],
         "s16x2_d512": ["-DFUSED_PACKED_MAXK=16"],
         "phases": ["-DFUSED_PHASES"],
+    },
+    # the roll kernel: its registers moved back every pair of steps (no
+    # renames); lines of one warp a block at most 1 and 8 (shipped 4);
+    # columns staged in shared memory by clusters of 8 blocks (each row's
+    # 8 columns one 32-byte sector) or of 4, where the shipped build reads
+    # them strided, each block its own
+    "width_micro": {
+        "moves": ["-DROLL_MOVES=1"],
+        **{f"lpb{n}": [f"-DROLL_LPB={n}"] for n in (1, 8)},
+        "staged": ["-DROLL_STAGE_COLS=1"],
+        "staged4": ["-DROLL_STAGE_COLS=1", "-DROLL_CLUSTER=4"],
     },
     # the hits kernel's tile: groups of 4 pixels a thread, threads a block
     "lr_check": {
@@ -388,6 +417,11 @@ ABLATIONS = {
         # the staging of d_r (the lookups read whatever is there)
         "no_staging": ("cp_async<16>(win + (c - a), d_r + i0 + c);", ";"),
     },
+    "width_micro": {
+        # the block lines' barrier (their edges are read whenever they
+        # land: wrong outputs, the barrier's cost)
+        "no_barrier": ("__syncthreads();  // one a step", "//"),
+    },
     "median3": {
         # the exchanges (each pixel takes its window's centre)
         "no_network": ("res[p] = paeth_sorted(t);", "res[p] = t[4];"),
@@ -409,12 +443,46 @@ ABLATIONS = {
 
 def _same_interface(name: str, src: str) -> bool:
     """Whether another checkout's source takes the current C interface
-    (`sgm_fused` with its carry arguments); the others take
-    `AGAINST_SIGS`."""
-    if name != "sgm_fused":
+    (`sgm_fused` with its carry arguments, `width_micro` with the blocked
+    slots); the others take `AGAINST_SIGS`."""
+    mark = {"sgm_fused": "const int* cin",
+            "width_micro": "int slots, int threads"}.get(name)
+    if mark is None:
         return False
     with open(src) as f:
-        return "const int* cin" in f.read()
+        return mark in f.read()
+
+
+def _ptxas_roll(log: str) -> dict:
+    """Registers and spill bytes (stores, loads) of each roll kernel in an
+    `nvcc -Xptxas -v` log, keyed E<values a thread>/<exact or not>/<warp
+    or block>."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\S+?)'?(?: for|$)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        k = re.search(r"roll_kernelILi(\d+)ELb([01])E(?:Lb([01])E)?",
+                      fn or "")
+        if k is None:
+            continue
+        if k.group(3) is None:  # the strided layout's <E, PAIR16>
+            key = f"E{k.group(1)}/{'bf16' if k.group(2) == '1' else 'int32'}"
+        else:
+            key = (f"E{k.group(1)}/"
+                   f"{'exact' if k.group(2) == '1' else 'short'}/"
+                   f"{'block' if k.group(3) == '1' else 'warp'}")
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       line)
+        if sp:
+            out.setdefault(key, {})["spill"] = [int(sp.group(1)),
+                                                int(sp.group(2))]
+        r = re.search(r"Used (\d+) registers", line)
+        if r:
+            out.setdefault(key, {})["registers"] = int(r.group(1))
+    return out
 
 
 def _compile(name: str, against: tuple = (), only=None) -> dict:
@@ -450,14 +518,17 @@ def _compile(name: str, against: tuple = (), only=None) -> dict:
         cmd = [nvcc, *_build.NVCC_FLAGS, *flags, "-o", lib, path]
         procs[b] = (lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
+    libs, ptxas = {}, {}
     for b, (path, p) in procs.items():
         log, _ = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {b}:\n{log}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {b}: {line.strip()}")
+        if name == "width_micro":
+            ptxas[b] = _ptxas_roll(log)
+        else:
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {b}: {line.strip()}")
         lib = ctypes.CDLL(path)
         sigs = SIGS[name]
         if b in others and not _same_interface(name, builds[b][0]):
@@ -467,6 +538,8 @@ def _compile(name: str, against: tuple = (), only=None) -> dict:
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
         libs[b] = lib
+    if ptxas:
+        print(f"ptxas: {json.dumps(ptxas)}", flush=True)
     return libs
 
 
@@ -879,6 +952,71 @@ def _hits_cases(dev) -> list:
     return cases
 
 
+def _strided_roll_plan(length: int):
+    """The plan of the roll kernel before the blocked slots: (slots a
+    lane, pad) of its strided layout."""
+    slots = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32, 40, 48, 56, 64, 65)
+    if length % 32 == 0 and length // 32 in slots:
+        return length // 32, 0
+    return next(e for e in slots if 32 * e >= length + 2), 1
+
+
+def _roll_cases(dev) -> list:
+    """The roll kernel at `chip_smoke.py` step 17's shapes and chains (both
+    axes, bfloat16), chain 0, one line, and other plans of the same lines.
+    A checkout of the strided kernel (`--against`) takes lines of at most
+    2,048 values."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = []
+
+    def case(label, x, chain, axis, plan=None):
+        bf16 = x.dtype == torch.bfloat16
+        N, D = x.shape
+        if bf16:
+            ref = wm.bf16_roll_chain_micro_plain(x, chain)
+            geo = (N // 2, D, 2 * D, 1, 1)
+        else:
+            ref = wm.roll_chain_micro_plain(x, chain, axis)
+            geo = (N, D, D, 1, 0) if axis == 1 else (D, N, 1, D, 0)
+        outs = (torch.empty_like(x),)
+        length = geo[1]
+
+        def launch(lib, x=x, outs=outs, geo=geo, chain=chain, plan=plan):
+            if getattr(lib, "tps_against", False):
+                a, b = _strided_roll_plan(length)
+            else:
+                a, b = plan or wm._roll_plan(length)
+            return lib.roll_micro_launch(
+                _build.ptr(x), _build.ptr(outs[0]), *geo, a, b, chain,
+                _build.stream_ptr(x))
+        extra = {"skip_against": plan is not None or length > 2048}
+        cases.append((label, [*x.shape, chain, axis, *(plan or ())],
+                      (ref,), outs, launch, extra))
+
+    for key, shape in (("r43b", (1248, 128)), ("fill", (16896, 128))):
+        xi = torch.randint(0, 200, shape, generator=gen, device=dev,
+                           dtype=torch.int32)
+        xb = xi.bfloat16()
+        for chain in (0, 64, 512):
+            for axis in (1, 0):
+                case(f"{key}_axis{axis}_c{chain}", xi, chain, axis)
+            if chain:
+                case(f"{key}_bf16_c{chain}", xb, chain, 1)
+        plans = ((24, 52), (12, 104)) if key == "r43b" else ((48, 352),)
+        for plan in plans:
+            case(f"{key}_axis0_c512_plan{plan[0]}x{plan[1]}", xi, 512, 0,
+                 plan)
+    for label, shape, axis in (("line_axis1", (1, 128), 1),
+                               ("line_axis0", (1248, 1), 0),
+                               ("line_bf16", (2, 128), 1)):
+        xi = torch.randint(0, 200, shape, generator=gen, device=dev,
+                           dtype=torch.int32)
+        x = xi.bfloat16() if label == "line_bf16" else xi
+        for chain in (64, 512):
+            case(f"{label}_c{chain}", x, chain, axis)
+    return cases
+
+
 def _cases(name: str, dev) -> list:
     """[(label, shape, reference outputs, output buffers, launch(lib),
     optional {"copy": fn, "reset": fn, "skip_against": bool})] at the
@@ -892,6 +1030,8 @@ def _cases(name: str, dev) -> list:
         return _fused_cases(dev)
     if name == "lr_check":
         return _hits_cases(dev)
+    if name == "width_micro":
+        return _roll_cases(dev)
     cases = []
 
     def stream():
@@ -1175,6 +1315,9 @@ def main(name: str, against: tuple = (), only=None) -> None:
                 builds["phases"], run)
         print(f"{label}: {json.dumps(result[label])}", flush=True)
     record = {"card": card, "kernel": name, "cases": result}
+    if name == "width_micro" and os.path.exists(_build.log_path(name)):
+        with open(_build.log_path(name)) as f:
+            record["ptxas_shipped"] = _ptxas_roll(f.read())
     if name == "sgm_fused":
         record["anatomy"] = _fused_anatomy(shipped)
         print(f"anatomy: {json.dumps(record['anatomy'])}", flush=True)

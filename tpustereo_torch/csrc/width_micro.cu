@@ -28,16 +28,29 @@
 // v + w. int16 runs as s16x2 (__viaddmin_s16x2, __vadd2), bf16 as bf16x2
 // (__hadd2, __hmin2). Bound by the rate at which the SMs dispatch them.
 //
-// roll_kernel: dependent rolls by 1 + (i & 1) of a line of up to 2048
-// values that one warp holds in registers, E a lane (value j of the line in
-// slot j / 32 of lane j % 32): a roll by s is a register rotation in the
-// lanes that wrap plus one __shfl_sync a slot. A line that does not fill
-// its 32 E positions keeps two pad positions past its end, and the values
-// that wrap are fetched from there (see roll_line). PAIR16 packs two bf16
-// rows into one 32-bit word, so each shuffle moves two values. Bound by the
-// shuffle rate.
+// roll_kernel: dependent rolls by 1 + (i & 1) of lines of up to 24,576
+// values held in registers, in blocked slots: thread t of a line holds E
+// consecutive values (E - 1 in a line that does not fill its threads
+// exactly). A roll by s moves the top s values of each thread into the
+// bottom s slots of the next, one __shfl_sync each (a thread that ends a
+// warp hands them over through shared memory, one barrier a step), and
+// the other E - s values keep their registers: the loop is unrolled over
+// a period of the slot rotation, so each step only renames them. A line
+// takes one warp up to 64 x 32 values (one warp a block until every SM
+// has one), past that a block of up to 12 warps. Rows load and store 16
+// bytes a thread at a time where they can; columns (axis 0) value by
+// value, each value a sector of its own (staging them by clusters of
+// blocks, ROLL_STAGE_COLS, measured slower). PAIR16 packs two bf16 rows
+// into one 32-bit word, so each shuffle moves two values. Bound on this
+// card by the rate of the shuffles: 1.5 a warp a step, against 4 (every
+// slot) in the strided layout it replaces; at one line a warp, by their
+// issue (E >= 16) or their latency (a value crosses lanes every E / 1.5
+// steps).
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <string.h>
+
+#include <utility>
 
 #include "common.cuh"
 
@@ -328,87 +341,382 @@ __global__ void __launch_bounds__(256)
 // ---------------------------------------------------------------------------
 // rolls
 
-// v rolled by s (0 < s < len) along the warp's line of `len` values: value
-// j moves to j + s, wrapping at len. The lanes that wrap (lane >= 32 - s)
-// first rotate their slots by one, so that one shuffle from lane - s brings
-// every lane the right value, from the same slot or from the slot before.
-// That wraps at 32 E; when the line is shorter (pad), the positions len and
-// len + 1 then hold the values that belong at 0 and 1, and lanes 0..s-1
-// fetch them from there.
+#ifndef ROLL_LPB
+#define ROLL_LPB 4  // lines of one warp a block, once every SM has a block
+#endif
+#ifndef ROLL_MOVES
+#define ROLL_MOVES 0  // 1: registers moved back every pair of steps, no renames
+#endif
+#ifndef ROLL_STAGE_COLS
+#define ROLL_STAGE_COLS 0  // 1: columns staged by clusters (ROLL_COLUMNS), a
+                           // candidate of bench/kernel_micro.py
+#endif
+#ifndef ROLL_CLUSTER
+#define ROLL_CLUSTER 8  // columns a cluster stages: a row's 32-byte sector
+#endif
+
+// warps of a block that holds one line: 12 leave E = 64 its registers
+constexpr int ROLL_MAXW = 12;
+
+// how a line comes in and goes out: value by value (j * estride), 16 bytes
+// at a time (exact lines of E % 4 == 0 on aligned rows), two bf16 rows a
+// word, or staged in shared memory by a cluster of consecutive columns
+enum { ROLL_PLAIN = 0, ROLL_VEC = 1, ROLL_PAIRS = 2, ROLL_COLUMNS = 3 };
+
+// Steps of one period of the slot rotation: a pair of steps shifts the
+// slots by 3, so E / gcd(E, 3) pairs bring them back.
 template <int E>
-__device__ __forceinline__ void roll_line(int (&v)[E], int s, int lane,
-                                          int len, bool pad) {
-  const bool rot = lane >= 32 - s;
-  const int src = (lane - s) & 31;
-  int n[E];
-#pragma unroll
-  for (int k = 0; k < E; ++k)
-    n[k] = __shfl_sync(FULL_MASK, rot ? v[k == 0 ? E - 1 : k - 1] : v[k],
-                       src);
-  if (pad) {
-    const int r = len & 31, b = len >> 5;
-    const int t = __shfl_sync(FULL_MASK, pick<E>(n, lane >= r ? b : b + 1),
-                              (len + lane) & 31);
-    if (lane < s) n[0] = t;
-  }
-#pragma unroll
-  for (int k = 0; k < E; ++k) v[k] = n[k];
+__host__ __device__ constexpr int roll_period() {
+  return ROLL_MOVES ? 2 : 2 * E / (E % 3 ? 1 : 3);
 }
 
-// One warp a line: value j of line l at l * lstride + j * estride (in
-// values); PAIR16: the bf16 rows 2l and 2l + 1 in one word, low and high
-// half, at l * lstride + j and l * lstride + lstride / 2 + j.
-template <int E, bool PAIR16>
-__global__ void __launch_bounds__(128)
+// The rotation before step j of a period: logical slot k of a thread sits
+// in register (k + offset) % E.
+template <int E>
+__host__ __device__ constexpr int roll_offset(int j) {
+  return ROLL_MOVES ? 0 : (E - ((j / 2) * 3 + (j & 1)) % E) % E;
+}
+
+struct RollLane {
+  int lane;
+  int src;        // the lane this lane's shuffles read
+  bool shrt;      // holds E - 1 values
+  int w, next_w;  // block lines: this warp, the warp its top values go to
+  int send_lane;  // block lines: the lane of this warp that ends its values
+};
+
+using RollEdge = int (*)[ROLL_MAXW][2];
+
+// Step J of the period: the roll by S = 1 + (J & 1). The values sent are
+// the top S logical slots of the thread; the values received become its
+// bottom S logical slots, in the registers of the values sent, and the
+// rotation drops by S.
+template <int E, bool EX, bool MW, int J>
+__device__ __forceinline__ void roll_step(int (&v)[E], const RollLane& c,
+                                          RollEdge edge) {
+  constexpr int S = 1 + (J & 1);
+  constexpr int R = roll_offset<E>(J);
+  int send[S], got[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    send[k] = v[(E - S + k + R) % E];
+    if constexpr (!EX) {
+      if (c.shrt) send[k] = v[(E - 1 - S + k + R) % E];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < S; ++k) got[k] = __shfl_sync(FULL_MASK, send[k], c.src);
+  if constexpr (MW) {
+    if (c.lane == c.send_lane) {
+#pragma unroll
+      for (int k = 0; k < S; ++k) edge[J & 1][c.next_w][k] = send[k];
+    }
+    __syncthreads();  // one a step: the edge slots alternate with J
+    if (c.lane == 0) {
+#pragma unroll
+      for (int k = 0; k < S; ++k) got[k] = edge[J & 1][c.w][k];
+    }
+  }
+  if constexpr (ROLL_MOVES) {
+#pragma unroll
+    for (int k = E - 1; k >= S; --k) v[k] = v[k - S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) v[k] = got[k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < S; ++k) v[(E - S + k + R) % E] = got[k];
+  }
+}
+
+template <int E, bool EX, bool MW, int... J>
+__device__ __forceinline__ void roll_period(int (&v)[E], const RollLane& c,
+                                            RollEdge edge,
+                                            std::integer_sequence<int, J...>) {
+  (roll_step<E, EX, MW, J>(v, c, edge), ...);
+}
+
+template <int E, bool EX, bool MW, int... J>
+__device__ __forceinline__ void roll_period_to(
+    int (&v)[E], const RollLane& c, RollEdge edge, int rem,
+    std::integer_sequence<int, J...>) {
+  ((J < rem ? roll_step<E, EX, MW, J>(v, c, edge) : void()), ...);
+}
+
+#if ROLL_STAGE_COLS
+template <bool B>
+struct RollIn {
+  static constexpr bool value = B;
+};
+
+// A cluster's ROLL_CLUSTER consecutive columns (the first at col0) between
+// device memory and its blocks' shared memory, four rows at a time: each
+// thread reads (writes) four whole rows of the columns, 16 bytes at a
+// time, and moves each column's four values to (from) that column's block
+// as one 16-byte piece. IN: device memory to shared memory.
+template <bool IN>
+__device__ __forceinline__ void roll_columns(int* const* peer, int* g,
+                                             long len, long estride, long r0,
+                                             long rn) {
+  constexpr int Q = ROLL_CLUSTER / 4;  // 16-byte pieces of a row
+  for (long r = 4 * r0; r < len; r += 4 * rn) {
+    int4 row[4][Q];
+    if constexpr (IN) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int h = 0; h < Q; ++h)
+          row[u][h] = r + u < len
+                          ? reinterpret_cast<const int4*>(g + (r + u) * estride)[h]
+                          : make_int4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int h = 0; h < Q; ++h) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        int4* piece = reinterpret_cast<int4*>(peer[4 * h + q] + r);
+        if constexpr (IN) {
+          auto at = [&](int u) {
+            const int4 w = row[u][h];
+            return q == 0 ? w.x : q == 1 ? w.y : q == 2 ? w.z : w.w;
+          };
+          *piece = make_int4(at(0), at(1), at(2), at(3));
+        } else {
+          const int4 w = *piece;
+          const int col[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            int* e = q == 0 ? &row[u][h].x : q == 1 ? &row[u][h].y
+                     : q == 2 ? &row[u][h].z : &row[u][h].w;
+            *e = col[u];
+          }
+        }
+      }
+    }
+    if constexpr (!IN) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (r + u < len)
+#pragma unroll
+          for (int h = 0; h < Q; ++h)
+            reinterpret_cast<int4*>(g + (r + u) * estride)[h] = row[u][h];
+    }
+  }
+}
+#endif
+
+// T threads a line, the first `nlong` of them E values, the others E - 1
+// (EX: all E). Not MW: one warp a line, blockDim / 32 lines a block; MW:
+// one line a block of ceil(T / 32) warps. Value j of line l at l * lstride
+// + j * estride (in values); ROLL_PAIRS: the bf16 rows 2l and 2l + 1 in
+// one word, low and high half, at l * lstride + j and l * lstride +
+// lstride / 2 + j; ROLL_COLUMNS: one line a block, launched in clusters
+// of ROLL_CLUSTER consecutive columns (lstride 1), staged in shared
+// memory (`stage`, the column's values rounded up to 4). A line of one
+// value rolls as a ring of two copies of it.
+template <int E, bool EX, bool MW>
+__global__ void __launch_bounds__(MW ? 32 * ROLL_MAXW : 32 * ROLL_LPB)
     roll_kernel(const void* __restrict__ x, void* __restrict__ out, int lines,
-                int len, long lstride, long estride, int pad, int chain) {
-  const int line = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (line >= lines) return;
+                int len, long lstride, long estride, int mode, int T,
+                int nlong, int chain) {
+  extern __shared__ int4 stage4[];
+  __shared__ int edge[2][ROLL_MAXW][2];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int line = MW ? blockIdx.x : blockIdx.x * (blockDim.x >> 5) + warp;
+  if (!MW && line >= lines) return;  // the whole warp leaves together
+  const int t = MW ? threadIdx.x : lane;
+  RollLane c;
+  c.lane = lane;
+  c.shrt = !EX && t >= nlong;
+  if constexpr (MW) {
+    const int W = blockDim.x >> 5;
+    c.src = (lane + 31) & 31;  // lane 0 takes shared memory's instead
+    c.w = warp;
+    c.next_w = warp + 1 == W ? 0 : warp + 1;
+    c.send_lane = warp + 1 == W ? (T - 1) & 31 : 31;
+  } else {
+    c.src = lane == 0 ? T - 1 : lane - 1;
+  }
+  const int n = c.shrt ? E - 1 : E;
+  const long first = (long)t * (E - 1) + min(t, nlong);
+  const bool active = t < T;
   const size_t base = (size_t)line * lstride, half = lstride / 2;
+  const int* x32 = static_cast<const int*>(x);
+  const uint16_t* x16 = static_cast<const uint16_t*>(x);
+  int* stage = reinterpret_cast<int*>(stage4);
+
+#if ROLL_STAGE_COLS
+  // columns: the cluster's threads take rows of its columns into the
+  // blocks' shared memory (the same again on the way out)
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  auto columns = [&](auto in) {
+    constexpr bool IN = decltype(in)::value;
+    const int rank = (int)cl.block_rank();
+    int* peer[ROLL_CLUSTER];
+#pragma unroll
+    for (int q = 0; q < ROLL_CLUSTER; ++q) peer[q] = cl.map_shared_rank(stage, q);
+    int* g = static_cast<int*>(IN ? const_cast<void*>(x) : out) +
+             (blockIdx.x - rank);
+    roll_columns<IN>(peer, g, len, estride,
+                     (long)rank * blockDim.x + threadIdx.x,
+                     (long)ROLL_CLUSTER * blockDim.x);
+  };
+  if (mode == ROLL_COLUMNS) {
+    columns(RollIn<true>{});
+    cl.sync();
+  }
+#endif
+
+  // the registers hold logical slot k at k (rotation 0): chain = nfull
+  // periods and the first rem steps of one more, after which logical slot
+  // k sits at (k + of) % E
   int v[E];
+  if (mode == ROLL_VEC) {
 #pragma unroll
-  for (int k = 0; k < E; ++k) {
-    const int j = 32 * k + lane;
-    v[k] = 0;
-    if (j >= len) continue;
-    if constexpr (PAIR16) {
-      const uint16_t* x16 = static_cast<const uint16_t*>(x);
-      v[k] = (int)pack16(x16[base + j], x16[base + half + j]);
-    } else {
-      v[k] = static_cast<const int*>(x)[base + (size_t)j * estride];
+    for (int p = 0; p < E; p += 4) {
+      const int4 w = active ? *reinterpret_cast<const int4*>(
+                                  x32 + base + first + p)
+                            : make_int4(0, 0, 0, 0);
+      v[p] = w.x, v[p + 1] = w.y, v[p + 2] = w.z, v[p + 3] = w.w;
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < E; ++p) {
+      const long j = first + p < len ? first + p : len - 1;
+      v[p] = 0;
+      if (!active || p >= n) continue;
+      if (ROLL_STAGE_COLS && mode == ROLL_COLUMNS)
+        v[p] = stage[j];
+      else if (mode == ROLL_PAIRS)
+        v[p] = (int)pack16(x16[base + j], x16[base + half + j]);
+      else
+        v[p] = x32[base + (size_t)j * estride];
     }
   }
-  for (int i = 0; i < chain; ++i) {
-    const int s = (1 + (i & 1)) % len;  // a roll by len is none
-    if (s) roll_line<E>(v, s, lane, len, pad);
+  constexpr int P = roll_period<E>();
+  const int nfull = chain / P, rem = chain % P;
+  const int of = roll_offset<E>(rem);
+  using Period = std::make_integer_sequence<int, P>;
+#pragma unroll 1
+  for (int q = 0; q < nfull; ++q) roll_period<E, EX, MW>(v, c, edge, Period{});
+  roll_period_to<E, EX, MW>(v, c, edge, rem, Period{});
+
+  if (mode == ROLL_VEC && of % 4 == 0) {
+    // logical slots k .. k + 3 sit in registers p .. p + 3 (E % 4 == 0)
+#pragma unroll
+    for (int p = 0; p < E; p += 4) {
+      const int k = p >= of ? p - of : p - of + E;
+      if (active)
+        *reinterpret_cast<int4*>(static_cast<int*>(out) + base + first + k) =
+            make_int4(v[p], v[p + 1], v[p + 2], v[p + 3]);
+    }
+    return;
   }
 #pragma unroll
-  for (int k = 0; k < E; ++k) {
-    const int j = 32 * k + lane;
-    if (j >= len) continue;
-    if constexpr (PAIR16) {
+  for (int p = 0; p < E; ++p) {
+    const int k = p >= of ? p - of : p - of + E;
+    const long j = first + k;
+    if (!active || k >= n || j >= len) continue;
+    if (ROLL_STAGE_COLS && mode == ROLL_COLUMNS) {
+      stage[j] = v[p];
+    } else if (mode == ROLL_PAIRS) {
       uint16_t* o16 = static_cast<uint16_t*>(out);
-      o16[base + j] = (uint16_t)v[k];
-      o16[base + half + j] = (uint16_t)((unsigned)v[k] >> 16);
+      o16[base + j] = (uint16_t)v[p];
+      o16[base + half + j] = (uint16_t)((unsigned)v[p] >> 16);
     } else {
-      static_cast<int*>(out)[base + (size_t)j * estride] = v[k];
+      static_cast<int*>(out)[base + (size_t)j * estride] = v[p];
     }
   }
+#if ROLL_STAGE_COLS
+  if (mode == ROLL_COLUMNS) {
+    cl.sync();
+    columns(RollIn<false>{});
+    cl.sync();  // each block's shared memory stays until all have read it
+  }
+#endif
+}
+
+// One warp a block until every SM has a block, then up to ROLL_LPB lines
+// a block.
+int roll_lines_per_block(int lines) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  int lpb = ROLL_LPB;
+  while (lpb > 1 && (long)lines < (long)lpb * sms) lpb >>= 1;
+  return lpb;
+}
+
+template <int E, bool EX, bool MW>
+cudaError_t roll_launch(int blocks, int threads, size_t smem, bool cluster,
+                        cudaStream_t st, const void* x, void* out, int lines,
+                        int len, long lstride, long estride, int mode, int T,
+                        int nlong, int chain) {
+  static size_t allowed = 48 * 1024;  // each instantiation's opt-in so far
+  if (smem > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        roll_kernel<E, EX, MW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+    allowed = smem;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ROLL_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster ? 1 : 0;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, roll_kernel<E, EX, MW>, x, out, lines, len,
+                         lstride, estride, mode, T, nlong, chain);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 template <int E>
 cudaError_t launch_roll(const void* x, void* out, int lines, int len,
-                        long lstride, long estride, int pair16, int pad,
+                        long lstride, long estride, int pair16, int T,
                         int chain, cudaStream_t st) {
-  const int blocks = (lines + 3) / 4;
-  if (pair16)
-    roll_kernel<E, true><<<blocks, 128, 0, st>>>(x, out, lines, len, lstride,
-                                                 estride, pad, chain);
-  else
-    roll_kernel<E, false><<<blocks, 128, 0, st>>>(x, out, lines, len, lstride,
-                                                  estride, pad, chain);
-  return cudaGetLastError();
+  const bool ex = T * E == (len < 2 ? 2 : len);
+  const int nlong = ex ? T : len - T * (E - 1);
+  if (T < 1 || T > 32 * ROLL_MAXW ||
+      (!ex && (E < 3 || nlong <= 0 || nlong > T)))
+    return cudaErrorInvalidValue;
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) |
+                        reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  // columns whose rows hold the cluster's columns as whole 16-byte pieces
+  const bool columns = ROLL_STAGE_COLS && !pair16 && lstride == 1 &&
+                       estride > 1 && lines % ROLL_CLUSTER == 0 &&
+                       estride % 4 == 0 && aligned;
+  const bool vec = !pair16 && estride == 1 && ex && E % 4 == 0 &&
+                   (lines == 1 || lstride % 4 == 0) && aligned;
+  const int mode = pair16    ? ROLL_PAIRS
+                   : columns ? ROLL_COLUMNS
+                   : vec     ? ROLL_VEC
+                             : ROLL_PLAIN;
+  const bool mw = T > 32;
+  const int lpb = mw || columns ? 1 : roll_lines_per_block(lines);
+  const int blocks = (lines + lpb - 1) / lpb;
+  const int threads = mw ? 32 * ((T + 31) / 32) : 32 * lpb;
+  const size_t smem = columns ? (size_t)(len + 3) / 4 * 16 : 0;
+#define ROLL_GO(EXB, MWB)                                                    \
+  return roll_launch<E, EXB, MWB>(blocks, threads, smem, columns, st, x, out, \
+                                  lines, len, lstride, estride, mode, T,      \
+                                  nlong, chain)
+  if (mw) {
+    if (ex) ROLL_GO(true, true);
+    ROLL_GO(false, true);
+  }
+  if (ex) ROLL_GO(true, false);
+  ROLL_GO(false, false);
+#undef ROLL_GO
 }
 
 template <int MODE>
@@ -462,21 +770,22 @@ TPS_EXPORT int chain_micro_launch(const void* x, void* out, long n, int dt,
   return cudaErrorInvalidValue;
 }
 
-// `lines` lines of `len` values, `slots` a lane (the wrapper's ROLL_SLOTS),
-// pad when 32 * slots > len
+// `lines` lines of `len` values, `threads` threads a line holding `slots`
+// values each, or slots - 1 (the wrapper's `_roll_plan`; slots in its
+// ROLL_SLOTS)
 TPS_EXPORT int roll_micro_launch(const void* x, void* out, int lines, int len,
                                  long lstride, long estride, int pair16,
-                                 int slots, int pad, int chain, void* stream) {
+                                 int slots, int threads, int chain,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ROLL_CASE(E)                                                        \
-  case E:                                                                   \
-    return launch_roll<E>(x, out, lines, len, lstride, estride, pair16, pad, \
-                          chain, st);
+#define ROLL_CASE(E)                                                       \
+  case E:                                                                  \
+    return launch_roll<E>(x, out, lines, len, lstride, estride, pair16,    \
+                          threads, chain, st);
   switch (slots) {
-    ROLL_CASE(1) ROLL_CASE(2) ROLL_CASE(3) ROLL_CASE(4) ROLL_CASE(5)
-    ROLL_CASE(6) ROLL_CASE(8) ROLL_CASE(12) ROLL_CASE(16) ROLL_CASE(24)
-    ROLL_CASE(32) ROLL_CASE(40) ROLL_CASE(48) ROLL_CASE(56) ROLL_CASE(64)
-    ROLL_CASE(65)
+    ROLL_CASE(2) ROLL_CASE(3) ROLL_CASE(4) ROLL_CASE(6) ROLL_CASE(8)
+    ROLL_CASE(12) ROLL_CASE(16) ROLL_CASE(24) ROLL_CASE(32) ROLL_CASE(48)
+    ROLL_CASE(64)
   }
 #undef ROLL_CASE
   return cudaErrorInvalidValue;

@@ -15,8 +15,10 @@ arithmetic:
 * `elem_chain_micro`, `reg_chain_micro`: dependent add/min chains in
   int32, int16 (s16x2), bfloat16 (bf16x2) and, for the register chain,
   float32;
-* `roll_chain_micro`, `bf16_roll_chain_micro`: dependent rolls of a line
-  held by one warp, by register rotation and `__shfl_sync`.
+* `roll_chain_micro`, `bf16_roll_chain_micro`: dependent rolls of lines
+  held in registers, E consecutive values a thread: each step moves the
+  top 1 or 2 values of every thread into the next by `__shfl_sync` (across
+  warps through shared memory) and renames the rest.
 
 The kernels are `csrc/width_micro.cu`. CUDA tensors run a kernel, CPU
 tensors the plain version, which repeats the JAX arithmetic step by step:
@@ -39,9 +41,12 @@ BF_BIG = 16384.0    # bf16's, exact in bf16 (a power of two)
 D_MICRO = 128
 I8_MODES = ("v32_i8", "swar_i8", "bf16_i8")
 MODES = ("v32", "swar") + I8_MODES
-MAX_LINE = 32 * 64  # the longest line one warp rolls
-# slots per lane the roll kernel is built for (`csrc/width_micro.cu`)
-ROLL_SLOTS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32, 40, 48, 56, 64, 65)
+# values a thread the roll kernel is built for (`csrc/width_micro.cu`)
+ROLL_SLOTS = (2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
+ROLL_MAX_THREADS = 32 * 12  # one line a block of at most 12 warps
+# the longest line the roll kernel takes: 64 values in registers a thread
+# of such a block (the CPU's plain version takes any)
+MAX_LINE = ROLL_SLOTS[-1] * ROLL_MAX_THREADS
 _DT = {torch.int32: 0, torch.int16: 1, torch.bfloat16: 2, torch.float32: 3}
 _ELEM, _REG = 0, 1
 # a packed word's two field sign-and-headroom bits (0xC000C000 as int32)
@@ -53,8 +58,8 @@ _SIGS = {
     "sweep_micro_launch": ([_P, _P] + [_I] * 5 + [_P], _I),
     # x, out, n, dtype, kind, chain, stream
     "chain_micro_launch": ([_P, _P, _L] + [_I] * 3 + [_P], _I),
-    # x, out, lines, len, line stride, element stride, pair16, slots, pad,
-    # chain, stream
+    # x, out, lines, len, line stride, element stride, pair16, slots,
+    # threads, chain, stream
     "roll_micro_launch": ([_P, _P, _I, _I, _L, _L] + [_I] * 4 + [_P], _I),
 }
 
@@ -323,24 +328,43 @@ def reg_chain_micro(x: torch.Tensor, chain: int = 32) -> torch.Tensor:
 
 
 def _roll_plan(length: int):
-    """(slots per lane, padded) for a line of `length` elements: exact
-    slots when the line fills them, else room for two pad positions past
-    its end (the wrap fix-up of `csrc/width_micro.cu` reads them)."""
-    if length % 32 == 0 and length // 32 in ROLL_SLOTS:
-        return length // 32, 0
-    return next(e for e in ROLL_SLOTS if 32 * e >= length + 2), 1
+    """(E, T) for a line of `length` values: T threads, the first of them E
+    consecutive values each and the rest E - 1 (all E where T * E equals
+    the length; each then rolls without a wrap fix-up). The kernel needs E
+    in `ROLL_SLOTS`, at least 2 values a thread (so 3 <= E unless exact),
+    and T <= `ROLL_MAX_THREADS`. Of the plans it takes: the fewest warps
+    (one warp a line rolls without barriers), then an exact one, then the
+    smallest E. A line of 1 or 2 values is a ring of two (T = 1, E = 2)."""
+    if length <= 2:
+        return 2, 1
+    best = None
+    for e in ROLL_SLOTS:
+        t = -(-length // e)
+        exact = t * e == length
+        if t > ROLL_MAX_THREADS or not (exact or (
+                e >= 3 and t * (e - 1) < length)):
+            continue
+        key = (-(-t // 32), not exact, e)
+        if best is None or key < best[0]:
+            best = (key, e, t)
+    if best is None:
+        raise ValueError(f"a line of {length} > {MAX_LINE} values: the roll "
+                         f"kernel holds a line in one block of "
+                         f"{ROLL_MAX_THREADS} threads, {ROLL_SLOTS[-1]} "
+                         f"values in registers each")
+    return best[1], best[2]
 
 
 def _roll_launch(x: torch.Tensor, chain: int, lines: int, length: int,
                  lstride: int, estride: int, pair16: int,
                  fn) -> torch.Tensor:
     _check_cuda_input(x)
-    slots, pad = _roll_plan(length)
+    slots, threads = _roll_plan(length)
     out = torch.empty_like(x)
     lib = _build.load("width_micro", _SIGS)
     rc = lib.roll_micro_launch(_build.ptr(x), _build.ptr(out), lines,
-                               length, lstride, estride, pair16, slots, pad,
-                               chain, _build.stream_ptr(x))
+                               length, lstride, estride, pair16, slots,
+                               threads, chain, _build.stream_ptr(x))
     _build.check(lib, rc, fn.__name__)
     fn.launches += 1
     return out
@@ -350,18 +374,14 @@ def roll_chain_micro(x: torch.Tensor, chain: int = 32,
                      axis: int = 1) -> torch.Tensor:
     """`chain` dependent rolls by 1 + (i & 1) along `axis` (1: each row of
     D, 0: each column of N), as `torch.roll`: (N, D) int32 -> the same.
-    One warp holds a line, so its length is at most 2048. CUDA tensors run
-    the kernel, CPU tensors the plain version."""
+    CUDA tensors run the kernel, on lines of at most `MAX_LINE` values;
+    CPU tensors the plain version, on any."""
     _check_chain(x, chain, (torch.int32,))
     if axis not in (0, 1):
         raise ValueError(f"axis {axis} not in (0, 1)")
-    N, D = x.shape
-    length = x.shape[axis]
-    if length > MAX_LINE:
-        raise ValueError(f"a line of {length} > {MAX_LINE} elements: one "
-                         f"warp holds at most 32 x 64 of them")
     if _device(x) == "cpu":
         return roll_chain_micro_plain(x, chain, axis)
+    N, D = x.shape
     if axis == 1:
         return _roll_launch(x, chain, N, D, D, 1, 0, roll_chain_micro)
     return _roll_launch(x, chain, D, N, 1, D, 0, roll_chain_micro)
@@ -369,17 +389,14 @@ def roll_chain_micro(x: torch.Tensor, chain: int = 32,
 
 def bf16_roll_chain_micro(x: torch.Tensor, chain: int = 32) -> torch.Tensor:
     """`chain` dependent rolls by 1 + (i & 1) along the last axis of a
-    bfloat16 (N, D), N even, D <= 2048. The kernel packs rows (2i, 2i+1)
-    into one 32-bit word, so one shuffle moves two values (the JAX
-    function's roll through the int32 bit view). CUDA tensors run the
-    kernel, CPU tensors the plain version."""
+    bfloat16 (N, D), N even. The kernel packs rows (2i, 2i+1) into one
+    32-bit word, so one shuffle moves two values (the JAX function's roll
+    through the int32 bit view). CUDA tensors run the kernel, on lines of
+    at most `MAX_LINE` values; CPU tensors the plain version, on any."""
     _check_chain(x, chain, (torch.bfloat16,))
     N, D = x.shape
     if N % 2:
         raise ValueError(f"N must be even (rows are paired), got {N}")
-    if D > MAX_LINE:
-        raise ValueError(f"a line of {D} > {MAX_LINE} elements: one warp "
-                         f"holds at most 32 x 64 of them")
     if _device(x) == "cpu":
         return bf16_roll_chain_micro_plain(x, chain)
     return _roll_launch(x, chain, N // 2, D, 2 * D, 1, 1,
