@@ -154,11 +154,18 @@ The SAD route past `sad_wta`'s limits and the width micro-benchmarks:
    rolls' own floor, the same wrappers on one line ((1, 128) axis 1,
    (1248, 1) axis 0, (2, 128) bfloat16), whose marginal ns a step must
    reach `ROLL_FLOOR_NS` (a chain folded into one roll reads about 0);
-   times each chain's library call, one `torch.roll` by the chain's sum
-   (in turns with the kernel, medians of 3) or one `torch.add` of its
-   closed form, held `torch.equal` to the kernel; prints the two axes
-   that row 13c averages. Prints the share of the run both steps take
-   (`steps 16-17: ... s`).
+   the add/min chains' floor, each on one warp's values, whose marginal
+   ns a step must reach `CHAIN_FLOOR_NS`; each add/min chain kernel's
+   loop in the SASS of the library built here, which must issue at least
+   the JAX body's operations a step on its words (`chain_sass.CHAIN_OPS`:
+   a chain folded across steps issues fewer), and each chain's issue
+   bound at (1248, 128) (those warp-instructions a step, times the plan's
+   warps and the chain, over the card's SMs x 4 schedulers at one a
+   clock); times each chain's library call,
+   one `torch.roll` by the chain's sum (in turns with the kernel, medians
+   of 3) or one `torch.add` of its closed form, held `torch.equal` to
+   the kernel; prints the two axes that row 13c averages. Prints the
+   share of the run both steps take (`steps 16-17: ... s`).
 
 Adaptive P2 (`adaptive_p2=True`, the per-pixel P2' of the left image):
 
@@ -419,6 +426,10 @@ CHAINS = (64, 512)
 # of one warp-wide shuffle a clock an SM, at its highest clock of 1.98 GHz;
 # a chain folded into one roll reads about 0
 ROLL_FLOOR_NS = 1.5 / 1.98
+# the least marginal ns a step of an add/min chain on one warp's values may
+# read (step 17): one warp-instruction, at one a clock a scheduler at 1.98
+# GHz; a folded chain reads about 0
+CHAIN_FLOOR_NS = 1 / 1.98
 # middlebury_sgm4 at full size: (frame shape, synthetic disparity,
 # valid-fraction floor, bad-2.0 ceiling), the bar the KITTI path keeps,
 # below the plain pipeline's valid 0.980, bad-2.0 0.0023 on these pairs
@@ -1517,14 +1528,22 @@ def micro_path(card: str) -> list:
     ratios of `swar_i8` and `bf16_i8` to `v32_i8`; the chains at both
     `CHAIN_SHAPES`, lengths 64 and 512 differenced into ns per operation,
     the rolls on one line (their floor, required above `ROLL_FLOOR_NS`),
-    and each chain's library call (`torch.roll` in turns with the kernel).
-    Returns the five rows of the `kernels` line (the roll rows with their
-    floors, `roll_chain_micro`'s with the ms of each axis)."""
+    the add/min chains on one warp's values (theirs, above
+    `CHAIN_FLOOR_NS`) and their issue bounds from the SASS, and each
+    chain's library call (`torch.roll` in turns with the kernel).
+    Returns the five rows of the `kernels` line (the chain rows with
+    their floors, `roll_chain_micro`'s with the ms of each axis, the
+    add/min rows with their issue bounds and the ms of each dtype)."""
     import torch
     from tpustereo_torch import kernels
+    from tpustereo_torch.bench.chain_sass import (ISSUE_HZ, chain_folds,
+                                                  chain_issue, chain_least,
+                                                  chain_sass, chain_unroll)
+    from tpustereo_torch.kernels import _build
     from tpustereo_torch.kernels import width_micro as wm
 
     dev = torch.device("cuda")
+    sms = wm._sm_count(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     p1, p2 = 10, 120
     sweeps = {}
@@ -1696,6 +1715,74 @@ def micro_path(card: str) -> list:
         require(ns >= ROLL_FLOOR_NS, f"{label} on one line: {ns:.4f} ns a "
                 f"step < {ROLL_FLOOR_NS:.3f}: the chain does not step")
 
+    # the add/min chains' floor: each on one warp's values (the plan's
+    # words a thread x 32), whose marginal ns a step is one dependent
+    # step's latency; a folded chain reads about 0
+    chain_fns = {"elem": (wm.elem_chain_micro, elem_dts),
+                 "reg": (wm.reg_chain_micro, reg_dts)}
+    kinds = {"elem": wm._ELEM, "reg": wm._REG}
+    chain_floor = {}
+    for kname, (fn, dts) in chain_fns.items():
+        for dt in dts:
+            per = wm._values_per_word(dt)
+            n = next(32 * w * per for w in wm.CHAIN_WORDS
+                     if wm._chain_plan(32 * w * per, dt, kinds[kname],
+                                       sms)[0] == w)
+            v = torch.randint(0, 200, (1, n), generator=gen, device=dev,
+                              dtype=torch.int32).to(dt)
+            t, ns = chain_ns(fn, v, 1)
+            chain_floor[f"{kname} {dname(dt)}"] = ns
+            plan = wm._chain_plan(n, dt, kinds[kname], sms)
+            print(f"[{card}] {kname} {dname(dt)} on one warp's values (1, "
+                  f"{n}), plan {plan}: ms at chain {CHAINS} "
+                  f"{tuple(round(ms, 5) for ms in t.values())}"
+                  f", marginal {ns:.4f} ns a step", flush=True)
+    for label, ns in chain_floor.items():
+        require(ns >= CHAIN_FLOOR_NS, f"{label} on one warp: {ns:.4f} ns a "
+                f"step < {CHAIN_FLOOR_NS:.3f}: the chain does not step")
+
+    # each chain kernel's loop in the SASS of the library built here: every
+    # one of them built, none issuing fewer warp-instructions a step than
+    # the JAX body's operations on its words (a partial fold, which keeps
+    # the outputs exact and may still pass the floor, issues fewer)
+    lib = _build.load("width_micro", wm._SIGS)
+    issue = chain_issue(chain_sass(_build.lib_path("width_micro")),
+                        chain_unroll(lib))
+    built = {f"chain {k} {dname(dt)} W{w}" for k, (_, dts) in chain_fns.items()
+             for dt in dts for w in wm.CHAIN_WORDS}
+    require(set(issue) == built, f"the chain kernels in the SASS "
+            f"{sorted(issue)} are not those built {sorted(built)}")
+    folds = chain_folds(issue)
+    print(f"[{card}] chain loops, warp-instructions a step (the least): "
+          + ", ".join(f"{k.removeprefix('chain ')} {v:g} ({chain_least(k)})"
+                      for k, v in sorted(issue.items())), flush=True)
+    require(not folds, f"chain loops issue fewer warp-instructions a step "
+            f"than the JAX body's operations (a step, the least): {folds}")
+
+    # each chain's issue bound at (1248, 128): those warp-instructions a
+    # step x the warps of the plan x the chain, over the card's schedulers
+    # at one a clock
+    schedulers = sms * wm.SCHEDULERS
+    x = chains["r43b"]
+    n = x[torch.int32].numel()
+    issue_ms = {}
+    for kname, (fn, dts) in chain_fns.items():
+        for dt in dts:
+            words, threads, blocks = wm._chain_plan(n, dt, kinds[kname],
+                                                    sms)
+            per = wm._values_per_word(dt)
+            warps = -(-n // (32 * words * per))
+            step = issue[f"chain {kname} {dname(dt)} W{words}"]
+            label = f"{kname} {dname(dt)}"
+            issue_ms[label] = warps * ch * step / schedulers / ISSUE_HZ * 1e3
+            b_ms, _ = bound(2 * n * x[dt].element_size(), 3 * ch * n)
+            print(f"[{card}] {label} at {CHAIN_SHAPES['r43b']}, chain {ch}: "
+                  f"{ch_ms['r43b'][label][0][ch]:.5f} ms; plan (words, "
+                  f"threads, blocks) {(words, threads, blocks)}; issue bound "
+                  f"{issue_ms[label]:.5f} ms ({step:g} warp-instructions a "
+                  f"step x {warps} warps); 67e12 bound {b_ms:.5f} ms",
+                  flush=True)
+
     # --- the rows: each function at the JAX scripts' shapes (the sweep
     # at r43b's, the mean of its five modes; a chain's at (1248, 128),
     # chain 512, the mean of its dtypes or axes)
@@ -1807,7 +1894,11 @@ def micro_path(card: str) -> list:
 
     floors = {"roll_chain_micro": {a: floor_ns[f"roll axis {a}"]
                                    for a in (1, 0)},
-              "bf16_roll_chain_micro": floor_ns["bf16 roll"]}
+              "bf16_roll_chain_micro": floor_ns["bf16 roll"],
+              "elem_chain_micro": {k: v for k, v in chain_floor.items()
+                                   if k.startswith("elem")},
+              "reg_chain_micro": {k: v for k, v in chain_floor.items()
+                                  if k.startswith("reg")}}
     rows = []
     for name, (src, replaces) in MICRO_KERNELS.items():
         b_ms, b_by = bounds[name]
@@ -1826,6 +1917,13 @@ def micro_path(card: str) -> list:
             rows[-1]["floor_ns_per_step"] = floors[name]
         if name == "roll_chain_micro":
             rows[-1]["axis_ms"] = axis_ms
+        if name in ("elem_chain_micro", "reg_chain_micro"):
+            kname = name.split("_")[0]
+            rows[-1]["issue_bound_ms"] = mean(
+                [v for k, v in issue_ms.items() if k.startswith(kname)])
+            rows[-1]["dtype_ms"] = {
+                k: t[0][ch] for k, t in ch_ms["r43b"].items()
+                if k.startswith(kname)}
     return rows
 
 

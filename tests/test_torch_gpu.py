@@ -1133,7 +1133,13 @@ def test_sweep_micro_kernel_modes_agree(cuda):
                        a.int())
 
 
-CHAIN_SHAPES = [(8, 128), (13, 37), (2048, 128), (1, 1)]
+# small and odd slabs; `chip_smoke.py` step 17's timing shapes; and the
+# plan's boundaries: 33,792 values are one block of 128 threads on each of
+# the 132 SMs at 2 int32 words a thread (1 word of 16-bit pairs), with one
+# value less and more, and 67,585 one more than two such blocks an SM
+CHAIN_SHAPES = [(8, 128), (13, 37), (2048, 128), (1, 1), (1, 2),
+                (1248, 128), (16896, 128), (132, 256), (3, 11263),
+                (1, 33793), (1, 67585)]
 
 
 @pytest.mark.parametrize("shape", CHAIN_SHAPES)
@@ -1141,16 +1147,18 @@ CHAIN_SHAPES = [(8, 128), (13, 37), (2048, 128), (1, 1)]
     ("elem", torch.int32), ("elem", torch.int16), ("elem", torch.bfloat16),
     ("reg", torch.int32), ("reg", torch.float32), ("reg", torch.bfloat16),
     ("reg", torch.int16)])
-@pytest.mark.parametrize("chain", [0, 7, 100])
+@pytest.mark.parametrize("chain", [0, 1, 7, 100, 512])
 def test_chain_kernels_match_plain(cuda, shape, kind, dtype, chain):
-    """int16 values up to the edges, so the chains wrap; bf16 values past
-    256, so they round."""
+    """int16 and int32 values up to the edges, so the chains wrap; bf16
+    values past 256, so they round."""
     wm = _wm()
     rng = np.random.default_rng(22)
     lo, hi = (-32768, 32768) if dtype == torch.int16 else (-500, 500)
     x = torch.from_numpy(rng.integers(lo, hi, shape)).to(dtype)
     if dtype == torch.int16 and x.numel() > 3:
         x.view(-1)[:4] = torch.tensor([32767, 32766, -1, -32768])
+    if dtype == torch.int32 and x.numel() > 3:
+        x.view(-1)[:4] = torch.tensor([2**31 - 1, 2**31 - 2, -1, -2**31])
     x = x.to(cuda)
     fn, plain = ((wm.elem_chain_micro, wm.elem_chain_micro_plain)
                  if kind == "elem" else
@@ -1159,6 +1167,31 @@ def test_chain_kernels_match_plain(cuda, shape, kind, dtype, chain):
     ref = plain(x, chain)
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("kind,dtype,shape,chain", [
+    ("elem", torch.int16, (13, 37), 2500),
+    ("elem", torch.bfloat16, (13, 37), 2500),
+    ("elem", torch.int16, (1, 3), 32768),
+    ("elem", torch.bfloat16, (1, 3), 70000),
+    ("elem", torch.int32, (1, 3), 70000),
+    ("reg", torch.int16, (1, 3), 70000)])
+def test_chain_kernels_match_plain_on_long_chains(cuda, kind, dtype, shape,
+                                                  chain):
+    """Chains past the 1,024 steps of one chunk of the 16-bit step
+    constants' table, bf16 ones far past 256 and reg int16 past 65,535
+    steps. The int16 elem chain's i stops at 32,767, where the plain
+    version (as the JAX function) can still make it an int16."""
+    wm = _wm()
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(rng.integers(-500, 500, shape)).to(dtype).to(cuda)
+    fn, plain = ((wm.elem_chain_micro, wm.elem_chain_micro_plain)
+                 if kind == "elem" else
+                 (wm.reg_chain_micro, wm.reg_chain_micro_plain))
+    got = fn(x, chain)
+    ref = plain(x, chain)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 # lines that fill one warp's threads exactly (128, 2048), one warp's with

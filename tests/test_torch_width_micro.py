@@ -341,3 +341,127 @@ def test_roll_plan_covers_every_line_the_kernel_takes():
             assert threads <= 32, length
     with pytest.raises(ValueError):
         wm._roll_plan(wm.MAX_LINE + 1)
+
+
+# ---------------------------------------------------------------------------
+# the chain kernel's plan
+# ---------------------------------------------------------------------------
+
+CHAIN_KINDS = {"elem": wm._ELEM, "reg": wm._REG}
+CHAIN_DTYPES = {"int32": torch.int32, "int16": torch.int16,
+                "bfloat16": torch.bfloat16, "float32": torch.float32}
+CHAIN_CASES = [("elem", "int32"), ("elem", "int16"), ("elem", "bfloat16"),
+               ("reg", "int32"), ("reg", "float32"), ("reg", "bfloat16"),
+               ("reg", "int16")]
+STEP17_SHAPES = [(1248, 128), (16896, 128)]
+
+
+def _per_word(dtype):
+    return 2 if dtype in (torch.int16, torch.bfloat16) else 1
+
+
+@pytest.mark.parametrize("kind,dtype", CHAIN_CASES)
+def test_chain_plan_covers_every_value(kind, dtype):
+    """The kernel's map (thread t holds the values of words W t .. W t +
+    W - 1, all but the last thread whole) on the plan's grid holds every
+    value once and leaves no block empty: n from 1 to 3,000 (odd n for
+    the 16-bit dtypes among them) and n near multiples of a word for each
+    of the card's 528 x 32 threads."""
+    dt, per = CHAIN_DTYPES[dtype], _per_word(CHAIN_DTYPES[dtype])
+    card = wm.SMS * wm.SCHEDULERS * 32 * per
+    ns = list(range(1, 3001)) + [m * card * w + d for m in (1, 2, 3, 7)
+                                 for w in wm.CHAIN_WORDS
+                                 for d in (-per - 1, -1, 0, 1, per + 1)]
+    for n in ns:
+        words, threads, blocks = wm._chain_plan(n, dt, CHAIN_KINDS[kind])
+        assert words in wm.CHAIN_WORDS and threads % 128 == 0
+        span = words * per
+        e0 = np.arange(blocks * threads) * span
+        held = np.clip(n - e0, 0, span)  # values each thread holds
+        assert held.sum() == n, n
+        used = np.flatnonzero(held)
+        # threads 0 .. last hold values, every one of them whole but the
+        # last, which holds the tail
+        assert np.array_equal(used, np.arange(used.size)), n
+        assert np.all(held[used[:-1]] == span) and held[used[-1]] >= 1
+        assert blocks * threads - used.size < threads, n
+
+
+@pytest.mark.parametrize("sms", [wm.SMS, 114])
+@pytest.mark.parametrize("shape", STEP17_SHAPES)
+@pytest.mark.parametrize("kind,dtype", CHAIN_CASES)
+def test_chain_plan_balances_the_schedulers(shape, kind, dtype, sms):
+    """At `chip_smoke.py` step 17's shapes, on the H100 SXM's 132 SMs and
+    the PCIe card's 114, the busiest scheduler holds at most one warp more
+    than the mean over the card's SMs x 4 (blocks of 128 threads, one warp
+    on each of an SM's four), and its warps take at least one warp's
+    dependent step between two of a warp's own (`CHAIN_CLOCKS`), so the
+    chain's latency is covered; no other W of `CHAIN_WORDS` would give
+    the busiest scheduler fewer clocks a step."""
+    dt = CHAIN_DTYPES[dtype]
+    n = shape[0] * shape[1]
+    step, latency = wm.CHAIN_CLOCKS[CHAIN_KINDS[kind], dt]
+
+    def busiest(words, threads, blocks):
+        return -(-blocks // sms) * threads // (32 * wm.SCHEDULERS)
+
+    words, threads, blocks = wm._chain_plan(n, dt, CHAIN_KINDS[kind], sms)
+    warps = -(-n // (32 * words * _per_word(dt)))
+    most = busiest(words, threads, blocks)
+    assert most - warps / (sms * wm.SCHEDULERS) <= 1
+    assert most * step[words] >= latency
+    for w in wm.CHAIN_WORDS:
+        other = (w, threads, -(-n // (_per_word(dt) * w * threads)))
+        assert max(most * step[words], latency) <= max(
+            busiest(*other) * step[w], latency), w
+
+
+# a chain kernel's loop as `cuobjdump -sass` lists it: (kind, dtype, W)
+# in the mangled name, `steps` steps a pass of `ops` on each of W words
+# plus the loop's counter, compare and branch
+def _sass_listing(dt, kind, w, ops, steps):
+    lines = [f"\t\tFunction : _ZN12_GLOBAL__N_112chain_kernelILi{dt}ELi"
+             f"{kind}ELi{w}EEEvPKvPvli",
+             "        /*0000*/                   LDC R1, c[0x0][0x28] ;",
+             ".L_x_7:"]
+    at = 0x10
+    body = [op for _ in range(steps * w) for op in ops] + [
+        "UIADD3 UR4, UR4, 0x8, URZ", "ISETP.LT.AND P0, PT, R2, UR4, PT"]
+    for op in body:
+        lines.append(f"        /*{at:04x}*/                   {op} ;")
+        at += 0x10
+    lines.append(f"        /*{at:04x}*/               @P0 BRA `(.L_x_7) ;")
+    lines.append(f"        /*{at + 0x10:04x}*/                   EXIT ;")
+    return "\n".join(lines)
+
+
+@pytest.mark.parametrize("w", wm.CHAIN_WORDS)
+def test_chain_sass_finds_a_folded_chain(w):
+    """`chain_sass`'s parser counts the loop of each chain kernel, and
+    `chain_folds` passes a loop that issues the JAX body's operations on
+    each word every step (elem int32: x + i and the DPX add-min; reg
+    float32: v + 1, min, w + 1) and fails one folded to half as many steps
+    (min(min(v + 1, t) + 1, t + 1) = min(v + 2, t + 1): an exact output,
+    half the instructions)."""
+    from tpustereo_torch.bench import chain_sass as cs
+
+    listing = "\n".join([
+        _sass_listing(0, 0, w, ["VIADD R4, R3, UR5",
+                                "VIADDMNMX R5, R5, 0x1, R4, PT"], 8),
+        _sass_listing(3, 1, w, ["FADD R4, R5, 1", "FMNMX R5, R4, R6, PT",
+                                "FADD R6, R6, 1"], 16),
+        _sass_listing(0, 1, w, ["VIADDMNMX R5, R5, 0x2, R6, PT",
+                                "VIADD R6, R6, 0x2"], 8)])
+    loops = cs.chain_loops(listing)
+    assert loops[f"chain elem int32 W{w}"]["total"] == 16 * w + 3
+    assert loops[f"chain elem int32 W{w}"]["ops"]["VIADDMNMX"] == 8 * w
+    issue = cs.chain_issue(
+        {k: v for k, v in loops.items() if "reg int32" not in k},
+        {"elem": 8, "reg": 16})
+    assert issue[f"chain reg float32 W{w}"] == 3 * w + 3 / 16
+    assert cs.chain_folds(issue) == {}
+    # the reg int32 loop above runs 8 pairs of steps, each as one step's
+    # instructions: 16 steps a pass
+    folded = cs.chain_issue(loops, {"elem": 8, "reg": 16})
+    assert cs.chain_folds(folded) == {
+        f"chain reg int32 W{w}": (w + 3 / 16, 2 * w)}

@@ -15,6 +15,7 @@ card: its compile-time sizes, and the source with one part cut out.
     python3 -m tpustereo_torch.bench.kernel_micro width_micro
     python3 -m tpustereo_torch.bench.kernel_micro NAME --against DIR
     python3 -m tpustereo_torch.bench.kernel_micro NAME --only B1,B2
+    python3 -m tpustereo_torch.bench.kernel_micro NAME --cases S1,S2
 
 For the kernel named (`csrc/<name>.cu`) this script compiles the source once
 per entry of `SIZES[name]` (`-D` macros that the source reads in place of
@@ -57,12 +58,31 @@ int32 on both axes and bfloat16, chains 64 and 512; chain 0 (the loads
 and stores alone, strided on axis 0); one line ((1, 128) axis 1,
 (1248, 1) axis 0, (2, 128) bfloat16), the chain's own floor; and other
 plans of the same lines (threads and values a thread, `_roll_plan`'s
-candidates; the shipped build only). A checkout from before the blocked
-slots (the strided layout, `slots` and `pad` in place of `slots` and
-`threads`) takes lines of at most 2,048 values and its own plan
-(`_strided_roll_plan`). Its builds print each roll kernel's registers and
-spills (`ptxas`); `staged` and `staged4` compile the columns' staging by
-clusters of 8 and 4 blocks (`ROLL_STAGE_COLS`), off in the shipped build.
+candidates; the shipped build only); and its chain kernel (the
+instrument of `elem_chain_micro` and `reg_chain_micro`) at the same two
+shapes, both kinds and every dtype, chains 0, 64 and 512 on
+`_chain_plan`'s grid, and at chains 64 and 512 on the other plans (1,
+2 or 4 words a thread in blocks of 128, 4 in blocks of 256; the shipped
+build only), and one warp's values at one word a thread, chains 64 and
+512 (the shipped build only). From these the record's `chain_clocks`
+gives `kernels.width_micro.CHAIN_CLOCKS` as this card measures it (the
+clocks a warp-step takes its scheduler at (16896, 128) by words a
+thread, and one warp's dependent step). A checkout from before the
+blocked slots (the strided layout,
+`slots` and `pad` in place of `slots` and `threads`) takes lines of at
+most 2,048 values and its own plan (`_strided_roll_plan`); one from
+before the chain plan its own chain grid (`AGAINST_SIGS`). Its builds
+print each roll and chain kernel's registers and spills (`ptxas`), and
+the record holds each chain kernel's loop in the SASS by opcode
+(`chain_sass`) and its warp-instructions a step in every build
+(`chain_issue`, both from `bench/chain_sass.py`); `staged` and
+`staged4` compile the columns' staging by clusters of 8 and 4 blocks
+(`ROLL_STAGE_COLS`), off in the shipped
+build; `unroll4` and `unroll16` are the chain's candidates and
+`smid` its diagnostic, whose blocks count
+themselves on their SMs (`chain_sm_blocks` in the record: blocks an SM
+in each chain case at chain 512); the roll cases skip them, the chain
+cases skip the roll's.
 Each `--against DIR` (the option may be repeated) makes the same source
 of another checkout (`DIR/tpustereo_torch/csrc/<name>.cu`, the same C
 interface, or the one `AGAINST_SIGS` names) one more build, named after
@@ -70,12 +90,14 @@ DIR (a parent commit unpacked into `parent/`, say), held to the shipped
 outputs in the cases it takes (a checkout's `sgm_sweep` and `bwd_wta`
 from before adaptive P2 take the scalar cases alone). `--only` keeps the
 builds named (sizes, ablations, checkouts), and may name none (`--only
-""`). It prints the card's name and power limit,
-then one JSON line: ms per launch of each build in each case, by CUDA
-events (mean of 20 launches after a warm-up) and by CUDA-graph replay (20
-launches captured in one graph: the device's time without the host's per
-launch), in turns shipped, builds..., shipped, and each build's device ms
-a call in each of its kernels (`profile_ms`, by `torch.profiler`).
+""`); `--cases` keeps the cases whose label holds one of the strings
+named (`--cases elem,reg`: the chains of `width_micro`). It prints the
+card's name and power limit, then one JSON line: ms per launch of each
+build in each case, by CUDA events (mean of 20 launches after a warm-up)
+and by CUDA-graph replay (20 launches captured in one graph: the
+device's time without the host's per launch), in turns shipped,
+builds..., shipped, and each build's device ms a call in each of its
+kernels (`profile_ms`, by `torch.profiler`).
 
 `sgm_fused` also runs, at 1 x 375 x 1242 with D = 256 and 512, the down
 set written and the up set added (every build); and prints `anatomy`:
@@ -109,6 +131,9 @@ import numpy as np
 import torch
 
 from tpustereo_torch import PRESETS, kernels
+from tpustereo_torch.bench.chain_sass import (CHAIN_FN, DT_NAMES, ISSUE_HZ,
+                                             chain_issue, chain_key,
+                                             chain_sass, chain_unroll)
 from tpustereo_torch.data import synthetic_pair
 from tpustereo_torch.kernels import _build
 from tpustereo_torch.kernels.bitonic import _SIGS as _BITONIC_SIGS
@@ -136,15 +161,21 @@ SIGS = {"bwd_wta": _BWD_SIGS, "census_cost": _COST_SIGS,
         "median3": _MEDIAN_SIGS, "sgm_sweep": _SWEEP_SIGS,
         "sgm_fused": _FUSED_SIGS,
         "lr_check": {"lr_hits_launch": _LR_SIGS["lr_hits_launch"]},
-        "width_micro": {"roll_micro_launch":
-                        wm._SIGS["roll_micro_launch"]}}
+        "width_micro": {f: wm._SIGS[f] for f in ("roll_micro_launch",
+                                                 "chain_micro_launch")}}
 # earlier C interfaces that `--against` builds keep: sgm_bidir_launch
 # before its `packed` argument (one int32 build), sgm_sweep_launch and
 # bwd_wta_launch before their image argument (scalar P2 alone),
 # sgm_fused_launch before its carry arguments, roll_micro_launch before the
-# blocked slots (the same types: `slots, pad` in place of `slots, threads`)
+# blocked slots (the same types: `slots, pad` in place of `slots, threads`),
+# chain_micro_launch before its plan (x, out, n, dtype, kind, chain, stream:
+# 4 words a thread in blocks of 256)
 AGAINST_SIGS = {
-    "width_micro": {"roll_micro_launch": wm._SIGS["roll_micro_launch"]},
+    "width_micro": {"roll_micro_launch": wm._SIGS["roll_micro_launch"],
+                    "chain_micro_launch": (
+                        [ctypes.c_void_p] * 2 + [ctypes.c_long]
+                        + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                        ctypes.c_int)},
     "sgm_fused": {"sgm_fused_launch": (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
         ctypes.c_int),
@@ -226,6 +257,10 @@ SIZES = {
         **{f"lpb{n}": [f"-DROLL_LPB={n}"] for n in (1, 8)},
         "staged": ["-DROLL_STAGE_COLS=1"],
         "staged4": ["-DROLL_STAGE_COLS=1", "-DROLL_CLUSTER=4"],
+        # the chain kernel: ELEM passes of 4 and 16 steps (shipped 8, REG
+        # twice as many); each block counting itself on its SM
+        **{f"unroll{n}": [f"-DCHAIN_UNROLL={n}"] for n in (4, 16)},
+        "smid": ["-DCHAIN_SMID=1"],
     },
     # the hits kernel's tile: groups of 4 pixels a thread, threads a block
     "lr_check": {
@@ -441,22 +476,28 @@ ABLATIONS = {
 }
 
 
+# the width_micro builds of the chain kernel, which the roll cases skip and
+# the chain cases alone take (with the checkouts)
+CHAIN_BUILDS = {"unroll4", "unroll16", "smid"}
+
+
 def _same_interface(name: str, src: str) -> bool:
     """Whether another checkout's source takes the current C interface
-    (`sgm_fused` with its carry arguments, `width_micro` with the blocked
-    slots); the others take `AGAINST_SIGS`."""
+    (`sgm_fused` with its carry arguments, `width_micro` with the chain
+    plan); the others take `AGAINST_SIGS`."""
     mark = {"sgm_fused": "const int* cin",
-            "width_micro": "int slots, int threads"}.get(name)
+            "width_micro": "int words, int threads"}.get(name)
     if mark is None:
         return False
     with open(src) as f:
         return mark in f.read()
 
 
-def _ptxas_roll(log: str) -> dict:
-    """Registers and spill bytes (stores, loads) of each roll kernel in an
-    `nvcc -Xptxas -v` log, keyed E<values a thread>/<exact or not>/<warp
-    or block>."""
+def _ptxas_width(log: str) -> dict:
+    """Registers and spill bytes (stores, loads) of each roll and chain
+    kernel in an `nvcc -Xptxas -v` log, keyed E<values a thread>/<exact or
+    not>/<warp or block> for the rolls, `chain <kind> <dtype> W<words>` for
+    the chains."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -466,9 +507,12 @@ def _ptxas_roll(log: str) -> dict:
             continue
         k = re.search(r"roll_kernelILi(\d+)ELb([01])E(?:Lb([01])E)?",
                       fn or "")
-        if k is None:
+        c = CHAIN_FN.search(fn or "")
+        if c is not None:
+            key = chain_key(c)
+        elif k is None:
             continue
-        if k.group(3) is None:  # the strided layout's <E, PAIR16>
+        elif k.group(3) is None:  # the strided layout's <E, PAIR16>
             key = f"E{k.group(1)}/{'bf16' if k.group(2) == '1' else 'int32'}"
         else:
             key = (f"E{k.group(1)}/"
@@ -482,6 +526,31 @@ def _ptxas_roll(log: str) -> dict:
         r = re.search(r"Used (\d+) registers", line)
         if r:
             out.setdefault(key, {})["registers"] = int(r.group(1))
+    return out
+
+
+def _chain_balance(lib, cases) -> dict:
+    """Blocks each SM took in one launch of each chain case at chain 512
+    (the `smid` build's counts): SMs used, the most and the fewest blocks
+    an SM, and how many SMs took each count."""
+    take = lib.chain_sm_blocks_take
+    take.argtypes, take.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    buf = (ctypes.c_uint * 1024)()
+    out = {}
+    for label, _, _, _, launch, *_ in cases:
+        if "_c512" not in label or not ("elem" in label or "reg" in label):
+            continue
+        torch.cuda.synchronize()
+        take(buf, 1024)
+        if launch(lib) != 0:
+            raise RuntimeError(f"width_micro smid launch failed ({label})")
+        torch.cuda.synchronize()
+        if take(buf, 1024) != 0:
+            raise RuntimeError("chain_sm_blocks_take failed")
+        counts = [c for c in buf if c]
+        out[label] = {"sms": len(counts), "max": max(counts),
+                      "min": min(counts),
+                      "hist": dict(collections.Counter(counts))}
     return out
 
 
@@ -524,16 +593,21 @@ def _compile(name: str, against: tuple = (), only=None) -> dict:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {b}:\n{log}")
         if name == "width_micro":
-            ptxas[b] = _ptxas_roll(log)
+            ptxas[b] = _ptxas_width(log)
         else:
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {b}: {line.strip()}")
         lib = ctypes.CDLL(path)
+        lib.tps_path = path
         sigs = SIGS[name]
+        lib.tps_checkout = b in others
         if b in others and not _same_interface(name, builds[b][0]):
             sigs = AGAINST_SIGS.get(name, sigs)
             lib.tps_against = True
+        if name == "width_micro" and b in others:
+            with open(builds[b][0]) as f:
+                lib.tps_strided = "int slots, int threads" not in f.read()
         for fn, (argtypes, restype) in sigs.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
@@ -982,14 +1056,17 @@ def _roll_cases(dev) -> list:
         length = geo[1]
 
         def launch(lib, x=x, outs=outs, geo=geo, chain=chain, plan=plan):
-            if getattr(lib, "tps_against", False):
+            if getattr(lib, "tps_strided", False):
                 a, b = _strided_roll_plan(length)
             else:
                 a, b = plan or wm._roll_plan(length)
             return lib.roll_micro_launch(
                 _build.ptr(x), _build.ptr(outs[0]), *geo, a, b, chain,
                 _build.stream_ptr(x))
-        extra = {"skip_against": plan is not None or length > 2048}
+        strided_ok = plan is None and length <= 2048
+        extra = {"takes": lambda b, lib, ok=strided_ok: (
+            b not in CHAIN_BUILDS
+            and (ok or not getattr(lib, "tps_strided", False)))}
         cases.append((label, [*x.shape, chain, axis, *(plan or ())],
                       (ref,), outs, launch, extra))
 
@@ -1017,9 +1094,104 @@ def _roll_cases(dev) -> list:
     return cases
 
 
+def _chain_cases(dev) -> list:
+    """The chain kernel at `chip_smoke.py` step 17's shapes, both kinds and
+    every dtype: chains 0 (the loads and stores alone), 64 and 512 on
+    `_chain_plan`'s grid, and at chains 64 and 512 each other plan (1,
+    2 or 4 words a thread in blocks of 128, and 4 in blocks of 256, the
+    grid before the plan; the shipped build only); and one warp's values
+    at one word a thread ("warp", chains 64 and 512, the shipped build
+    only), whose steps wait on one another. A checkout from before the
+    plan runs its own grid. A case's extra "clock" is (kind and dtype,
+    words and threads of its plan, chain, warps), which `_chain_clocks`
+    reads."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sms = wm._sm_count(dev)
+    cases = []
+    candidates = [(w, wm.CHAIN_THREADS) for w in wm.CHAIN_WORDS] + [(4, 256)]
+    for key, shape in (("r43b", (1248, 128)), ("fill", (16896, 128)),
+                       ("warp", None)):
+        for kind, dt in wm.CHAIN_CLOCKS:
+            per = wm._values_per_word(dt)
+            xi = torch.randint(0, 200, shape or (1, 32 * per), generator=gen,
+                               device=dev, dtype=torch.int32)
+            x, n = xi.to(dt), xi.numel()
+            plain = (wm.elem_chain_micro_plain if kind == wm._ELEM
+                     else wm.reg_chain_micro_plain)
+            shipped = wm._chain_plan(n, dt, kind, sms)
+            others = [(w, t, -(-n // (per * w * t))) for w, t in candidates]
+            others = [p for p in others if p != shipped]
+            what = (f"{'elem' if kind == wm._ELEM else 'reg'}_"
+                    f"{DT_NAMES[wm._DT[dt]]}")
+            for chain in (0, 64, 512) if shape else (64, 512):
+                plans = ([None] + (others if chain else []) if shape
+                         else [(1, wm.CHAIN_THREADS, 1)])
+                for plan in plans:
+                    outs = (torch.empty_like(x),)
+
+                    def launch(lib, x=x, outs=outs, chain=chain, kind=kind,
+                               plan=plan or shipped):
+                        if getattr(lib, "tps_against", False):
+                            return lib.chain_micro_launch(
+                                _build.ptr(x), _build.ptr(outs[0]),
+                                x.numel(), wm._DT[x.dtype], kind, chain,
+                                _build.stream_ptr(x))
+                        return lib.chain_micro_launch(
+                            _build.ptr(x), _build.ptr(outs[0]), x.numel(),
+                            wm._DT[x.dtype], kind, *plan, chain,
+                            _build.stream_ptr(x))
+                    label = f"{key}_{what}_c{chain}" + (
+                        f"_plan{plan[0]}x{plan[1]}" if plan and shape else "")
+                    only_shipped = plan is not None
+                    w, t, b = plan or shipped
+                    extra = {"takes": lambda b, lib, o=only_shipped: (
+                        not o and (b in CHAIN_BUILDS or lib.tps_checkout)),
+                        "clock": (what.replace("_", " "), w, t, chain,
+                                  b * t // 32)}
+                    cases.append((label, [*xi.shape, chain, w, t, b],
+                                  (plain(x, chain),), outs, launch, extra))
+    return cases
+
+
+def _chain_clocks(cases, result: dict, sms: int) -> dict:
+    """`kernels.width_micro.CHAIN_CLOCKS` as this run measured it, from the
+    shipped build's device time a launch (`profile_ms`, which leaves out
+    the gaps between launches), by kind and dtype: "step", by words a
+    thread, the clocks a warp's step takes its scheduler at (16896, 128)
+    in blocks of `CHAIN_THREADS`, where every scheduler holds the same
+    warps (the ms between chains 64 and 512 x `ISSUE_HZ` x the card's
+    schedulers, over the warps and the 448 steps); "latency", the clocks
+    of one warp's dependent step (the "warp" cases: their ms between
+    chains 64 and 512 x `ISSUE_HZ` over the 448 steps)."""
+    ms = {}
+    for label, *rest in cases:
+        extra = rest[4] if len(rest) > 4 else {}
+        if "clock" in extra and label in result and (
+                label.startswith(("fill_", "warp_"))):
+            what, w, t, chain, warps = extra["clock"]
+            if t == wm.CHAIN_THREADS:
+                ms[label.split("_")[0], what, w, chain] = (
+                    sum(result[label]["profile_ms"]["shipped"].values()),
+                    warps)
+    out = {}
+    for (key, what, w, chain), (t512, warps) in ms.items():
+        if chain != 512 or (key, what, w, 64) not in ms:
+            continue
+        clocks = ((t512 - ms[key, what, w, 64][0]) * 1e-3 * ISSUE_HZ
+                  / (512 - 64))
+        entry = out.setdefault(what, {"step": {}, "latency": None})
+        if key == "warp":
+            entry["latency"] = round(clocks, 2)
+        elif warps % (sms * wm.SCHEDULERS) == 0:
+            entry["step"][w] = round(
+                clocks * sms * wm.SCHEDULERS / warps, 2)
+    return out
+
+
 def _cases(name: str, dev) -> list:
     """[(label, shape, reference outputs, output buffers, launch(lib),
-    optional {"copy": fn, "reset": fn, "skip_against": bool})] at the
+    optional {"copy": fn, "reset": fn, "skip_against": bool, "takes":
+    fn(build, lib)})] at the
     path's shapes; launch passes the current stream, so that a CUDA graph
     can capture it. `copy` is a part of each launch timed alone, `reset`
     runs before each build's check, `skip_against` leaves the `--against`
@@ -1031,7 +1203,7 @@ def _cases(name: str, dev) -> list:
     if name == "lr_check":
         return _hits_cases(dev)
     if name == "width_micro":
-        return _roll_cases(dev)
+        return _roll_cases(dev) + _chain_cases(dev)
     cases = []
 
     def stream():
@@ -1260,7 +1432,7 @@ def _ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def main(name: str, against: tuple = (), only=None) -> None:
+def main(name: str, against: tuple = (), only=None, cases=None) -> None:
     if name not in SIGS:
         raise SystemExit(f"kernel_micro: name one of {sorted(SIGS)}")
     if not torch.cuda.is_available():
@@ -1270,7 +1442,9 @@ def main(name: str, against: tuple = (), only=None) -> None:
                           text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
     dev = torch.device("cuda")
-    cases = _cases(name, dev)
+    picked = cases
+    cases = [c for c in _cases(name, dev)
+             if picked is None or any(p in c[0] for p in picked)]
     libs = _compile(name, against, only)
     shipped = _build.load(name, SIGS[name])
     result, differs = {}, []
@@ -1282,9 +1456,11 @@ def main(name: str, against: tuple = (), only=None) -> None:
             if rc != 0:
                 raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
+        takes = extra.get("takes", lambda b, lib: True)
         builds = {b: lib for b, lib in libs.items()
-                  if not (extra.get("skip_against")
-                          and getattr(lib, "tps_against", False))}
+                  if takes(b, lib) and not (
+                      extra.get("skip_against")
+                      and getattr(lib, "tps_against", False))}
         for b, lib in list(builds.items()):
             if "reset" in extra:
                 extra["reset"]()
@@ -1317,7 +1493,27 @@ def main(name: str, against: tuple = (), only=None) -> None:
     record = {"card": card, "kernel": name, "cases": result}
     if name == "width_micro" and os.path.exists(_build.log_path(name)):
         with open(_build.log_path(name)) as f:
-            record["ptxas_shipped"] = _ptxas_roll(f.read())
+            record["ptxas_shipped"] = _ptxas_width(f.read())
+        # each build's chain loop: warp-instructions a step by kernel
+        sass = {"shipped": (_build.lib_path(name), shipped)}
+        sass.update({b: (lib.tps_path, lib) for b, lib in libs.items()
+                     if b in CHAIN_BUILDS or lib.tps_checkout})
+        record["chain_sass"] = {b: chain_sass(path)
+                                for b, (path, _) in sass.items()}
+        record["chain_issue"] = {
+            b: chain_issue(record["chain_sass"][b], chain_unroll(lib))
+            for b, (path, lib) in sass.items()}
+        print(f"chain_sass: {json.dumps(record['chain_sass'])}\n"
+              f"chain_issue: {json.dumps(record['chain_issue'])}",
+              flush=True)
+        record["chain_clocks"] = _chain_clocks(cases, result,
+                                               wm._sm_count(dev))
+        print(f"chain_clocks: {json.dumps(record['chain_clocks'])}",
+              flush=True)
+        if "smid" in libs:
+            record["chain_sm_blocks"] = _chain_balance(libs["smid"], cases)
+            print(f"chain_sm_blocks: "
+                  f"{json.dumps(record['chain_sm_blocks'])}", flush=True)
     if name == "sgm_fused":
         record["anatomy"] = _fused_anatomy(shipped)
         print(f"anatomy: {json.dumps(record['anatomy'])}", flush=True)
@@ -1343,4 +1539,9 @@ if __name__ == "__main__":
         at = args.index("--only")
         only = {b for b in args[at + 1].split(",") if b}
         del args[at:at + 2]
-    main(args[0] if args else "", tuple(against), only)
+    cases = None
+    if "--cases" in args:
+        at = args.index("--cases")
+        cases = args[at + 1].split(",")
+        del args[at:at + 2]
+    main(args[0] if args else "", tuple(against), only, cases)

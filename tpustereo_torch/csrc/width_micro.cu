@@ -21,12 +21,19 @@
 // chain of T dependent steps (shuffles and a warp min each), not the bytes
 // (3 a cost for the i8 modes, 8 for v32 and swar) or the operations.
 //
-// chain_kernel: dependent add/min chains held in registers, four 32-bit
-// words a thread run side by side (one int32 or float32 value a word, two
-// int16 or bf16):
+// chain_kernel: dependent add/min chains held in registers, W = 1, 2 or 4
+// 32-bit words a thread run side by side (one int32 or float32 value a
+// word, two int16 or bf16), in blocks of 128 threads, one warp on each of
+// an SM's four schedulers:
 // ELEM is v = min(v + 1, x + i), REG is v = min(v + 1, w); w = w + 1 then
-// v + w. int16 runs as s16x2 (__viaddmin_s16x2, __vadd2), bf16 as bf16x2
-// (__hadd2, __hmin2). Bound by the rate at which the SMs dispatch them.
+// v + w. int16 runs as s16x2, its add-mins on DPX (__viaddmin_s16x2) and
+// its plain adds by __vadd2, bf16 as bf16x2 (__hadd2, __hmin2). Bound by the
+// rate at which the schedulers issue them, one warp-instruction a clock
+// each: the wrapper's `_chain_plan` chooses W so that the busiest of the
+// card's 528 schedulers holds at most one warp more than the mean, and
+// the loop makes each step's constant once for the thread's W words (the
+// 16-bit ELEM chains read theirs from a table in shared memory that each
+// block makes once).
 //
 // roll_kernel: dependent rolls by 1 + (i & 1) of lines of up to 24,576
 // values held in registers, in blocked slots: thread t of a line holds E
@@ -63,7 +70,6 @@ enum { ELEM = 0, REG = 1 };
 
 constexpr int KD = 4;      // disparities a lane
 constexpr int DM = 128;    // D of the micro
-constexpr int CW = 4;      // 32-bit words a thread in the chains
 constexpr float BF_BIG = 16384.0f;
 
 __device__ __forceinline__ __nv_bfloat162 as_bf2(unsigned u) {
@@ -210,131 +216,278 @@ __global__ void __launch_bounds__(128)
 // ---------------------------------------------------------------------------
 // chains
 
+#ifndef CHAIN_UNROLL
+#define CHAIN_UNROLL 8  // steps of one pass of an ELEM chain's loop; REG's,
+                        // which make no step constant, run twice as many
+                        // (an int32 ELEM pass of 16 made each constant by
+                        // a UIADD3 of its own)
+#endif
+#ifndef CHAIN_SMID
+#define CHAIN_SMID 0  // 1: each block counts itself on its SM
+                      // (`chain_sm_blocks`), a diagnostic build
+#endif
+
+constexpr int CHAIN_MAX_THREADS = 1024;
+constexpr unsigned ONE16 = 0x00010001u;   // the int16 pair (1, 1)
+constexpr unsigned ONE_BF2 = 0x3f803f80u; // the bf16 pair (1, 1)
+
 template <int DT>
 __host__ __device__ constexpr int per_word() {
   return DT == DT_I16 || DT == DT_BF16 ? 2 : 1;
 }
 
 // The chain's carried values pass through an empty asm statement every
-// iteration: without it nvcc folds integer chains across iterations
+// step: without it nvcc folds integer chains across steps
 // (min(v + 1, a) + 1 = min(v + 2, a + 1)), and the int32 chains then time
 // fewer operations than they name. Floats and the packed intrinsics are not
 // folded; they pass through it too, so every type runs the same loop.
 __device__ __forceinline__ void pin(unsigned& v) { asm volatile("" : "+r"(v)); }
 
-// The chain on this thread's CW words at once (CW independent chains, so
-// a thread has CW operations in flight); each iteration's constant is made
-// once for all of them.
+// a + b on bf16 pairs, rounded to nearest
+__device__ __forceinline__ unsigned addbf(unsigned a, unsigned b) {
+  return as_u32(__hadd2(as_bf2(a), as_bf2(b)));
+}
+
+// blocks a launch put on each SM (CHAIN_SMID builds only)
+__device__ unsigned chain_sm_blocks[1024];
+
+__device__ __forceinline__ unsigned bf2_word(__nv_bfloat16 b) {
+  return as_u32(__bfloat162bfloat162(b));
+}
+
+// ELEM's 16-bit chains read each step's constant from a table in shared
+// memory, made once a block for a chunk of CHAIN_TABLE steps
 template <int DT, int KIND>
-__device__ __forceinline__ void chain_words(unsigned (&x)[CW], int chain) {
-  unsigned v[CW], w[CW];
-  constexpr unsigned ONE16 = 0x00010001u;
-  const __nv_bfloat162 one = bf2(1.0f);
+__host__ __device__ constexpr bool chain_table() {
+  return KIND == ELEM && (DT == DT_I16 || DT == DT_BF16);
+}
+constexpr int CHAIN_TABLE = 1024;
+
+// Step i's constant of a table: the pair (i, i) of int16 (i & 0xffff, as
+// the int16 i wraps) or of bf16 (i rounded to nearest) values
+template <int DT>
+__device__ __forceinline__ unsigned step_const(int i) {
+  if constexpr (DT == DT_I16) return __byte_perm(i, 0, 0x1010);
+  return bf2_word(__int2bfloat16_rn(i));
+}
+
+// One step i of the chain on one word: ELEM v = min(v + 1, x + c), REG
+// v = min(v + 1, w); w = w + 1, in the word's type (c: i for int32, else
+// `step_const`). The int16 plain adds are __vadd2, which wraps each field
+// and leaves the DPX add-min's pipe, which issues at half rate, to the
+// add-mins.
+template <int DT, int KIND>
+__device__ __forceinline__ void step(unsigned& v, unsigned& w, unsigned x,
+                                     unsigned c) {
+  if constexpr (KIND == ELEM) {
+    // nvcc makes min(v + 1, t) one DPX add-min (VIADDMNMX) on its own
+    if constexpr (DT == DT_I32)
+      v = (unsigned)min((int)(v + 1u), (int)(x + c));
+    if constexpr (DT == DT_I16) v = __viaddmin_s16x2(v, ONE16, __vadd2(x, c));
+    if constexpr (DT == DT_BF16)
+      v = as_u32(__hmin2(as_bf2(addbf(v, ONE_BF2)),
+                         as_bf2(addbf(x, c))));
+    pin(v);
+  } else {
+    if constexpr (DT == DT_I32) {
+      v = (unsigned)min((int)(v + 1u), (int)w);
+      w = w + 1u;
+    }
+    if constexpr (DT == DT_F32) {
+      v = __float_as_uint(
+          fminf(__uint_as_float(v) + 1.0f, __uint_as_float(w)));
+      w = __float_as_uint(__uint_as_float(w) + 1.0f);
+    }
+    if constexpr (DT == DT_I16) {
+      v = __viaddmin_s16x2(v, ONE16, w);
+      w = __vadd2(w, ONE16);
+    }
+    if constexpr (DT == DT_BF16) {
+      v = as_u32(__hmin2(as_bf2(addbf(v, ONE_BF2)), as_bf2(w)));
+      w = addbf(w, ONE_BF2);
+    }
+    pin(v), pin(w);
+  }
+}
+
+// v = x and, for REG, w = v + 1 on each of the thread's W words
+template <int DT, int W>
+__device__ __forceinline__ void chain_start(const unsigned (&x)[W],
+                                            unsigned (&v)[W],
+                                            unsigned (&w)[W]) {
 #pragma unroll
-  for (int j = 0; j < CW; ++j) {
+  for (int j = 0; j < W; ++j) {
     v[j] = x[j];
     if constexpr (DT == DT_I32) w[j] = v[j] + 1u;
     if constexpr (DT == DT_F32)
       w[j] = __float_as_uint(__uint_as_float(v[j]) + 1.0f);
     if constexpr (DT == DT_I16) w[j] = __vadd2(v[j], ONE16);
-    if constexpr (DT == DT_BF16) w[j] = as_u32(__hadd2(as_bf2(v[j]), one));
+    if constexpr (DT == DT_BF16) w[j] = addbf(v[j], ONE_BF2);
   }
-#pragma unroll 4
-  for (int i = 0; i < chain; ++i) {
-    const unsigned i16 = (unsigned)(i & 0xffff) * ONE16;
-    const __nv_bfloat162 ib = bf2((float)i);
+}
+
+template <int KIND>
+__host__ __device__ constexpr int chain_unroll_of() {
+  return KIND == REG ? 2 * CHAIN_UNROLL : CHAIN_UNROLL;
+}
+
+// Steps i0 .. i0 + len - 1 of the chain on the thread's W words at once (W
+// independent chains), `chain_unroll_of` steps a pass, each step's constant
+// made once for the W words: int32 ELEM adds i inside each word's add (a
+// uniform register and an immediate), the 16-bit ELEM chains read theirs
+// from `table` (its entry k is step i0 + k's; a pass's by 16-byte loads,
+// every lane at one address), REG has none.
+template <int DT, int KIND, int W>
+__device__ __forceinline__ void chain_steps(unsigned (&v)[W],
+                                            unsigned (&w)[W],
+                                            const unsigned (&x)[W], int i0,
+                                            int len,
+                                            const unsigned* table) {
+  constexpr int U = chain_unroll_of<KIND>();
+  static_assert(U >= 4 && U % 4 == 0, "a pass reads its table by fours");
+  int k = 0;
+#pragma unroll 1
+  for (; k + U <= len; k += U) {
+    unsigned c[U];
 #pragma unroll
-    for (int j = 0; j < CW; ++j) {
-      if constexpr (KIND == ELEM) {  // v = min(v + 1, x + i)
-        if constexpr (DT == DT_I32)
-          v[j] = (unsigned)min((int)(v[j] + 1u), (int)(x[j] + (unsigned)i));
-        if constexpr (DT == DT_I16)
-          v[j] = __viaddmin_s16x2(v[j], ONE16, __vadd2(x[j], i16));
-        if constexpr (DT == DT_BF16)
-          v[j] = as_u32(__hmin2(__hadd2(as_bf2(v[j]), one),
-                                __hadd2(as_bf2(x[j]), ib)));
-        pin(v[j]);
-      } else {  // v = min(v + 1, w); w = w + 1
-        if constexpr (DT == DT_I32) {
-          v[j] = (unsigned)min((int)(v[j] + 1u), (int)w[j]);
-          w[j] = w[j] + 1u;
-        }
-        if constexpr (DT == DT_F32) {
-          v[j] = __float_as_uint(
-              fminf(__uint_as_float(v[j]) + 1.0f, __uint_as_float(w[j])));
-          w[j] = __float_as_uint(__uint_as_float(w[j]) + 1.0f);
-        }
-        if constexpr (DT == DT_I16) {
-          v[j] = __viaddmin_s16x2(v[j], ONE16, w[j]);
-          w[j] = __vadd2(w[j], ONE16);
-        }
-        if constexpr (DT == DT_BF16) {
-          v[j] = as_u32(__hmin2(__hadd2(as_bf2(v[j]), one), as_bf2(w[j])));
-          w[j] = as_u32(__hadd2(as_bf2(w[j]), one));
-        }
-        pin(v[j]), pin(w[j]);
+    for (int q = 0; q < U; q += 4) {
+      if constexpr (chain_table<DT, KIND>()) {
+        const uint4 t4 = *reinterpret_cast<const uint4*>(table + k + q);
+        c[q] = t4.x, c[q + 1] = t4.y, c[q + 2] = t4.z, c[q + 3] = t4.w;
+      } else {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) c[q + r] = (unsigned)(i0 + k + q + r);
       }
     }
-  }
 #pragma unroll
-  for (int j = 0; j < CW; ++j) {
+    for (int q = 0; q < U; ++q)
+#pragma unroll
+      for (int j = 0; j < W; ++j) step<DT, KIND>(v[j], w[j], x[j], c[q]);
+  }
+#pragma unroll 1
+  for (; k < len; ++k) {
+    const unsigned c =
+        chain_table<DT, KIND>() ? table[k] : (unsigned)(i0 + k);
+#pragma unroll
+    for (int j = 0; j < W; ++j) step<DT, KIND>(v[j], w[j], x[j], c);
+  }
+}
+
+// the chain's result in x: v for ELEM, v + w for REG
+template <int DT, int KIND, int W>
+__device__ __forceinline__ void chain_finish(const unsigned (&v)[W],
+                                             const unsigned (&w)[W],
+                                             unsigned (&x)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
     if constexpr (KIND == ELEM) {
       x[j] = v[j];
-    } else {  // v + w
+    } else {
       if constexpr (DT == DT_I32) x[j] = v[j] + w[j];
       if constexpr (DT == DT_F32)
         x[j] = __float_as_uint(__uint_as_float(v[j]) + __uint_as_float(w[j]));
       if constexpr (DT == DT_I16) x[j] = __vadd2(v[j], w[j]);
-      if constexpr (DT == DT_BF16)
-        x[j] = as_u32(__hadd2(as_bf2(v[j]), as_bf2(w[j])));
+      if constexpr (DT == DT_BF16) x[j] = addbf(v[j], w[j]);
     }
   }
 }
 
-// n values; this thread's words are CW * t .. CW * t + CW - 1, whole 16-byte
-// vectors except in the last thread, which loads and stores value by value
-template <int DT, int KIND>
-__global__ void __launch_bounds__(256)
+// W words of 32 bits as one load or store of 4 W bytes
+template <int W> struct Words;
+template <> struct Words<1> {
+  using V = unsigned;
+  __device__ static void get(V v, unsigned (&w)[1]) { w[0] = v; }
+  __device__ static V make(const unsigned (&w)[1]) { return w[0]; }
+};
+template <> struct Words<2> {
+  using V = uint2;
+  __device__ static void get(V v, unsigned (&w)[2]) { w[0] = v.x, w[1] = v.y; }
+  __device__ static V make(const unsigned (&w)[2]) {
+    return make_uint2(w[0], w[1]);
+  }
+};
+template <> struct Words<4> {
+  using V = uint4;
+  __device__ static void get(V v, unsigned (&w)[4]) {
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+  }
+  __device__ static V make(const unsigned (&w)[4]) {
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// n values; this thread's words are W t .. W t + W - 1, one load and one
+// store of 4 W bytes, except in the last thread, which loads and stores
+// value by value (the wrapper's `_chain_plan` sizes the grid). A block of
+// a table chain keeps its threads past n for the table's barriers.
+template <int DT, int KIND, int W>
+__global__ void __launch_bounds__(CHAIN_MAX_THREADS)
     chain_kernel(const void* __restrict__ x, void* __restrict__ out, long n,
                  int chain) {
   constexpr int PER = per_word<DT>();
+  constexpr bool TABLE = chain_table<DT, KIND>();
+  using Vec = typename Words<W>::V;
+  __shared__ __align__(16) unsigned table[TABLE ? CHAIN_TABLE : 4];
   const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long e0 = t * CW * PER;
-  if (e0 >= n) return;
-  const bool full = e0 + CW * PER <= n;
-  unsigned w[CW];
+#if CHAIN_SMID
+  if (threadIdx.x == 0) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    atomicAdd(&chain_sm_blocks[sm & 1023], 1u);
+  }
+#endif
+  const long e0 = t * W * PER;
+  const bool active = e0 < n;
+  if (!TABLE && !active) return;
+  const bool full = e0 + W * PER <= n;
+  unsigned xw[W];
   if (full) {
-    const uint4 v = reinterpret_cast<const uint4*>(x)[t];
-    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    Words<W>::get(reinterpret_cast<const Vec*>(x)[t], xw);
   } else {
 #pragma unroll
-    for (int j = 0; j < CW; ++j) {
-      w[j] = 0;
+    for (int j = 0; j < W; ++j) {
+      xw[j] = 0;
 #pragma unroll
       for (int h = 0; h < PER; ++h) {
         const long e = e0 + j * PER + h;
         if (e >= n) continue;
-        w[j] |= PER == 1 ? static_cast<const unsigned*>(x)[e]
-                         : (unsigned)static_cast<const uint16_t*>(x)[e]
-                               << (16 * h);
+        xw[j] |= PER == 1 ? static_cast<const unsigned*>(x)[e]
+                          : (unsigned)static_cast<const uint16_t*>(x)[e]
+                                << (16 * h);
       }
     }
   }
-  chain_words<DT, KIND>(w, chain);
+  unsigned v[W], w[W];
+  chain_start<DT, W>(xw, v, w);
+  if constexpr (TABLE) {
+    for (int base = 0; base < chain;) {
+      const int len = min(chain - base, CHAIN_TABLE);
+      __syncthreads();  // the last chunk's reads are done
+      for (int k = threadIdx.x; k < len; k += blockDim.x)
+        table[k] = step_const<DT>(base + k);
+      __syncthreads();
+      if (active) chain_steps<DT, KIND, W>(v, w, xw, base, len, table);
+      base += len;
+    }
+    if (!active) return;
+  } else {
+    chain_steps<DT, KIND, W>(v, w, xw, 0, chain, table);
+  }
+  chain_finish<DT, KIND, W>(v, w, xw);
   if (full) {
-    reinterpret_cast<uint4*>(out)[t] = make_uint4(w[0], w[1], w[2], w[3]);
+    reinterpret_cast<Vec*>(out)[t] = Words<W>::make(xw);
     return;
   }
 #pragma unroll
-  for (int j = 0; j < CW; ++j)
+  for (int j = 0; j < W; ++j)
 #pragma unroll
     for (int h = 0; h < PER; ++h) {
       const long e = e0 + j * PER + h;
       if (e >= n) continue;
       if (PER == 1)
-        static_cast<unsigned*>(out)[e] = w[j];
+        static_cast<unsigned*>(out)[e] = xw[j];
       else
-        static_cast<uint16_t*>(out)[e] = (uint16_t)(w[j] >> (16 * h));
+        static_cast<uint16_t*>(out)[e] = (uint16_t)(xw[j] >> (16 * h));
     }
 }
 
@@ -729,11 +882,23 @@ cudaError_t launch_sweep(const void* C, void* out, int T, int N, int p1,
 }
 
 template <int DT, int KIND>
-cudaError_t launch_chain(const void* x, void* out, long n, int chain,
+cudaError_t launch_chain(const void* x, void* out, long n, int words,
+                         int threads, int blocks, int chain,
                          cudaStream_t st) {
-  const long threads = (n + CW * per_word<DT>() - 1) / (CW * per_word<DT>());
-  chain_kernel<DT, KIND>
-      <<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(x, out, n, chain);
+  const long held = (long)blocks * threads * words * per_word<DT>();
+  if (n < 1 || chain < 0 || threads < 128 || threads % 128 ||
+      threads > CHAIN_MAX_THREADS || blocks < 1 || held < n)
+    return cudaErrorInvalidValue;
+#define CHAIN_GO(W)                                                    \
+  case W:                                                              \
+    chain_kernel<DT, KIND, W><<<blocks, threads, 0, st>>>(x, out, n,   \
+                                                          chain);      \
+    break;
+  switch (words) {
+    CHAIN_GO(1) CHAIN_GO(2) CHAIN_GO(4)
+    default: return cudaErrorInvalidValue;
+  }
+#undef CHAIN_GO
   return cudaGetLastError();
 }
 
@@ -753,14 +918,18 @@ TPS_EXPORT int sweep_micro_launch(const void* C, void* out, int T, int N,
   return cudaErrorInvalidValue;
 }
 
-// n values of dtype `dt` (int32, int16, bf16, float32), kind ELEM or REG
+// n values of dtype `dt` (int32, int16, bf16, float32), kind ELEM or REG,
+// on `blocks` blocks of `threads` threads of `words` 32-bit words each (the
+// wrapper's `_chain_plan`)
 TPS_EXPORT int chain_micro_launch(const void* x, void* out, long n, int dt,
-                                  int kind, int chain, void* stream) {
+                                  int kind, int words, int threads,
+                                  int blocks, int chain, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dt * 2 + kind) {
-#define CHAIN_CASE(DT, KIND) \
-  case DT * 2 + KIND:        \
-    return launch_chain<DT, KIND>(x, out, n, chain, st);
+#define CHAIN_CASE(DT, KIND)                                        \
+  case DT * 2 + KIND:                                               \
+    return launch_chain<DT, KIND>(x, out, n, words, threads, blocks, \
+                                  chain, st);
     CHAIN_CASE(DT_I32, ELEM) CHAIN_CASE(DT_I32, REG)
     CHAIN_CASE(DT_I16, ELEM) CHAIN_CASE(DT_I16, REG)
     CHAIN_CASE(DT_BF16, ELEM) CHAIN_CASE(DT_BF16, REG)
@@ -768,6 +937,23 @@ TPS_EXPORT int chain_micro_launch(const void* x, void* out, long n, int dt,
 #undef CHAIN_CASE
   }
   return cudaErrorInvalidValue;
+}
+
+// the steps of one pass of a chain loop of `kind` (its SASS is counted a
+// pass)
+TPS_EXPORT int chain_unroll(int kind) {
+  return kind == REG ? chain_unroll_of<REG>() : chain_unroll_of<ELEM>();
+}
+
+// the blocks each of the first `n` SMs took since the last call (CHAIN_SMID
+// builds; zeros elsewhere), then zeroed
+TPS_EXPORT int chain_sm_blocks_take(unsigned* host, int n) {
+  if (n < 0 || n > 1024) return cudaErrorInvalidValue;
+  cudaError_t e = cudaMemcpyFromSymbol(host, chain_sm_blocks,
+                                       sizeof(unsigned) * n);
+  if (e != cudaSuccess) return e;
+  static const unsigned zeros[1024] = {};
+  return cudaMemcpyToSymbol(chain_sm_blocks, zeros, sizeof(zeros));
 }
 
 // `lines` lines of `len` values, `threads` threads a line holding `slots`

@@ -14,7 +14,8 @@ arithmetic:
   (`swar`, `swar_i8`: `sgm_step_s16x2`) and in bf16 pairs (`bf16_i8`);
 * `elem_chain_micro`, `reg_chain_micro`: dependent add/min chains in
   int32, int16 (s16x2), bfloat16 (bf16x2) and, for the register chain,
-  float32;
+  float32, 1, 2 or 4 words a thread on a grid that gives every scheduler
+  of the card the same warps within one (`_chain_plan`);
 * `roll_chain_micro`, `bf16_roll_chain_micro`: dependent rolls of lines
   held in registers, E consecutive values a thread: each step moves the
   top 1 or 2 values of every thread into the next by `__shfl_sync` (across
@@ -49,6 +50,28 @@ ROLL_MAX_THREADS = 32 * 12  # one line a block of at most 12 warps
 MAX_LINE = ROLL_SLOTS[-1] * ROLL_MAX_THREADS
 _DT = {torch.int32: 0, torch.int16: 1, torch.bfloat16: 2, torch.float32: 3}
 _ELEM, _REG = 0, 1
+# the H100 SXM's SMs (a launch plans for its own card's, `_sm_count`) and
+# warp schedulers an SM (each issues at most one warp-instruction a clock)
+SMS, SCHEDULERS = 132, 4
+CHAIN_WORDS = (4, 2, 1)  # 32-bit words a thread the chain kernel is built for
+CHAIN_THREADS = 128      # a block: one warp on each of an SM's schedulers
+# The chain kernel on the H100 by (kind, dtype): the clocks one warp's
+# step takes its scheduler with W words a thread, by W (its instructions
+# and the pipes they wait on, at (16896, 128), where every scheduler holds
+# the same warps), and the clocks of one warp's dependent step (one warp's
+# values at one word a thread). Measured by `bench/kernel_micro.py
+# width_micro --cases elem,reg`, which prints this table as
+# `chain_clocks` (device times on an NVIDIA H100 80GB HBM3 at 700 W, 1.98
+# GHz); measure it again when the chain kernel changes.
+CHAIN_CLOCKS = {
+    (_ELEM, torch.int32): ({4: 8.75, 2: 4.46, 1: 2.74}, 5.69),
+    (_ELEM, torch.int16): ({4: 10.91, 2: 6.46, 1: 3.39}, 8.99),
+    (_ELEM, torch.bfloat16): ({4: 15.51, 2: 8.42, 1: 4.45}, 14.93),
+    (_REG, torch.int32): ({4: 8.46, 2: 4.25, 1: 2.27}, 4.56),
+    (_REG, torch.float32): ({4: 12.66, 2: 6.23, 1: 3.24}, 10.37),
+    (_REG, torch.bfloat16): ({4: 16.39, 2: 8.07, 1: 4.09}, 10.34),
+    (_REG, torch.int16): ({4: 8.47, 2: 5.15, 1: 3.04}, 5.83),
+}
 # a packed word's two field sign-and-headroom bits (0xC000C000 as int32)
 _FIELD_TOP = -0x3FFF4000
 
@@ -56,8 +79,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGS = {
     # C, out, T, N, mode, p1, p2, stream
     "sweep_micro_launch": ([_P, _P] + [_I] * 5 + [_P], _I),
-    # x, out, n, dtype, kind, chain, stream
-    "chain_micro_launch": ([_P, _P, _L] + [_I] * 3 + [_P], _I),
+    # x, out, n, dtype, kind, words, threads, blocks, chain, stream
+    "chain_micro_launch": ([_P, _P, _L] + [_I] * 6 + [_P], _I),
     # x, out, lines, len, line stride, element stride, pair16, slots,
     # threads, chain, stream
     "roll_micro_launch": ([_P, _P, _I, _I, _L, _L] + [_I] * 4 + [_P], _I),
@@ -292,13 +315,46 @@ def sweep_micro(C: torch.Tensor, mode: str, p1: int = 10,
     return _sweep_launch(C, mode, p1, p2)
 
 
+def _values_per_word(dtype: torch.dtype) -> int:
+    return 2 if dtype in (torch.int16, torch.bfloat16) else 1
+
+
+def _sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _chain_plan(n: int, dtype: torch.dtype, kind: int, sms: int = SMS):
+    """(words a thread, threads a block, blocks) of the chain kernel on n
+    values of `dtype` on a card of `sms` SMs: thread t holds 32-bit words
+    W t .. W t + W - 1 (two 16-bit values a word), the last thread the
+    tail. Blocks of `CHAIN_THREADS` put one warp on each of an SM's
+    schedulers, so that the busiest of the card's sms x 4 holds
+    ceil(blocks / sms) warps, within one of the mean. Of the W in
+    `CHAIN_WORDS`, the one whose busiest scheduler takes the fewest clocks
+    a step by `CHAIN_CLOCKS`: its warps times a warp's step, or one warp's
+    dependent step where that is longer; the larger W on a tie."""
+    words = -(-n // _values_per_word(dtype))
+    step, latency = CHAIN_CLOCKS[kind, dtype]
+    best = None
+    for w in CHAIN_WORDS:
+        blocks = -(-words // (w * CHAIN_THREADS))
+        warps = -(-blocks // sms)
+        clocks = max(warps * step[w], latency)
+        if best is None or clocks < best[0]:
+            best = (clocks, (w, CHAIN_THREADS, blocks))
+    return best[1]
+
+
 def _chain_launch(x: torch.Tensor, chain: int, kind: int, fn) -> torch.Tensor:
     _check_cuda_input(x)
+    words, threads, blocks = _chain_plan(x.numel(), x.dtype, kind,
+                                         _sm_count(x.device))
     out = torch.empty_like(x)
     lib = _build.load("width_micro", _SIGS)
     rc = lib.chain_micro_launch(_build.ptr(x), _build.ptr(out), x.numel(),
-                                _DT[x.dtype], kind, chain,
-                                _build.stream_ptr(x))
+                                _DT[x.dtype], kind, words, threads, blocks,
+                                chain, _build.stream_ptr(x))
     _build.check(lib, rc, fn.__name__)
     fn.launches += 1
     return out
@@ -308,7 +364,8 @@ def elem_chain_micro(x: torch.Tensor, chain: int = 32) -> torch.Tensor:
     """`chain` dependent steps of v = min(v + 1, x + i) from v = x, in x's
     dtype (int32, int16 or bfloat16, rounded after every operation):
     (N, D) -> (N, D). CUDA tensors run the kernel (int16 and bf16 two
-    values a 32-bit word), CPU tensors the plain version."""
+    values a 32-bit word, on `_chain_plan`'s grid), CPU tensors the plain
+    version."""
     _check_chain(x, chain, (torch.int32, torch.int16, torch.bfloat16))
     if _device(x) == "cpu":
         return elem_chain_micro_plain(x, chain)
