@@ -148,8 +148,12 @@ The SAD route past `sad_wta`'s limits and the width micro-benchmarks:
    with the counters set to 0 (their only path), holds every kernel
    against its plain version at the timing shapes (`torch.equal`), and
    times them by CUDA-graph replay: `sweep_micro` at `SWEEP_SHAPES` (µs
-   per step, the byte bound, the ratios of `swar_i8` and `bf16_i8` to
-   `v32_i8`) and the chains at `CHAIN_SHAPES` (the rolls on both axes at
+   per step, each mode's byte bound and whether it reaches half of it,
+   the ratios of `swar_i8` and `bf16_i8` to `v32_i8`), on one warp's
+   line at T = 376 (N = 1, two rows for the paired modes: the step
+   chain's own floor, ns a step), and `v32_i8` at (1242, 1500) in turns
+   with `sgm_sweep`'s E write form at KITTI F = 4, the same step and
+   bytes; the chains at `CHAIN_SHAPES` (the rolls on both axes at
    both), lengths 64 and 512 differenced into ns per operation; the
    rolls' own floor, the same wrappers on one line ((1, 128) axis 1,
    (1248, 1) axis 0, (2, 128) bfloat16), whose marginal ns a step must
@@ -1530,10 +1534,13 @@ def micro_path(card: str) -> list:
     the rolls on one line (their floor, required above `ROLL_FLOOR_NS`),
     the add/min chains on one warp's values (theirs, above
     `CHAIN_FLOOR_NS`) and their issue bounds from the SASS, and each
-    chain's library call (`torch.roll` in turns with the kernel).
-    Returns the five rows of the `kernels` line (the chain rows with
-    their floors, `roll_chain_micro`'s with the ms of each axis, the
-    add/min rows with their issue bounds and the ms of each dtype)."""
+    chain's library call (`torch.roll` in turns with the kernel); the
+    sweep's one-line floor in each mode, and `v32_i8` in turns with
+    `sgm_sweep`'s E write form. Returns the five rows of the `kernels`
+    line (the sweep row with each mode's ms, byte bound and floor and
+    the E comparison, the chain rows with their floors,
+    `roll_chain_micro`'s with the ms of each axis, the add/min rows with
+    their issue bounds and the ms of each dtype)."""
     import torch
     from tpustereo_torch import kernels
     from tpustereo_torch.bench.chain_sass import (ISSUE_HZ, chain_folds,
@@ -1629,7 +1636,7 @@ def micro_path(card: str) -> list:
 
     # --- timing, of device time (`graph_ms`): the sweep kernel alone (the
     # wrapper's domain check is a reduction and a sync)
-    sw_ms, sw_bytes = {}, {}
+    sw_ms, sw_bytes, sw_bound = {}, {}, {}
     for key, modes in sweeps.items():
         T = SWEEP_SHAPES[key][0]
         for mode, C in modes.items():
@@ -1639,11 +1646,12 @@ def micro_path(card: str) -> list:
             # 8 for v32, 4 for swar (two costs a word)
             sw_bytes[key, mode] = C.numel() * (
                 C.element_size() + (2 if mode in wm.I8_MODES else 4))
+            sw_bound[key, mode] = bound(sw_bytes[key, mode], 0)[0]
         line = "; ".join(
             f"{m} {ms:.4f} ms ({ms * 1e3 / T:.3f} us/step)"
             for (k, m), ms in sw_ms.items() if k == key)
-        byte_ms = "; ".join(f"{m} {bound(b, 0)[0]:.4f}"
-                            for (k, m), b in sw_bytes.items() if k == key)
+        byte_ms = "; ".join(f"{m} {b:.4f}"
+                            for (k, m), b in sw_bound.items() if k == key)
         print(f"[{card}] sweep_micro at (T, N, D) = "
               f"{(*SWEEP_SHAPES[key], wm.D_MICRO)}: {line}; byte bounds, "
               f"ms: {byte_ms}", flush=True)
@@ -1654,6 +1662,52 @@ def micro_path(card: str) -> list:
               f"bf16_i8 / v32_i8 = {sw_ms[key, 'bf16_i8'] / base:.4f}; "
               f"swar / v32 = {sw_ms[key, 'swar'] / sw_ms[key, 'v32']:.4f}",
               flush=True)
+        print(f"[{card}] sweep_micro at {key}, ms over twice the byte bound "
+              f"(at most 1 reaches half of it): " + "; ".join(
+                  f"{m} {sw_ms[key, m] / (2 * sw_bound[key, m]):.4f}"
+                  for m in sweeps[key]), flush=True)
+
+    # the step chain's own floor: each mode on one warp's line (one row,
+    # or two for the paired modes and swar's packing) at T = 376, whose
+    # ns a step is one dependent step once the ring hides the loads (the
+    # launch and the first load are in it too)
+    T1 = SWEEP_SHAPES["r43b"][0]
+    sw_floor = {}
+    for mode in sweeps["r43b"]:
+        rows = 1 if mode in ("v32", "v32_i8") else 2
+        C8 = torch.randint(0, 25, (T1, rows, wm.D_MICRO), generator=gen,
+                           device=dev, dtype=torch.int8)
+        C = (C8 if mode in wm.I8_MODES else C8.int() if mode == "v32"
+             else wm.pack_rows(C8.int()))
+        hold("sweep_micro", wm.sweep_micro(C, mode, p1, p2),
+             wm.sweep_micro_plain(C, mode, p1, p2), f"{mode} on one line")
+        sw_floor[mode] = graph_ms(
+            lambda C=C, m=mode: wm._sweep_launch(C, m, p1, p2), 20) * 1e6 / T1
+    print(f"[{card}] sweep_micro on one warp's line, T = {T1}, ns a step: "
+          + "; ".join(f"{m} {ns:.2f}" for m, ns in sw_floor.items())
+          + "; T x floor, ms: " + "; ".join(
+              f"{k} {m} {SWEEP_SHAPES[k][0] * sw_floor[m] * 1e-6:.4f}"
+              for k in sweeps for m in sw_floor), flush=True)
+
+    # v32_i8 at (1242, 1500) beside the shipped E sweep's write form at
+    # KITTI F = 4 (1,500 lines of 1,242 pixels, D = 128: the same step,
+    # sgm_step<4>, and the same 3 bytes a cost), in turns (micro, E, E,
+    # micro), by graph replay
+    Ck = torch.randint(0, 25, (4, 375, 1242, wm.D_MICRO), generator=gen,
+                       device=dev, dtype=torch.uint8)
+    C_e = sweeps["kitti_E"]["v32_i8"]
+    e_turns = [graph_ms(fn, 20) for fn in (
+        lambda: wm._sweep_launch(C_e, "v32_i8", p1, p2),
+        lambda: kernels.sgm_sweep(Ck, None, 0, 1, p1, p2),
+        lambda: kernels.sgm_sweep(Ck, None, 0, 1, p1, p2),
+        lambda: wm._sweep_launch(C_e, "v32_i8", p1, p2))]
+    del Ck
+    e_cmp = {"v32_i8": (e_turns[0] + e_turns[3]) / 2,
+             "sgm_sweep_E_write": (e_turns[1] + e_turns[2]) / 2}
+    print(f"[{card}] v32_i8 at {SWEEP_SHAPES['kitti_E']} against sgm_sweep's "
+          f"E write form at KITTI F = 4, in turns (micro, E, E, micro): "
+          f"{[round(t, 4) for t in e_turns]} ms; ratio "
+          f"{e_cmp['v32_i8'] / e_cmp['sgm_sweep_E_write']:.4f}", flush=True)
 
     def chain_ns(fn, x, ops):
         """(ms of each chain length, marginal ns per slab-wide operation)."""
@@ -1892,7 +1946,8 @@ def micro_path(card: str) -> list:
         "bf16_roll_chain_micro": bound(4 * n, ch * n),
     }
 
-    floors = {"roll_chain_micro": {a: floor_ns[f"roll axis {a}"]
+    floors = {"sweep_micro": sw_floor,
+              "roll_chain_micro": {a: floor_ns[f"roll axis {a}"]
                                    for a in (1, 0)},
               "bf16_roll_chain_micro": floor_ns["bf16 roll"],
               "elem_chain_micro": {k: v for k, v in chain_floor.items()
@@ -1915,6 +1970,11 @@ def micro_path(card: str) -> list:
                      "bound_by": b_by, "library_ms": library_ms[name]})
         if name in floors:
             rows[-1]["floor_ns_per_step"] = floors[name]
+        if name == "sweep_micro":
+            rows[-1]["mode_ms"] = {m: sw_ms["r43b", m] for m in sweep_modes}
+            rows[-1]["mode_bound_ms"] = {m: sw_bound["r43b", m]
+                                         for m in sweep_modes}
+            rows[-1]["kitti_E_write_ms"] = e_cmp
         if name == "roll_chain_micro":
             rows[-1]["axis_ms"] = axis_ms
         if name in ("elem_chain_micro", "reg_chain_micro"):

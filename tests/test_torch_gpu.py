@@ -1091,8 +1091,16 @@ def _wm():
 
 
 # (T, N): rows that fill whole warps, an odd N (N/2 odd for the paired
-# modes), and N = 2048
-SWEEP_SHAPES = [(9, 16), (7, 9), (7, 18), (5, 2048)]
+# modes), and N = 2048; lines against the kernel's ring of 8 (v32, swar)
+# or 16 (the i8 modes) steps a warp, of 1 and 2 steps and one less, as
+# many and one more steps than either depth, on 1, 2 and 6 rows (3 lines
+# for the paired modes); one wave of one-warp blocks past every SM (132 x
+# 32 = 4,224 lines); `chip_smoke.py`'s (376, 1280); the E sweep's 1,500
+# lines at 64 steps
+SWEEP_SHAPES = ([(9, 16), (7, 9), (7, 18), (5, 2048)]
+                + [(T, N) for T in (1, 2, 7, 8, 9, 15, 16, 17)
+                   for N in (1, 2, 6)]
+                + [(3, 4224), (376, 1280), (64, 1500)])
 
 
 @pytest.mark.parametrize("T,N,mode", [

@@ -94,6 +94,26 @@ def test_sweep_plain_odd_rows_match_jax(mode, N):
         wm.sweep_micro_plain(torch.from_numpy(C), mode).numpy(), ref)
 
 
+@pytest.mark.parametrize("p1,p2", [(10, 120), (3, 1000)])
+@pytest.mark.parametrize("T,N", [(1, 2), (1, 6), (17, 2), (17, 6)])
+@pytest.mark.parametrize("mode", wm.MODES)
+def test_sweep_plain_short_and_narrow_match_jax(mode, T, N, p1, p2):
+    """The card's kernel keeps a ring of 8 or 16 steps a warp: a line of
+    one step and one that wraps the ring, on 2 and 6 rows (swar: packed
+    rows), held against the JAX function on rows padded to 16 (rows are
+    independent, in every mode's packing)."""
+    dtype = np.int8 if mode in wm.I8_MODES else np.int32
+    top = 1 << 30 if mode == "swar" else 128 if dtype == np.int8 else 1 << 14
+    C = _costs(8, (T, N, 128), top, dtype)
+    if mode == "swar":
+        C &= 0x3FFF3FFF
+    pad = np.zeros((T, 16, 128), dtype)
+    pad[:, :N] = C
+    ref = _jax(jwm.sweep_micro, pad, mode, p1, p2)[:, :N]
+    got = wm.sweep_micro_plain(torch.from_numpy(C), mode, p1, p2)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 @pytest.mark.parametrize("N", [18, 16])
 def test_swar_i8_pairs_halves_like_v32_i8(N):
     """swar_i8 packs rows (n, n + N/2), first half high; unpacked, it is

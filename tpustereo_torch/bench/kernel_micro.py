@@ -51,7 +51,14 @@ the adaptive P2; `bwd_wta` with the
 scalar and the adaptive P2 the same way; `lr_check` (its hits
 kernel) on the d_r and disparity of those 4 KITTI frames, and on 4 rows of
 240,000 columns (D = 128; the shipped builds only: a checkout from before
-the tiled design refuses such rows); `width_micro` (its roll kernel, the
+the tiled design refuses such rows); `width_micro` (its sweep kernel,
+the instrument of `sweep_micro`) in every mode at `chip_smoke.py` step
+17's shapes, (376, 1280) and (1242, 1500), and on one warp's line at T =
+376 (N = 1, two rows for the paired modes and swar's packing: the step
+chain's own floor), in the sweep builds (`SWEEP_BUILDS`: ring depths 4,
+8, 16 and 32 in every mode, 2 and 4 warps a block) and the checkouts,
+`sweep_sm_blocks` the blocks an SM of each case at those shapes (the
+`smid` build); its roll kernel (the
 instrument of `roll_chain_micro` and `bf16_roll_chain_micro`) at
 `chip_smoke.py` step 17's shapes and chains: (1248, 128) and (16896, 128)
 int32 on both axes and bfloat16, chains 64 and 512; chain 0 (the loads
@@ -72,17 +79,16 @@ blocked slots (the strided layout,
 `slots` and `pad` in place of `slots` and `threads`) takes lines of at
 most 2,048 values and its own plan (`_strided_roll_plan`); one from
 before the chain plan its own chain grid (`AGAINST_SIGS`). Its builds
-print each roll and chain kernel's registers and spills (`ptxas`), and
+print each sweep, roll and chain kernel's registers and spills
+(`ptxas`), and
 the record holds each chain kernel's loop in the SASS by opcode
 (`chain_sass`) and its warp-instructions a step in every build
-(`chain_issue`, both from `bench/chain_sass.py`); `staged` and
-`staged4` compile the columns' staging by clusters of 8 and 4 blocks
-(`ROLL_STAGE_COLS`), off in the shipped
-build; `unroll4` and `unroll16` are the chain's candidates and
-`smid` its diagnostic, whose blocks count
-themselves on their SMs (`chain_sm_blocks` in the record: blocks an SM
-in each chain case at chain 512); the roll cases skip them, the chain
-cases skip the roll's.
+(`chain_issue`, both from `bench/chain_sass.py`); `unroll4` and
+`unroll16` are the chain's candidates and `smid` its diagnostic, whose
+blocks count themselves on their SMs (`chain_sm_blocks` in the record:
+blocks an SM in each chain case at chain 512); the roll cases skip the
+sweep and chain builds, and the sweep and chain cases take their own
+builds alone (`--cases sweep`: the sweeps alone).
 Each `--against DIR` (the option may be repeated) makes the same source
 of another checkout (`DIR/tpustereo_torch/csrc/<name>.cu`, the same C
 interface, or the one `AGAINST_SIGS` names) one more build, named after
@@ -161,7 +167,8 @@ SIGS = {"bwd_wta": _BWD_SIGS, "census_cost": _COST_SIGS,
         "median3": _MEDIAN_SIGS, "sgm_sweep": _SWEEP_SIGS,
         "sgm_fused": _FUSED_SIGS,
         "lr_check": {"lr_hits_launch": _LR_SIGS["lr_hits_launch"]},
-        "width_micro": {f: wm._SIGS[f] for f in ("roll_micro_launch",
+        "width_micro": {f: wm._SIGS[f] for f in ("sweep_micro_launch",
+                                                 "roll_micro_launch",
                                                  "chain_micro_launch")}}
 # earlier C interfaces that `--against` builds keep: sgm_bidir_launch
 # before its `packed` argument (one int32 build), sgm_sweep_launch and
@@ -248,15 +255,16 @@ SIZES = {
         "phases": ["-DFUSED_PHASES"],
     },
     # the roll kernel: its registers moved back every pair of steps (no
-    # renames); lines of one warp a block at most 1 and 8 (shipped 4);
-    # columns staged in shared memory by clusters of 8 blocks (each row's
-    # 8 columns one 32-byte sector) or of 4, where the shipped build reads
-    # them strided, each block its own
+    # renames); lines of one warp a block at most 1 and 8 (shipped 4)
     "width_micro": {
         "moves": ["-DROLL_MOVES=1"],
         **{f"lpb{n}": [f"-DROLL_LPB={n}"] for n in (1, 8)},
-        "staged": ["-DROLL_STAGE_COLS=1"],
-        "staged4": ["-DROLL_STAGE_COLS=1", "-DROLL_CLUSTER=4"],
+        # the sweep kernel: steps in flight a warp, every mode alike
+        # (shipped 16 for the i8 modes, 8 for v32 and swar); warps a block
+        # (shipped 1)
+        **{f"ring{n}": [f"-DMICRO_RING={n}", f"-DMICRO_RING_WIDE={n}"]
+           for n in (4, 8, 16, 32)},
+        **{f"warps{n}": [f"-DMICRO_WARPS={n}"] for n in (2, 4)},
         # the chain kernel: ELEM passes of 4 and 16 steps (shipped 8, REG
         # twice as many); each block counting itself on its SM
         **{f"unroll{n}": [f"-DCHAIN_UNROLL={n}"] for n in (4, 16)},
@@ -476,9 +484,12 @@ ABLATIONS = {
 }
 
 
-# the width_micro builds of the chain kernel, which the roll cases skip and
-# the chain cases alone take (with the checkouts)
+# the width_micro builds of the chain kernel and of the sweep kernel, which
+# the roll cases skip and the chain or sweep cases alone take (with the
+# checkouts)
 CHAIN_BUILDS = {"unroll4", "unroll16", "smid"}
+SWEEP_BUILDS = {b for b in SIZES["width_micro"]
+                if b.startswith(("ring", "warps"))}
 
 
 def _same_interface(name: str, src: str) -> bool:
@@ -494,10 +505,10 @@ def _same_interface(name: str, src: str) -> bool:
 
 
 def _ptxas_width(log: str) -> dict:
-    """Registers and spill bytes (stores, loads) of each roll and chain
-    kernel in an `nvcc -Xptxas -v` log, keyed E<values a thread>/<exact or
-    not>/<warp or block> for the rolls, `chain <kind> <dtype> W<words>` for
-    the chains."""
+    """Registers and spill bytes (stores, loads) of each sweep, roll and
+    chain kernel in an `nvcc -Xptxas -v` log, keyed `sweep <mode>` for the
+    sweeps, E<values a thread>/<exact or not>/<warp or block> for the
+    rolls, `chain <kind> <dtype> W<words>` for the chains."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -508,7 +519,10 @@ def _ptxas_width(log: str) -> dict:
         k = re.search(r"roll_kernelILi(\d+)ELb([01])E(?:Lb([01])E)?",
                       fn or "")
         c = CHAIN_FN.search(fn or "")
-        if c is not None:
+        sw = re.search(r"sweep_micro_kernelILi(\d)E", fn or "")
+        if sw is not None:
+            key = f"sweep {wm.MODES[int(sw.group(1))]}"
+        elif c is not None:
             key = chain_key(c)
         elif k is None:
             continue
@@ -529,16 +543,16 @@ def _ptxas_width(log: str) -> dict:
     return out
 
 
-def _chain_balance(lib, cases) -> dict:
-    """Blocks each SM took in one launch of each chain case at chain 512
-    (the `smid` build's counts): SMs used, the most and the fewest blocks
-    an SM, and how many SMs took each count."""
+def _sm_balance(lib, cases, pick) -> dict:
+    """Blocks each SM took in one launch of each case whose label `pick`
+    takes (the `smid` build's counts): SMs used, the most and the fewest
+    blocks an SM, and how many SMs took each count."""
     take = lib.chain_sm_blocks_take
     take.argtypes, take.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
     buf = (ctypes.c_uint * 1024)()
     out = {}
     for label, _, _, _, launch, *_ in cases:
-        if "_c512" not in label or not ("elem" in label or "reg" in label):
+        if not pick(label):
             continue
         torch.cuda.synchronize()
         take(buf, 1024)
@@ -1065,7 +1079,7 @@ def _roll_cases(dev) -> list:
                 _build.stream_ptr(x))
         strided_ok = plan is None and length <= 2048
         extra = {"takes": lambda b, lib, ok=strided_ok: (
-            b not in CHAIN_BUILDS
+            b not in CHAIN_BUILDS and b not in SWEEP_BUILDS
             and (ok or not getattr(lib, "tps_strided", False)))}
         cases.append((label, [*x.shape, chain, axis, *(plan or ())],
                       (ref,), outs, launch, extra))
@@ -1188,6 +1202,41 @@ def _chain_clocks(cases, result: dict, sms: int) -> dict:
     return out
 
 
+# `chip_smoke.py` step 17's sweep shapes, (T, N): the JAX script's and
+# the E sweep's at KITTI F = 4 (1,500 lines of 1,242 steps); "line" is one
+# warp's line (two rows for the paired modes), the step chain's own floor
+SWEEP_MICRO_SHAPES = {"r43b": (376, 1280), "kitti_E": (1242, 1500),
+                      "line": (376, None)}
+
+
+def _sweep_micro_cases(dev) -> list:
+    """The sweep kernel in every mode at `SWEEP_MICRO_SHAPES` (p1 = 10,
+    p2 = 120, costs in [0, 25), as step 17 makes them), each build held
+    to the plain version; taken by the sweep builds and the checkouts."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = []
+    for key, (T, N) in SWEEP_MICRO_SHAPES.items():
+        for mode in wm.MODES:
+            rows = N or (1 if mode in ("v32", "v32_i8") else 2)
+            C8 = torch.randint(0, 25, (T, rows, wm.D_MICRO), generator=gen,
+                               device=dev, dtype=torch.int8)
+            C = (C8 if mode in wm.I8_MODES else C8.int() if mode == "v32"
+                 else wm.pack_rows(C8.int()))
+            ref = wm.sweep_micro_plain(C, mode, 10, 120)
+            outs = (torch.empty_like(ref),)
+
+            def launch(lib, C=C, outs=outs, mode=mode):
+                return lib.sweep_micro_launch(
+                    _build.ptr(C), _build.ptr(outs[0]), C.shape[0],
+                    C.shape[1], wm.MODES.index(mode), 10, 120,
+                    _build.stream_ptr(C))
+            extra = {"takes": lambda b, lib: (b in SWEEP_BUILDS
+                                              or lib.tps_checkout)}
+            cases.append((f"sweep_{key}_{mode}", list(C.shape), (ref,),
+                          outs, launch, extra))
+    return cases
+
+
 def _cases(name: str, dev) -> list:
     """[(label, shape, reference outputs, output buffers, launch(lib),
     optional {"copy": fn, "reset": fn, "skip_against": bool, "takes":
@@ -1203,7 +1252,7 @@ def _cases(name: str, dev) -> list:
     if name == "lr_check":
         return _hits_cases(dev)
     if name == "width_micro":
-        return _roll_cases(dev) + _chain_cases(dev)
+        return _sweep_micro_cases(dev) + _roll_cases(dev) + _chain_cases(dev)
     cases = []
 
     def stream():
@@ -1511,9 +1560,17 @@ def main(name: str, against: tuple = (), only=None, cases=None) -> None:
         print(f"chain_clocks: {json.dumps(record['chain_clocks'])}",
               flush=True)
         if "smid" in libs:
-            record["chain_sm_blocks"] = _chain_balance(libs["smid"], cases)
+            # each chain case at chain 512; each sweep case at its shapes
+            record["chain_sm_blocks"] = _sm_balance(
+                libs["smid"], cases, lambda label: "_c512" in label and (
+                    "elem" in label or "reg" in label))
+            record["sweep_sm_blocks"] = _sm_balance(
+                libs["smid"], cases, lambda label: label.startswith(
+                    "sweep_") and "_line_" not in label)
             print(f"chain_sm_blocks: "
-                  f"{json.dumps(record['chain_sm_blocks'])}", flush=True)
+                  f"{json.dumps(record['chain_sm_blocks'])}\n"
+                  f"sweep_sm_blocks: "
+                  f"{json.dumps(record['sweep_sm_blocks'])}", flush=True)
     if name == "sgm_fused":
         record["anatomy"] = _fused_anatomy(shipped)
         print(f"anatomy: {json.dumps(record['anatomy'])}", flush=True)

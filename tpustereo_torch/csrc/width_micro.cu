@@ -8,18 +8,30 @@
 //
 // sweep_micro_kernel: the axial recurrence of one line per warp (two lines
 // packed per word for the 16-bit modes) over T steps from a zero carry,
-// writing every step's L; each lane owns K = 4 of the D = 128 disparities,
-// and the next step's costs are loaded before the current step, as in
-// sgm_sweep.cu. Modes: v32 and v32_i8 run common.cuh's sgm_step<4>, the step
-// the port ships (its L = c + cand - minLp is the micro's L = c + cand with
-// the carry renormalised); swar and swar_i8 run sgm_step_s16x2<4> on lines
-// packed as signed 16-bit halves (swar: the caller's packing, even row high;
-// swar_i8: rows n and n + N/2 packed here, the first half high), with DPX
-// min-plus instructions and the min over D by warp_min_s16x2; bf16_i8 runs
-// the JAX bf16 step on __nv_bfloat162 (rows n and n + N/2, round to nearest
-// after every operation, the 16384 sentinel). Bound on this card: the serial
-// chain of T dependent steps (shuffles and a warp min each), not the bytes
-// (3 a cost for the i8 modes, 8 for v32 and swar) or the operations.
+// writing every step's L; each lane owns K = 4 of the D = 128 disparities.
+// Modes: v32 and v32_i8 run common.cuh's sgm_step<4>, the step the port
+// ships (its L = c + cand - minLp is the micro's L = c + cand with the
+// carry renormalised); swar and swar_i8 run sgm_step_s16x2<4> on lines
+// packed as signed 16-bit halves (swar: the caller's packing, even row
+// high; swar_i8: rows n and n + N/2 packed here, the first half high),
+// with DPX min-plus instructions and the min over D by warp_min_s16x2;
+// bf16_i8 runs the JAX bf16 step on __nv_bfloat162 (rows n and n + N/2,
+// round to nearest after every operation, the 16384 sentinel).
+// Bound on this card: the bytes (3 a cost for the i8 modes, 8 for v32, 4
+// for swar), or where a line is long and the card holds few of them, the
+// chain of T dependent steps (two shuffles and a warp min each; seven
+// shuffle rounds for the packed modes). A load waits a DRAM round trip,
+// several times one step's chain, so the loads run MICRO_RING steps ahead
+// (MICRO_RING_WIDE for v32 and swar, 4x the bytes a step): each lane
+// copies its own 16 bytes (v32, swar) or 4 bytes (the i8 modes; two such
+// copies for the paired rows) of a step into its slot of a per-warp
+// shared-memory ring by cp.async, one group a step, and reads back only
+// what it copied, so the ring needs no barrier (`sgm_sweep.cu`'s ring).
+// The next step's slot is read before the current step runs, off its
+// chain. One warp a block (MICRO_WARPS), so that the SMs take the lines
+// within one of each other. One bulk copy (TMA) a step by lane 0, with an
+// mbarrier a slot, measured slower than the ring: its waits sit on the
+// step's chain.
 //
 // chain_kernel: dependent add/min chains held in registers, W = 1, 2 or 4
 // 32-bit words a thread run side by side (one int32 or float32 value a
@@ -46,14 +58,13 @@
 // takes one warp up to 64 x 32 values (one warp a block until every SM
 // has one), past that a block of up to 12 warps. Rows load and store 16
 // bytes a thread at a time where they can; columns (axis 0) value by
-// value, each value a sector of its own (staging them by clusters of
-// blocks, ROLL_STAGE_COLS, measured slower). PAIR16 packs two bf16 rows
+// value, each value a sector of its own (staging them in shared memory
+// by clusters of blocks measured slower). PAIR16 packs two bf16 rows
 // into one 32-bit word, so each shuffle moves two values. Bound on this
 // card by the rate of the shuffles: 1.5 a warp a step, against 4 (every
 // slot) in the strided layout it replaces; at one line a warp, by their
 // issue (E >= 16) or their latency (a value crosses lanes every E / 1.5
 // steps).
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <string.h>
 
@@ -92,39 +103,102 @@ __device__ __forceinline__ unsigned pack16(int lo, int hi) {
   return (unsigned)(lo & 0xffff) | (unsigned)hi << 16;
 }
 
-// One step's raw cost words of this lane: four int32 (v32, swar), the four
-// int8 costs of row A (v32_i8), or of rows A and B (the paired modes).
-template <int MODE>
-__device__ __forceinline__ void load_raw(const void* C, size_t a, size_t b,
-                                         unsigned (&raw)[4]) {
-  if constexpr (MODE == V32 || MODE == SWAR) {
-    const uint4 v = *reinterpret_cast<const uint4*>(
-        static_cast<const int32_t*>(C) + a);
-    raw[0] = v.x, raw[1] = v.y, raw[2] = v.z, raw[3] = v.w;
-  } else {
-    const int8_t* c8 = static_cast<const int8_t*>(C);
-    raw[0] = *reinterpret_cast<const unsigned*>(c8 + a);
-    if constexpr (MODE != V32_I8)
-      raw[1] = *reinterpret_cast<const unsigned*>(c8 + b);
+#ifndef MICRO_RING
+#define MICRO_RING 16  // steps in flight a warp, the i8 modes (a power of two)
+#endif
+#ifndef MICRO_RING_WIDE
+#define MICRO_RING_WIDE 8  // the same for v32 and swar (4x the bytes a step)
+#endif
+#ifndef MICRO_WARPS
+#define MICRO_WARPS 1  // warps (lines) a block of the sweep
+#endif
+#ifndef CHAIN_SMID
+#define CHAIN_SMID 0  // 1: each block of the sweep and chain kernels counts
+                      // itself on its SM (`chain_sm_blocks`), a diagnostic
+#endif
+
+// blocks a launch put on each SM (CHAIN_SMID builds only)
+__device__ unsigned chain_sm_blocks[1024];
+
+__device__ __forceinline__ void count_block_on_sm() {
+#if CHAIN_SMID
+  if (threadIdx.x == 0) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    atomicAdd(&chain_sm_blocks[sm & 1023], 1u);
   }
+#endif
 }
+
+// A mode's ring: R steps a warp; a slot holds one step of the warp's rows,
+// LANE bytes a lane a row (lane l's at l * LANE), row B after row A.
+template <int MODE>
+struct SweepRing {
+  static constexpr bool WIDE = MODE == V32 || MODE == SWAR;
+  static constexpr bool PAIRED = MODE == SWAR_I8 || MODE == BF16_I8;
+  static constexpr int R = WIDE ? MICRO_RING_WIDE : MICRO_RING;
+  static constexpr int ES = WIDE ? 4 : 1;  // bytes a value of C
+  static constexpr int LANE = KD * ES;
+  static constexpr int ROW = 32 * LANE;
+  static constexpr int SLOT = PAIRED ? 2 * ROW : ROW;
+  static_assert(R >= 2 && (R & (R - 1)) == 0,
+                "the ring's depth must be a power of two of at least 2");
+  static_assert(MICRO_WARPS * R * SLOT <= 48 * 1024,
+                "the ring must fit a block's static shared memory");
+};
 
 __device__ __forceinline__ int byte_of(unsigned w, int k) {
   return (int)(int8_t)(w >> (8 * k));
 }
 
 template <int MODE>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(32 * MICRO_WARPS)
     sweep_micro_kernel(const void* __restrict__ C, void* __restrict__ out,
                        int T, int N, int p1, int p2) {
-  constexpr bool PAIRED = MODE == SWAR_I8 || MODE == BF16_I8;
-  const int line = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
+  using G = SweepRing<MODE>;
+  constexpr int R = G::R;
+  __shared__ __align__(16) uint8_t ring[MICRO_WARPS][R][G::SLOT];
+  count_block_on_sm();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int line = blockIdx.x * MICRO_WARPS + warp;
   const int H = N / 2;
-  if (line >= (PAIRED ? H : N)) return;  // the whole warp leaves together
-  const size_t rowB = PAIRED ? line + H : line;
+  if (line >= (G::PAIRED ? H : N)) return;  // the whole warp leaves together
+  const size_t rowB = G::PAIRED ? line + H : line;
   const size_t sa = (size_t)line * DM + lane * KD, sb = rowB * DM + lane * KD;
   const size_t tstep = (size_t)N * DM;
+  const char* c8 = static_cast<const char*>(C);
+  uint8_t* const mine = &ring[warp][0][0] + lane * G::LANE;
+
+  // step t of this lane's rows into slot t % R, one group a step
+  auto fill = [&](int t) {
+    uint8_t* s = mine + (t & (R - 1)) * G::SLOT;
+    const size_t o = (size_t)t * tstep;
+    cp_async<G::LANE>(s, c8 + (o + sa) * G::ES);
+    if constexpr (G::PAIRED)
+      cp_async<G::LANE>(s + G::ROW, c8 + (o + sb) * G::ES);
+  };
+  // this lane's raw cost words of step t: four int32 (v32, swar), the four
+  // int8 costs of row A (v32_i8), or of rows A and B (the paired modes)
+  auto read = [&](int t, unsigned (&raw)[4]) {
+    const uint8_t* s = mine + (t & (R - 1)) * G::SLOT;
+    if constexpr (G::WIDE) {
+      const uint4 v = *reinterpret_cast<const uint4*>(s);
+      raw[0] = v.x, raw[1] = v.y, raw[2] = v.z, raw[3] = v.w;
+    } else {
+      raw[0] = *reinterpret_cast<const unsigned*>(s);
+      if constexpr (G::PAIRED)
+        raw[1] = *reinterpret_cast<const unsigned*>(s + G::ROW);
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (i < T) fill(i);
+    cp_async_commit();
+  }
+  cp_async_wait<R - 1>();  // step 0 has landed
+  unsigned raw[4] = {}, nxt[4] = {};
+  read(0, raw);
 
   int Lp[KD] = {}, minLp = 0;  // v32, v32_i8: the port's sgm_step carry
   unsigned q[KD] = {};         // the packed modes' renormalised carry
@@ -132,11 +206,17 @@ __global__ void __launch_bounds__(128)
   const __nv_bfloat162 p1b = bf2((float)p1), p2b = bf2((float)p2);
   const __nv_bfloat162 big = bf2(BF_BIG);
 
-  unsigned raw[4], nxt[4];
-  load_raw<MODE>(C, sa, sb, raw);
   for (int t = 0; t < T; ++t) {
     const size_t o = (size_t)t * tstep;
-    if (t + 1 < T) load_raw<MODE>(C, o + tstep + sa, o + tstep + sb, nxt);
+    // the next step's words, read before this step's chain (its group has
+    // landed once at most the R - 2 after it are in flight); then slot t,
+    // read a step ago, refilled R steps ahead
+    if (t + 1 < T) {
+      cp_async_wait<R - 2>();
+      read(t + 1, nxt);
+    }
+    if (t + R < T) fill(t + R);
+    cp_async_commit();
     if constexpr (MODE == V32 || MODE == V32_I8) {
       int c[KD], L[KD];
 #pragma unroll
@@ -222,10 +302,6 @@ __global__ void __launch_bounds__(128)
                         // (an int32 ELEM pass of 16 made each constant by
                         // a UIADD3 of its own)
 #endif
-#ifndef CHAIN_SMID
-#define CHAIN_SMID 0  // 1: each block counts itself on its SM
-                      // (`chain_sm_blocks`), a diagnostic build
-#endif
 
 constexpr int CHAIN_MAX_THREADS = 1024;
 constexpr unsigned ONE16 = 0x00010001u;   // the int16 pair (1, 1)
@@ -247,9 +323,6 @@ __device__ __forceinline__ void pin(unsigned& v) { asm volatile("" : "+r"(v)); }
 __device__ __forceinline__ unsigned addbf(unsigned a, unsigned b) {
   return as_u32(__hadd2(as_bf2(a), as_bf2(b)));
 }
-
-// blocks a launch put on each SM (CHAIN_SMID builds only)
-__device__ unsigned chain_sm_blocks[1024];
 
 __device__ __forceinline__ unsigned bf2_word(__nv_bfloat16 b) {
   return as_u32(__bfloat162bfloat162(b));
@@ -429,13 +502,7 @@ __global__ void __launch_bounds__(CHAIN_MAX_THREADS)
   using Vec = typename Words<W>::V;
   __shared__ __align__(16) unsigned table[TABLE ? CHAIN_TABLE : 4];
   const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-#if CHAIN_SMID
-  if (threadIdx.x == 0) {
-    unsigned sm;
-    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
-    atomicAdd(&chain_sm_blocks[sm & 1023], 1u);
-  }
-#endif
+  count_block_on_sm();
   const long e0 = t * W * PER;
   const bool active = e0 < n;
   if (!TABLE && !active) return;
@@ -500,21 +567,14 @@ __global__ void __launch_bounds__(CHAIN_MAX_THREADS)
 #ifndef ROLL_MOVES
 #define ROLL_MOVES 0  // 1: registers moved back every pair of steps, no renames
 #endif
-#ifndef ROLL_STAGE_COLS
-#define ROLL_STAGE_COLS 0  // 1: columns staged by clusters (ROLL_COLUMNS), a
-                           // candidate of bench/kernel_micro.py
-#endif
-#ifndef ROLL_CLUSTER
-#define ROLL_CLUSTER 8  // columns a cluster stages: a row's 32-byte sector
-#endif
 
 // warps of a block that holds one line: 12 leave E = 64 its registers
 constexpr int ROLL_MAXW = 12;
 
 // how a line comes in and goes out: value by value (j * estride), 16 bytes
-// at a time (exact lines of E % 4 == 0 on aligned rows), two bf16 rows a
-// word, or staged in shared memory by a cluster of consecutive columns
-enum { ROLL_PLAIN = 0, ROLL_VEC = 1, ROLL_PAIRS = 2, ROLL_COLUMNS = 3 };
+// at a time (exact lines of E % 4 == 0 on aligned rows), or two bf16 rows
+// a word
+enum { ROLL_PLAIN = 0, ROLL_VEC = 1, ROLL_PAIRS = 2 };
 
 // Steps of one period of the slot rotation: a pair of steps shifts the
 // slots by 3, so E / gcd(E, 3) pairs bring them back.
@@ -595,83 +655,18 @@ __device__ __forceinline__ void roll_period_to(
   ((J < rem ? roll_step<E, EX, MW, J>(v, c, edge) : void()), ...);
 }
 
-#if ROLL_STAGE_COLS
-template <bool B>
-struct RollIn {
-  static constexpr bool value = B;
-};
-
-// A cluster's ROLL_CLUSTER consecutive columns (the first at col0) between
-// device memory and its blocks' shared memory, four rows at a time: each
-// thread reads (writes) four whole rows of the columns, 16 bytes at a
-// time, and moves each column's four values to (from) that column's block
-// as one 16-byte piece. IN: device memory to shared memory.
-template <bool IN>
-__device__ __forceinline__ void roll_columns(int* const* peer, int* g,
-                                             long len, long estride, long r0,
-                                             long rn) {
-  constexpr int Q = ROLL_CLUSTER / 4;  // 16-byte pieces of a row
-  for (long r = 4 * r0; r < len; r += 4 * rn) {
-    int4 row[4][Q];
-    if constexpr (IN) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int h = 0; h < Q; ++h)
-          row[u][h] = r + u < len
-                          ? reinterpret_cast<const int4*>(g + (r + u) * estride)[h]
-                          : make_int4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int h = 0; h < Q; ++h) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        int4* piece = reinterpret_cast<int4*>(peer[4 * h + q] + r);
-        if constexpr (IN) {
-          auto at = [&](int u) {
-            const int4 w = row[u][h];
-            return q == 0 ? w.x : q == 1 ? w.y : q == 2 ? w.z : w.w;
-          };
-          *piece = make_int4(at(0), at(1), at(2), at(3));
-        } else {
-          const int4 w = *piece;
-          const int col[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            int* e = q == 0 ? &row[u][h].x : q == 1 ? &row[u][h].y
-                     : q == 2 ? &row[u][h].z : &row[u][h].w;
-            *e = col[u];
-          }
-        }
-      }
-    }
-    if constexpr (!IN) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (r + u < len)
-#pragma unroll
-          for (int h = 0; h < Q; ++h)
-            reinterpret_cast<int4*>(g + (r + u) * estride)[h] = row[u][h];
-    }
-  }
-}
-#endif
-
 // T threads a line, the first `nlong` of them E values, the others E - 1
 // (EX: all E). Not MW: one warp a line, blockDim / 32 lines a block; MW:
 // one line a block of ceil(T / 32) warps. Value j of line l at l * lstride
 // + j * estride (in values); ROLL_PAIRS: the bf16 rows 2l and 2l + 1 in
 // one word, low and high half, at l * lstride + j and l * lstride +
-// lstride / 2 + j; ROLL_COLUMNS: one line a block, launched in clusters
-// of ROLL_CLUSTER consecutive columns (lstride 1), staged in shared
-// memory (`stage`, the column's values rounded up to 4). A line of one
-// value rolls as a ring of two copies of it.
+// lstride / 2 + j. A line of one value rolls as a ring of two copies of
+// it.
 template <int E, bool EX, bool MW>
 __global__ void __launch_bounds__(MW ? 32 * ROLL_MAXW : 32 * ROLL_LPB)
     roll_kernel(const void* __restrict__ x, void* __restrict__ out, int lines,
                 int len, long lstride, long estride, int mode, int T,
                 int nlong, int chain) {
-  extern __shared__ int4 stage4[];
   __shared__ int edge[2][ROLL_MAXW][2];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int line = MW ? blockIdx.x : blockIdx.x * (blockDim.x >> 5) + warp;
@@ -695,29 +690,6 @@ __global__ void __launch_bounds__(MW ? 32 * ROLL_MAXW : 32 * ROLL_LPB)
   const size_t base = (size_t)line * lstride, half = lstride / 2;
   const int* x32 = static_cast<const int*>(x);
   const uint16_t* x16 = static_cast<const uint16_t*>(x);
-  int* stage = reinterpret_cast<int*>(stage4);
-
-#if ROLL_STAGE_COLS
-  // columns: the cluster's threads take rows of its columns into the
-  // blocks' shared memory (the same again on the way out)
-  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
-  auto columns = [&](auto in) {
-    constexpr bool IN = decltype(in)::value;
-    const int rank = (int)cl.block_rank();
-    int* peer[ROLL_CLUSTER];
-#pragma unroll
-    for (int q = 0; q < ROLL_CLUSTER; ++q) peer[q] = cl.map_shared_rank(stage, q);
-    int* g = static_cast<int*>(IN ? const_cast<void*>(x) : out) +
-             (blockIdx.x - rank);
-    roll_columns<IN>(peer, g, len, estride,
-                     (long)rank * blockDim.x + threadIdx.x,
-                     (long)ROLL_CLUSTER * blockDim.x);
-  };
-  if (mode == ROLL_COLUMNS) {
-    columns(RollIn<true>{});
-    cl.sync();
-  }
-#endif
 
   // the registers hold logical slot k at k (rotation 0): chain = nfull
   // periods and the first rem steps of one more, after which logical slot
@@ -737,9 +709,7 @@ __global__ void __launch_bounds__(MW ? 32 * ROLL_MAXW : 32 * ROLL_LPB)
       const long j = first + p < len ? first + p : len - 1;
       v[p] = 0;
       if (!active || p >= n) continue;
-      if (ROLL_STAGE_COLS && mode == ROLL_COLUMNS)
-        v[p] = stage[j];
-      else if (mode == ROLL_PAIRS)
+      if (mode == ROLL_PAIRS)
         v[p] = (int)pack16(x16[base + j], x16[base + half + j]);
       else
         v[p] = x32[base + (size_t)j * estride];
@@ -769,9 +739,7 @@ __global__ void __launch_bounds__(MW ? 32 * ROLL_MAXW : 32 * ROLL_LPB)
     const int k = p >= of ? p - of : p - of + E;
     const long j = first + k;
     if (!active || k >= n || j >= len) continue;
-    if (ROLL_STAGE_COLS && mode == ROLL_COLUMNS) {
-      stage[j] = v[p];
-    } else if (mode == ROLL_PAIRS) {
+    if (mode == ROLL_PAIRS) {
       uint16_t* o16 = static_cast<uint16_t*>(out);
       o16[base + j] = (uint16_t)v[p];
       o16[base + half + j] = (uint16_t)((unsigned)v[p] >> 16);
@@ -779,13 +747,6 @@ __global__ void __launch_bounds__(MW ? 32 * ROLL_MAXW : 32 * ROLL_LPB)
       static_cast<int*>(out)[base + (size_t)j * estride] = v[p];
     }
   }
-#if ROLL_STAGE_COLS
-  if (mode == ROLL_COLUMNS) {
-    cl.sync();
-    columns(RollIn<false>{});
-    cl.sync();  // each block's shared memory stays until all have read it
-  }
-#endif
 }
 
 // One warp a block until every SM has a block, then up to ROLL_LPB lines
@@ -802,37 +763,6 @@ int roll_lines_per_block(int lines) {
   return lpb;
 }
 
-template <int E, bool EX, bool MW>
-cudaError_t roll_launch(int blocks, int threads, size_t smem, bool cluster,
-                        cudaStream_t st, const void* x, void* out, int lines,
-                        int len, long lstride, long estride, int mode, int T,
-                        int nlong, int chain) {
-  static size_t allowed = 48 * 1024;  // each instantiation's opt-in so far
-  if (smem > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        roll_kernel<E, EX, MW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-    allowed = smem;
-  }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ROLL_CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = cluster ? 1 : 0;
-  const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, roll_kernel<E, EX, MW>, x, out, lines, len,
-                         lstride, estride, mode, T, nlong, chain);
-  return e != cudaSuccess ? e : cudaGetLastError();
-}
-
 template <int E>
 cudaError_t launch_roll(const void* x, void* out, int lines, int len,
                         long lstride, long estride, int pair16, int T,
@@ -844,25 +774,19 @@ cudaError_t launch_roll(const void* x, void* out, int lines, int len,
     return cudaErrorInvalidValue;
   const bool aligned = (reinterpret_cast<uintptr_t>(x) |
                         reinterpret_cast<uintptr_t>(out)) % 16 == 0;
-  // columns whose rows hold the cluster's columns as whole 16-byte pieces
-  const bool columns = ROLL_STAGE_COLS && !pair16 && lstride == 1 &&
-                       estride > 1 && lines % ROLL_CLUSTER == 0 &&
-                       estride % 4 == 0 && aligned;
   const bool vec = !pair16 && estride == 1 && ex && E % 4 == 0 &&
                    (lines == 1 || lstride % 4 == 0) && aligned;
-  const int mode = pair16    ? ROLL_PAIRS
-                   : columns ? ROLL_COLUMNS
-                   : vec     ? ROLL_VEC
-                             : ROLL_PLAIN;
+  const int mode = pair16 ? ROLL_PAIRS : vec ? ROLL_VEC : ROLL_PLAIN;
   const bool mw = T > 32;
-  const int lpb = mw || columns ? 1 : roll_lines_per_block(lines);
+  const int lpb = mw ? 1 : roll_lines_per_block(lines);
   const int blocks = (lines + lpb - 1) / lpb;
   const int threads = mw ? 32 * ((T + 31) / 32) : 32 * lpb;
-  const size_t smem = columns ? (size_t)(len + 3) / 4 * 16 : 0;
-#define ROLL_GO(EXB, MWB)                                                    \
-  return roll_launch<E, EXB, MWB>(blocks, threads, smem, columns, st, x, out, \
-                                  lines, len, lstride, estride, mode, T,      \
-                                  nlong, chain)
+#define ROLL_GO(EXB, MWB)                                               \
+  {                                                                      \
+    roll_kernel<E, EXB, MWB><<<blocks, threads, 0, st>>>(                \
+        x, out, lines, len, lstride, estride, mode, T, nlong, chain);    \
+    return cudaGetLastError();                                           \
+  }
   if (mw) {
     if (ex) ROLL_GO(true, true);
     ROLL_GO(false, true);
@@ -875,9 +799,11 @@ cudaError_t launch_roll(const void* x, void* out, int lines, int len,
 template <int MODE>
 cudaError_t launch_sweep(const void* C, void* out, int T, int N, int p1,
                          int p2, cudaStream_t st) {
-  const int lines = MODE == SWAR_I8 || MODE == BF16_I8 ? N / 2 : N;
+  const int lines = SweepRing<MODE>::PAIRED ? N / 2 : N;
+  if (T < 1 || lines < 1) return cudaErrorInvalidValue;
   sweep_micro_kernel<MODE>
-      <<<(lines + 3) / 4, 128, 0, st>>>(C, out, T, N, p1, p2);
+      <<<(lines + MICRO_WARPS - 1) / MICRO_WARPS, 32 * MICRO_WARPS, 0, st>>>(
+          C, out, T, N, p1, p2);
   return cudaGetLastError();
 }
 
