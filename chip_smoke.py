@@ -311,6 +311,33 @@ built before any rank starts):
    tiled=True)` at 376 x 1241 (2 ranks a host, so 2 then 4 ranks on the
    card), its record's arithmetic checked. Prints `step 22: ... s`.
 
+The evaluation surface, against the golden SGBM (`golden.sgbm_numpy`, on
+the host) and the JAX package's stored records, read and never written:
+
+23. (a) `eval.matrix.run_matrix` on the card: the 13 rows of
+   `scripts/gen_eval_md.py`, 3 pairs each. On every pair the card's
+   invalid pattern equals the golden's and max |card - golden| <= 1e-6
+   (printed whether exactly 0.0); each row's mean equals
+   `scripts/eval_head.json`'s (D1-all, bad-2.0 and bad-1.0 at its 5
+   decimals, EPE within 1e-4; where one differs, the pixels where card and
+   golden fall on either side of a threshold are printed). Prints each
+   row's kernel launches and the table; requires the ten kernels the rows
+   reach to have launched. (b) The 10 points of
+   `tests/test_pinned_metrics.py`'s `SUITE`, read from its source, through
+   `api.match_pair`: within its `RATE_TOL` / `EPE_TOL` of
+   `tests/data/pinned_metrics.json`, the CPU's invalid pattern and
+   disparity within 1e-6. (c) The `EVAL.md` KITTI 2015 recipe, `cli eval
+   --preset kitti_sgm8 --kitti2015 ROOT --indices 0-1 --golden --record`,
+   over a tree of 2 PNG pairs and uint16 x 256 truths at 375 x 1242: each
+   pair within 1e-6 of the golden with its invalid pattern, its metrics
+   the golden's. (d) The Middlebury recipe over one 1988 x 2964 scene
+   (`im0.png`, `im1.png`, `disp0GT.pfm`): the disparity equal to
+   `api.match_pair` on the decoded arrays bit for bit, then `--half-res
+   --golden` held as in (c). (e) `python -m tpustereo_torch.cli odometry`
+   over a 60-frame KITTI tree at 376 x 1241, SIGKILLed as soon as its
+   first checkpoint exists, resumed: the trajectory within 1e-5 of the
+   uninterrupted run. Prints each part's seconds and `step 23: ... s`.
+
 The timers (`cuda_ms`, `graph_ms`), the profiler's busy share
 (`device_busy`) and each kernel's bound (`bound`: bytes over 3.35 TB/s or
 integer operations over 67e12/s, the larger) are the harness's and the
@@ -338,6 +365,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -453,6 +481,21 @@ ODO_FRAMES = 32
 # operations and a stable sort on both), descriptors (a mean and a norm
 # reduced in another order), T and 3D points (m and rad)
 ODO_TOL = dict(pts=1e-6, desc=1e-5, X=1e-4, T=1e-4)
+# step 23: the JAX package's stored evaluation records (read, never
+# written), and the test file whose suite of pinned points is read
+EVAL_RECORD = "scripts/eval_head.json"
+PINNED_TESTS = "tests/test_pinned_metrics.py"
+PINNED_RECORD = "tests/data/pinned_metrics.json"
+# the kernels that the evaluation matrix's rows reach, each required to
+# have launched
+EVAL_KERNELS = ("census_cost_volume", "sgm_sweep", "sgm_sweep_fused",
+                "sweep_bwd_wta", "dr_consistency", "dr_consistency_hits",
+                "connected_component_labels", "median3", "wta_lr", "sad_wta")
+# a row's mean EPE against the record's (its rates equal at 5 decimals)
+EPE_MEAN_TOL = 1e-4
+# the killed odometry's frames, the JAX test's 60: a shorter sequence
+# could end before the kill lands
+KILL_FRAMES = 60
 
 
 def card_line() -> str:
@@ -2937,6 +2980,26 @@ def tiled_path(card: str, per_set: dict, shared: dict) -> dict:
     return out
 
 
+def odometry_tree(root: str, calib, n: int, write) -> list:
+    """The `odometry` arguments over a KITTI odometry tree of n frames under
+    root (`sequences/00/image_{0,1}`, `calib.txt` of `calib`'s camera),
+    frame i written by write(i, left path, right path)."""
+    import os
+    fx, fy, cx, cy, b = (calib.fx, calib.fy, calib.cx, calib.cy,
+                         calib.baseline)
+    seq = os.path.join(root, "sequences", "00")
+    for sub in ("image_0", "image_1"):
+        os.makedirs(os.path.join(seq, sub))
+    for i in range(n):
+        write(i, *(os.path.join(seq, sub, f"{i:06d}.png")
+                   for sub in ("image_0", "image_1")))
+    with open(os.path.join(seq, "calib.txt"), "w") as f:
+        f.write(f"P0: {fx!r} 0 {cx!r} 0 0 {fy!r} {cy!r} 0 0 0 1 0\n"
+                f"P1: {fx!r} 0 {cx!r} {-fx * b!r} 0 {fy!r} {cy!r} 0 0 "
+                f"0 1 0\n")
+    return ["odometry", "--preset", "kitti_odometry", "--root", root]
+
+
 def entry_points_path(card: str, shared: dict) -> None:
     """Step 21: the user's entry points at full width (see the module's
     docstring). `shared` holds step 19's sequence and calibration, and in
@@ -3118,24 +3181,11 @@ def entry_points_path(card: str, shared: dict) -> None:
     fixture = [os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "tests", "data", f"adaptive_image_{s}.png")
                for s in (0, 1)]
-    fx, fy, cx, cy, b = (calib.fx, calib.fy, calib.cx, calib.cy,
-                         calib.baseline)
 
     def kitti_tree(name: str, write, n: int = 10) -> list:
         """The `odometry` arguments over a KITTI tree of n frames with
         step 19's camera, frame i written by write(i, left, right path)."""
-        seq = os.path.join(work, name, "sequences", "00")
-        for sub in ("image_0", "image_1"):
-            os.makedirs(os.path.join(seq, sub))
-        for i in range(n):
-            write(i, *(os.path.join(seq, sub, f"{i:06d}.png")
-                       for sub in ("image_0", "image_1")))
-        with open(os.path.join(seq, "calib.txt"), "w") as f:
-            f.write(f"P0: {fx!r} 0 {cx!r} 0 0 {fy!r} {cy!r} 0 0 0 1 0\n"
-                    f"P1: {fx!r} 0 {cx!r} {-fx * b!r} 0 {fy!r} {cy!r} 0 0 "
-                    f"0 1 0\n")
-        return ["odometry", "--preset", "kitti_odometry", "--root",
-                os.path.join(work, name)]
+        return odometry_tree(os.path.join(work, name), calib, n, write)
 
     def timed(fn, n: int = 10):
         """fn()'s value and its ms a frame over n frames, by the host
@@ -3591,6 +3641,348 @@ def multirank_path(card: str, kitti: dict, shared: dict) -> dict:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     print(f"step 22: {time.perf_counter() - t_step:.1f} s", flush=True)
     return rows
+
+
+@contextlib.contextmanager
+def captured_maps():
+    """The disparity maps that `eval.runner._eval_one` makes inside the
+    block, in call order: {"tpu": `api.match_pair`'s, "golden":
+    `golden.sgbm_numpy`'s}. The runner looks both names up at each call."""
+    from tpustereo_torch import api, golden
+    maps = {"tpu": [], "golden": []}
+    saved = api.match_pair, golden.sgbm_numpy
+
+    def keep(key: str, fn):
+        def run(*args, **kw):
+            maps[key].append(fn(*args, **kw))
+            return maps[key][-1]
+        return run
+    api.match_pair = keep("tpu", saved[0])
+    golden.sgbm_numpy = keep("golden", saved[1])
+    try:
+        yield maps
+    finally:
+        api.match_pair, golden.sgbm_numpy = saved
+
+
+def against_golden(what: str, card: np.ndarray, gold: np.ndarray,
+                   ref: str = "golden") -> float:
+    """max |card - golden| over the pixels both leave valid, as the
+    runner's delta; requires the invalid patterns equal and the delta
+    within DISP_TOL. `ref` names the map held against."""
+    require(card.shape == gold.shape,
+            f"{what}: the card's map {card.shape}, the {ref}'s {gold.shape}")
+    differ = int(((card < 0) != (gold < 0)).sum())
+    require(differ == 0, f"{what}: the card's invalid pattern differs from "
+            f"the {ref}'s at {differ} pixels")
+    both = card >= 0
+    delta = float(np.abs(card - gold)[both].max()) if both.any() else 0.0
+    require(delta <= DISP_TOL,
+            f"{what}: max |card - {ref}| {delta} > {DISP_TOL}")
+    return delta
+
+
+def rate_pixels(card: np.ndarray, gold: np.ndarray, gt: np.ndarray,
+                limit: int = 5) -> list:
+    """Up to `limit` pixels of the truth where the card and the golden fall
+    on different sides of a rate's threshold (bad-1.0, bad-2.0, D1), as
+    (y, x, card, golden, truth)."""
+    def wrong(d):
+        err = np.abs(d - gt)
+        return np.stack([err > 1.0, err > 2.0,
+                         (err > 3.0) & (err > 0.05 * gt)]) | (d < 0)
+    ys, xs = np.nonzero((wrong(card) != wrong(gold)).any(0) & (gt > 0))
+    return [(int(y), int(x), float(card[y, x]), float(gold[y, x]),
+             float(gt[y, x])) for y, x in zip(ys[:limit], xs[:limit])]
+
+
+def pinned_suite(root: str) -> tuple:
+    """(SUITE, RATE_TOL, EPE_TOL) of `tests/test_pinned_metrics.py`, read
+    from its source, so the two suites cannot drift apart: the file imports
+    the JAX package's config, which this script does not import. The
+    values are literals and `dict(...)` calls."""
+    import ast
+    import os
+    names = ("SUITE", "RATE_TOL", "EPE_TOL")
+    with open(os.path.join(root, PINNED_TESTS)) as f:
+        tree = ast.parse(f.read())
+    found = {}
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and getattr(node.targets[0], "id", None) in names):
+            found[node.targets[0].id] = eval(
+                compile(ast.Expression(node.value), PINNED_TESTS, "eval"),
+                {"__builtins__": {}, "dict": dict})
+    require(set(found) == set(names),
+            f"{PINNED_TESTS} holds {sorted(found)}, not {names}")
+    return tuple(found[n] for n in names)
+
+
+def eval_surface_path(card: str, dev: str = "cuda") -> None:
+    """Step 23: the evaluation surface on the card (see the module's
+    docstring), on `dev`."""
+    import os
+    import shutil
+    import signal
+    import sys
+    import tempfile
+    from io import StringIO
+
+    from tpustereo_torch import Config, PRESETS, api, kernels
+    from tpustereo_torch.cli.main import main as cli_main
+    from tpustereo_torch.data import io, synthetic_pair, synthetic_sequence
+    from tpustereo_torch.data.datasets import load_middlebury_pair
+    from tpustereo_torch.eval.matrix import ROWS, row_cases, run_matrix, table
+    from tpustereo_torch.eval.metrics import bad, d1_all, end_point_error
+    from tpustereo_torch.eval.runner import _metrics
+
+    t_step = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    secs = {}
+
+    def quiet(argv: list) -> str:
+        """`cli.main(argv + ["--device", dev])`, its stdout kept out of
+        the log: what it wrote to stderr."""
+        out, err = StringIO(), StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            require(cli_main(argv + ["--device", dev]) == 0,
+                    f"cli {argv[0]} exited non-zero")
+        return err.getvalue()
+
+    def launched() -> dict:
+        return {k: v for k, v in kernels.launch_counts().items() if v}
+
+    # --- (a) the 13 rows against the golden, pair by pair, and against the
+    # stored record
+    t0 = time.perf_counter()
+    with open(os.path.join(here, EVAL_RECORD)) as f:
+        stored = json.load(f)
+    require([n for n, _, _ in ROWS] == list(stored),
+            f"the matrix's rows are not those of {EVAL_RECORD}")
+    records, reached, off = {}, set(), []
+    for name, cfg, shape in ROWS:
+        kernels.reset_launch_counts()
+        with captured_maps() as maps:
+            rec = run_matrix(dev, [name])[name]
+        counts = launched()
+        reached |= set(counts)
+        cases = row_cases(cfg, shape)
+        require(len(maps["tpu"]) == len(maps["golden"]) == len(cases)
+                == rec["pairs"] == 3, f"{name}: not 3 pairs and 3 goldens")
+        deltas = [against_golden(f"{name}, {case[0]}", t, g)
+                  for case, t, g in zip(cases, maps["tpu"], maps["golden"])]
+        require(max(deltas) == rec["golden_max_abs"],
+                f"{name}: the record's golden delta is not the maps'")
+        records[name] = rec
+        got, want = rec["mean"], stored[name]["mean"]
+        rates = [k for k in ("d1_all", "bad_2.0", "bad_1.0")
+                 if got[k] != want[k]]
+        d_epe = abs(got["epe"] - want["epe"])
+        print(f"[{card}] step 23 {name}: mean {got}, record {want}; max "
+              f"|card - golden| {max(deltas)} (exactly 0.0: "
+              f"{max(deltas) == 0.0}), invalid patterns equal on "
+              f"{rec['pairs']} pairs; {rec['wall_s']} s; launched {counts}",
+              flush=True)
+        if rates or d_epe > EPE_MEAN_TOL:
+            golden_mean = {k: round(float(np.mean(
+                [_metrics(g, case[3])[k] for case, g in
+                 zip(cases, maps["golden"])])), 5) for k in got}
+            print(f"  {name}: {rates} differ from the record, EPE by "
+                  f"{d_epe}; the golden's own mean here {golden_mean}",
+                  flush=True)
+            for case, t, g in zip(cases, maps["tpu"], maps["golden"]):
+                print(f"  {case[0]}: pixels (y, x, card, golden, truth) on "
+                      f"either side of a rate's threshold: "
+                      f"{rate_pixels(t, g, case[3])}", flush=True)
+            off.append(name)
+    print(f"[{card}] step 23: the evaluation matrix on the card\n"
+          f"{table(records)}", flush=True)
+    require(not off, f"rows whose mean differs from {EVAL_RECORD}: {off}")
+    missing = [k for k in EVAL_KERNELS if k not in reached]
+    require(not missing, f"the matrix launched none of {missing}")
+    secs["(a) matrix"] = round(time.perf_counter() - t0, 1)
+
+    # --- (b) the pinned points against the stored values, and the card's
+    # invalid pattern against the CPU's
+    t0 = time.perf_counter()
+    suite, rate_tol, epe_tol = pinned_suite(here)
+    with open(os.path.join(here, PINNED_RECORD)) as f:
+        pinned = json.load(f)
+    require(set(pinned) == {n for n, _, _ in suite},
+            f"{PINNED_RECORD} does not cover the suite")
+    for name, pair_kw, cfg_kw in suite:
+        L, R, gt, mask = synthetic_pair(**pair_kw)
+        gtm = np.where(mask, gt, -1.0).astype(np.float32)
+        cfg = Config(**cfg_kw)
+        disp = api.match_pair(L, R, cfg, device=dev)
+        cpu = api.match_pair(L, R, cfg, device="cpu")
+        got = {"bad2": round(float(bad(disp, gtm)), 6),
+               "d1_all": round(float(d1_all(disp, gtm)), 6),
+               "epe": round(float(end_point_error(disp, gtm)), 6),
+               "valid_frac": round(float((disp >= 0).mean()), 6)}
+        want = pinned[name]
+        wide = [k for k in ("bad2", "d1_all", "valid_frac")
+                if abs(got[k] - want[k]) > rate_tol]
+        wide += ["epe"] * (abs(got["epe"] - want["epe"]) > epe_tol)
+        print(f"[{card}] step 23 pinned {name}: {got}, stored {want}",
+              flush=True)
+        require(not wide, f"pinned point {name}: {wide} outside "
+                f"{rate_tol} / {epe_tol} of {PINNED_RECORD}")
+        against_golden(f"pinned point {name}", disp, cpu, ref="CPU")
+    secs["(b) pinned"] = round(time.perf_counter() - t0, 1)
+
+    # --- (c) the KITTI 2015 recipe at full size through the CLI
+    t0 = time.perf_counter()
+    root = os.path.join(work, "kitti2015")
+    for sub in ("image_2", "image_3", "disp_occ_0"):
+        os.makedirs(os.path.join(root, "training", sub))
+    for i in range(2):
+        L, R, gt, valid = synthetic_pair(SHAPE, disparity=40.0 + i,
+                                         slope=0.04, seed=40 + i)
+        name = f"{i:06d}_10.png"
+        io.write_image(os.path.join(root, "training", "image_2", name), L)
+        io.write_image(os.path.join(root, "training", "image_3", name), R)
+        io.write_kitti_disparity(
+            os.path.join(root, "training", "disp_occ_0", name),
+            np.where(valid & (gt > 0), gt, -1.0))
+    rec_path = os.path.join(work, "EVAL_kitti2015.jsonl")
+    kernels.reset_launch_counts()
+    with captured_maps() as maps:
+        quiet(["eval", "--preset", "kitti_sgm8", "--kitti2015", root,
+               "--indices", "0-1", "--golden", "--record", rec_path])
+    counts = launched()
+    with open(rec_path) as f:
+        report = json.loads(f.read().splitlines()[-1])
+    require([p["pair"] for p in report["pairs"]]
+            == ["kitti2015_000000", "kitti2015_000001"],
+            f"the KITTI 2015 record's pairs: {report['pairs']}")
+    require(len(maps["tpu"]) == len(maps["golden"]) == 2,
+            "the KITTI 2015 recipe did not match 2 pairs with the golden")
+    for p, t, g in zip(report["pairs"], maps["tpu"], maps["golden"]):
+        d = against_golden(f"KITTI 2015 recipe, {p['pair']}", t, g)
+        require(p["shape"] == list(SHAPE) and p["tpu_vs_golden_max_abs"]
+                == d, f"{p['pair']}: the record's shape or delta")
+        require(p["tpu"] == p["golden"],
+                f"{p['pair']}: the card's metrics {p['tpu']} are not the "
+                f"golden's {p['golden']}")
+        print(f"[{card}] step 23 KITTI 2015 recipe, kitti_sgm8 as shipped, "
+              f"{p['pair']} {p['shape']}: card {p['tpu']} = golden; max "
+              f"|card - golden| {d}, invalid patterns equal", flush=True)
+    print(f"[{card}] step 23 KITTI 2015 recipe: mean {report['mean']}; "
+          f"launched {counts}", flush=True)
+    secs["(c) KITTI 2015"] = round(time.perf_counter() - t0, 1)
+
+    # --- (d) the Middlebury recipe: full resolution against match_pair,
+    # half resolution against the golden
+    t0 = time.perf_counter()
+    scene = os.path.join(work, "middlebury", "Synthetic")
+    os.makedirs(scene)
+    L, R, gt, valid = synthetic_pair(MIDDLEBURY[0], disparity=MIDDLEBURY[1],
+                                     slope=0.02, seed=0)
+    io.write_image(os.path.join(scene, "im0.png"), L)
+    io.write_image(os.path.join(scene, "im1.png"), R)
+    io.write_pfm(os.path.join(scene, "disp0GT.pfm"),
+                 np.where(valid & (gt > 0), gt, np.inf).astype(np.float32))
+    recipe = ["eval", "--preset", "middlebury_sgm4", "--middlebury", scene]
+    rec_path = os.path.join(work, "EVAL_middlebury.jsonl")
+    with captured_maps() as maps:
+        quiet(recipe + ["--record", rec_path])
+    Ld, Rd, _ = load_middlebury_pair(scene)
+    require(np.array_equal(Ld, L) and np.array_equal(Rd, R),
+            "the Middlebury images decode differently from those written")
+    want = api.match_pair(Ld, Rd, PRESETS["middlebury_sgm4"], device=dev)
+    require(len(maps["tpu"]) == 1 and not maps["golden"]
+            and np.array_equal(maps["tpu"][0].view(np.int32),
+                               want.view(np.int32)),
+            "the Middlebury recipe's disparity differs from api.match_pair")
+    with captured_maps() as maps:
+        quiet(recipe + ["--half-res", "--golden", "--record", rec_path])
+    with open(rec_path) as f:
+        full, half = (json.loads(x)["pairs"][0]
+                      for x in f.read().splitlines())
+    require(full["shape"] == list(MIDDLEBURY[0])
+            and half["shape"] == [MIDDLEBURY[0][0] // 2,
+                                  MIDDLEBURY[0][1] // 2],
+            f"the Middlebury records' shapes {full['shape']} "
+            f"{half['shape']}")
+    require(len(maps["tpu"]) == len(maps["golden"]) == 1,
+            "the half-resolution recipe did not run the golden once")
+    d = against_golden("Middlebury recipe, half resolution", maps["tpu"][0],
+                       maps["golden"][0])
+    require(half["tpu_vs_golden_max_abs"] == d,
+            "the half-resolution record's delta is not the maps'")
+    print(f"[{card}] step 23 Middlebury recipe, middlebury_sgm4 as shipped: "
+          f"{full['shape']} {full['tpu']}, equal to api.match_pair bit for "
+          f"bit; --half-res --golden {half['shape']} card {half['tpu']}, "
+          f"golden {half['golden']}, max |card - golden| {d}, invalid "
+          f"patterns equal", flush=True)
+    secs["(d) Middlebury"] = round(time.perf_counter() - t0, 1)
+
+    # --- (e) a CLI odometry process killed after its first checkpoint,
+    # resumed, against the uninterrupted run
+    t0 = time.perf_counter()
+    calib, frames, _ = synthetic_sequence(
+        n_frames=KILL_FRAMES, shape=ODO_SHAPE, step_x=ODO_STEP, seed=0,
+        **ODO_CAM)
+    args = odometry_tree(
+        os.path.join(work, "odometry"), calib, KILL_FRAMES,
+        lambda i, lp, rp: [io.write_image(p, x)
+                           for p, x in zip((lp, rp), frames[i])])
+    args += ["--max-frames", str(KILL_FRAMES)]
+    straight, resumed, ck = (os.path.join(work, x)
+                             for x in ("s.txt", "r.txt", "ck.npz"))
+    quiet(args + ["--out", straight])
+    killed, rc = False, None
+    with open(os.path.join(work, "killed.err"), "w") as err:
+        p = subprocess.Popen(
+            [sys.executable, "-m", "tpustereo_torch.cli"] + args
+            + ["--checkpoint", ck, "--checkpoint-every", "1", "--device",
+               dev],
+            cwd=here, stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            deadline = time.time() + 300
+            while time.time() < deadline and p.poll() is None:
+                # the checkpoint is written whole, then renamed into place
+                if os.path.exists(ck):
+                    os.kill(p.pid, signal.SIGKILL)
+                    killed = True
+                    break
+                time.sleep(0.005)
+            rc = p.wait(timeout=60)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    with open(os.path.join(work, "killed.err")) as f:
+        tail = f.read()[-2000:]
+    require(killed and rc == -signal.SIGKILL,
+            f"the odometry process was not killed after a checkpoint (rc "
+            f"{rc}): {tail}")
+    with np.load(ck) as z:
+        start = int(z["frames"])
+    require(0 < start < KILL_FRAMES,
+            f"the checkpoint holds {start} of {KILL_FRAMES} frames")
+    err_text = quiet(args + ["--checkpoint", ck, "--resume", "--out",
+                             resumed])
+    require(f"resumed at frame {start}" in err_text,
+            f"the resumed run did not start at frame {start}")
+    a, r = np.loadtxt(straight), np.loadtxt(resumed)
+    require(a.shape == r.shape == (KILL_FRAMES, 12) and np.isfinite(a).all(),
+            "the odometry trajectories have the wrong shape or non-finite "
+            "values")
+    d_kill = float(np.abs(a - r).max())
+    print(f"[{card}] step 23 odometry CLI over {KILL_FRAMES} frames of "
+          f"{ODO_SHAPE}: the process SIGKILLed after its checkpoint of "
+          f"frame {start}, resumed: max |resumed - uninterrupted| {d_kill}",
+          flush=True)
+    # the JAX test's tolerance; the .txt rows hold 7 digits
+    require(d_kill <= 1e-5, "the resumed odometry differs")
+    secs["(e) killed odometry"] = round(time.perf_counter() - t0, 1)
+
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"[{card}] step 23 seconds by part: {secs}", flush=True)
+    print(f"step 23: {time.perf_counter() - t_step:.1f} s", flush=True)
 
 
 def main() -> None:
@@ -4082,6 +4474,7 @@ def main() -> None:
     # the KITTI seven also carry their launches a frame on one of 2 ranks
     for name, extra in multirank_path(card, kitti, shared).items():
         next(r for r in rows if r["name"] == name).update(extra)
+    eval_surface_path(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,9 @@ versions (`test_torch_postproc.py`) use the same masks.
 """
 
 import importlib
+import importlib.util
+import json
+import os
 
 import numpy as np
 import pytest
@@ -46,6 +49,23 @@ from tpustereo_torch.pipeline import (select_and_refine, sgbm_batched,
                                       sgbm_volume)
 
 pytestmark = pytest.mark.gpu
+
+
+def _pinned_module():
+    """`tests/test_torch_pinned_metrics.py`, loaded by its path (a package
+    named `tests` may shadow this directory on the card machine): the
+    stored points' suite and tolerances (`tpustereo.config` alone, no
+    JAX) and `compute`, the port's metrics of a point."""
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_pinned_metrics", os.path.join(
+            os.path.dirname(os.path.abspath(__file__)),
+            "test_torch_pinned_metrics.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+PINNED = _pinned_module()
 
 
 @pytest.fixture
@@ -1879,3 +1899,20 @@ def test_evaluate_cuda_equals_cpu(cuda):
     cpu = [_eval_one(L, R, gt, cfg, name, False, False, "cpu")
            for name, L, R, gt in synthetic_cases(cfg, (192, 320))]
     assert rep["pairs"] == cpu
+
+
+@pytest.mark.parametrize("name", [n for n, _, _ in PINNED.SUITE])
+def test_pinned_metrics_cuda(cuda, name):
+    """The JAX package's stored metric points on the card: within
+    `tests/test_pinned_metrics.py`'s tolerances of
+    `tests/data/pinned_metrics.json`, and the CPU's invalid pattern with
+    the disparity within 1e-6."""
+    with open(PINNED.PIN_PATH) as f:
+        want = json.load(f)[name]
+    got, disp = PINNED.compute(name, device="cuda")
+    _, cpu = PINNED.compute(name, device="cpu")
+    for k in ("bad2", "d1_all", "valid_frac"):
+        assert abs(got[k] - want[k]) <= PINNED.RATE_TOL, (name, k, got, want)
+    assert abs(got["epe"] - want["epe"]) <= PINNED.EPE_TOL, (name, got, want)
+    np.testing.assert_array_equal(disp < 0, cpu < 0)
+    np.testing.assert_allclose(disp, cpu, rtol=0, atol=1e-6)
