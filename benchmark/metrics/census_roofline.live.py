@@ -1,0 +1,4 @@
+"""census_roofline.live: census_roofline in the cells of one pair a call,
+which report the host-paced end-to-end metrics (`.live`)."""
+
+from benchmark.metrics.census_roofline import read  # noqa: F401
