@@ -524,8 +524,11 @@ def device_kernels(fn) -> list:
         torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
+    # the pipeline's spans (`tpustereo_torch/trace.py`) also appear on the
+    # device's timeline, as annotations that are no kernels
     evs = sorted((e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA),
+                  if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith("tps.")),
                  key=lambda e: e.time_range.start)
     names = [e.name for e in evs]
     while names and "fill" in names[0].lower():

@@ -36,6 +36,7 @@ import torch
 
 from tpustereo_torch.config import Config
 from tpustereo_torch.ops.wta import next_pow2
+from tpustereo_torch.trace import span
 
 _BIG = 1 << 24
 # Paeth's median-of-9 exchange network (the JAX `median3` / `median3_pallas`
@@ -251,13 +252,15 @@ def speckle_frames(disp: torch.Tensor, valid: torch.Tensor, cfg: Config,
     F, H, W = disp.shape
     if F * H * W >= 1 << 31:
         raise ValueError("speckle_frames needs F*H*W < 2**31")
-    lab = speckle_labels(disp, valid, cfg, cc)
-    if BITONIC_SPECKLE:
-        return valid & component_big_sorted(lab, cfg.speckle_window_size,
-                                            sort)
-    base = torch.arange(0, F * H * W, H * W, dtype=torch.int32,
-                        device=disp.device).reshape(F, 1, 1)
-    return valid & component_big(lab + base, cfg.speckle_window_size)
+    with span("speckle.labels"):
+        lab = speckle_labels(disp, valid, cfg, cc)
+    with span("speckle.sizes"):
+        if BITONIC_SPECKLE:
+            return valid & component_big_sorted(
+                lab, cfg.speckle_window_size, sort)
+        base = torch.arange(0, F * H * W, H * W, dtype=torch.int32,
+                            device=disp.device).reshape(F, 1, 1)
+        return valid & component_big(lab + base, cfg.speckle_window_size)
 
 
 # ---------------------------------------------------------------------------

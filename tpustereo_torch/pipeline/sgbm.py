@@ -71,6 +71,7 @@ from tpustereo_torch.kernels.sgm import p2_max
 from tpustereo_torch.ops import (fill_background, fill_hirschmuller,
                                  sad_volume)
 from tpustereo_torch.ops.postproc import speckle_frames
+from tpustereo_torch.trace import span
 
 INVALID = -1.0
 # paths * (census_bits + P2) from which the JAX `sgbm` leaves its fused
@@ -112,9 +113,10 @@ def check_slice(cfg: Config) -> None:
 
 
 def _census(left: torch.Tensor, right: torch.Tensor, cfg: Config):
-    return census_cost_volume(left, right, cfg.num_disparities,
-                              cfg.max_census_cost, cfg.census_window,
-                              cfg.min_disparity)
+    with span("census"):
+        return census_cost_volume(left, right, cfg.num_disparities,
+                                  cfg.max_census_cost, cfg.census_window,
+                                  cfg.min_disparity)
 
 
 def _select(left: torch.Tensor, right: torch.Tensor, cfg: Config):
@@ -124,11 +126,15 @@ def _select(left: torch.Tensor, right: torch.Tensor, cfg: Config):
     fused SGM branch); the other modes take the volume route for that
     fill."""
     if cfg.mode == "sad":
-        return _lr_check(*sad_wta(left, right, cfg), cfg)
+        with span("sweeps"):
+            sel = sad_wta(left, right, cfg)
+        return _lr_check(*sel, cfg)
     C = _census(left, right, cfg)
-    if cfg.mode == "census_wta":
-        return (*wta_lr(C, cfg), None)
-    return _lr_check(*sgm_select(C, cfg, left), cfg)
+    with span("sweeps"):
+        if cfg.mode == "census_wta":
+            return (*wta_lr(C, cfg), None)
+        sel = sgm_select(C, cfg, left)
+    return _lr_check(*sel, cfg)
 
 
 def _lr_check(disp: torch.Tensor, valid: torch.Tensor, d_r: torch.Tensor,
@@ -138,13 +144,14 @@ def _lr_check(disp: torch.Tensor, valid: torch.Tensor, d_r: torch.Tensor,
     kernel: -> (disp, valid, hits or None)."""
     D, d0 = cfg.num_disparities, cfg.min_disparity
     hits = None
-    if cfg.disp12_max_diff >= 0:
-        if cfg.fill_mode == "hirschmuller":
-            ok, hits = dr_consistency_hits(d_r, disp, D, cfg.disp12_max_diff,
-                                           d0)
-        else:
-            ok = dr_consistency(d_r, disp, D, cfg.disp12_max_diff, d0)
-        valid &= ok
+    with span("lr_check"):
+        if cfg.disp12_max_diff >= 0:
+            if cfg.fill_mode == "hirschmuller":
+                ok, hits = dr_consistency_hits(d_r, disp, D,
+                                               cfg.disp12_max_diff, d0)
+            else:
+                ok = dr_consistency(d_r, disp, D, cfg.disp12_max_diff, d0)
+            valid &= ok
     return disp, valid, hits
 
 
@@ -152,15 +159,20 @@ def _postproc(disp: torch.Tensor, valid: torch.Tensor,
               hits: torch.Tensor | None, cfg: Config) -> torch.Tensor:
     """Speckle over the stacked frames, -1.0 at invalid pixels, the fill
     (hits: the Hirschmueller fill's map, else None), median."""
-    valid = speckle_frames(disp, valid, cfg, cc=connected_component_labels,
-                           sort=bitonic_sort)
+    with span("speckle"):
+        valid = speckle_frames(disp, valid, cfg,
+                               cc=connected_component_labels,
+                               sort=bitonic_sort)
     out = torch.where(valid, disp, INVALID)
     if cfg.fill_mode == "background":
-        out = fill_background(out)
+        with span("fill"):
+            out = fill_background(out)
     elif cfg.fill_mode == "hirschmuller":
-        out = fill_hirschmuller(out, hits)
+        with span("fill"):
+            out = fill_hirschmuller(out, hits)
     if cfg.median_filter:
-        out = median3(out)
+        with span("median"):
+            out = median3(out)
     return out
 
 
@@ -183,11 +195,14 @@ def sgbm_volume(left: torch.Tensor, right: torch.Tensor,
     and the SAD volume (int32) for sad, as the JAX `sgbm_volume`."""
     check_slice(cfg)
     if cfg.mode == "sad":
-        return sad_volume(left, right, cfg.num_disparities, cfg.sad_block,
-                          cfg.min_disparity)
+        with span("sweeps"):
+            return sad_volume(left, right, cfg.num_disparities,
+                              cfg.sad_block, cfg.min_disparity)
     if cfg.mode == "census_wta":
         return _census(left, right, cfg).to(torch.int16)
-    return aggregate_volume(_census(left, right, cfg), cfg, left)
+    C = _census(left, right, cfg)
+    with span("sweeps"):
+        return aggregate_volume(C, cfg, left)
 
 
 def select_and_refine(S: torch.Tensor, cfg: Config) -> torch.Tensor:
@@ -203,7 +218,9 @@ def select_and_refine(S: torch.Tensor, cfg: Config) -> torch.Tensor:
     kernel only on int16 (block <= 11, a TPU limit) and a larger block
     through `ops.wta` + `ops.lr_check`; the outputs are the same."""
     check_slice(cfg)
-    return _postproc(*_volume_select(S, cfg), cfg)
+    with span("select"):
+        sel = _volume_select(S, cfg)
+    return _postproc(*sel, cfg)
 
 
 def _volume_select(S: torch.Tensor, cfg: Config):
@@ -231,10 +248,11 @@ def volume_route(cfg: Config, W: int) -> bool:
 def sgbm_frames(left: torch.Tensor, right: torch.Tensor,
                 cfg: Config) -> torch.Tensor:
     """(F, H, W) uint8 x2 -> (F, H, W) float32 disparity, invalid = -1."""
-    check_slice(cfg)
-    if volume_route(cfg, left.shape[-1]):
-        return select_and_refine(sgbm_volume(left, right, cfg), cfg)
-    return _postproc(*_select(left, right, cfg), cfg)
+    with span("frames"):
+        check_slice(cfg)
+        if volume_route(cfg, left.shape[-1]):
+            return select_and_refine(sgbm_volume(left, right, cfg), cfg)
+        return _postproc(*_select(left, right, cfg), cfg)
 
 
 def sgbm(left: torch.Tensor, right: torch.Tensor, cfg: Config) -> torch.Tensor:
@@ -245,8 +263,13 @@ def sgbm(left: torch.Tensor, right: torch.Tensor, cfg: Config) -> torch.Tensor:
 def sgbm_batched(left: torch.Tensor, right: torch.Tensor,
                  cfg: Config) -> torch.Tensor:
     """(B, H, W) uint8 x2 -> (B, H, W) float32, `cfg.frames_per_step`
-    frames per set of kernel launches when that divides B, else one."""
-    B = left.shape[0]
-    F = cfg.frames_per_step if B % cfg.frames_per_step == 0 else 1
-    return torch.cat([sgbm_frames(left[i:i + F], right[i:i + F], cfg)
-                      for i in range(0, B, F)])
+    frames per set of kernel launches when that divides B, else one.
+    Under a torch profiler the call records its stages' spans
+    (`tpustereo_torch.trace`)."""
+    with span("sgbm_batched"):
+        B = left.shape[0]
+        F = cfg.frames_per_step if B % cfg.frames_per_step == 0 else 1
+        outs = [sgbm_frames(left[i:i + F], right[i:i + F], cfg)
+                for i in range(0, B, F)]
+        with span("cat"):
+            return torch.cat(outs)
