@@ -31,9 +31,10 @@ D = 128, 8 frames, 4 per set of kernel launches):
    E add a set of frames (2, 2 and 2 a batch, no other one-direction
    sweep), and holds the output against the plain PyTorch pipeline
    (the JAX package's jnp formulation, ported) run on the card;
-4. times each kernel, its plain version, `component_big`, the whole path,
-   and the whole path with speckle and the median off, with CUDA events,
-   and the LR check, labelling and median kernels also by CUDA-graph
+4. times each kernel, its plain version, `component_big` (the sort route
+   the size count replaced), the whole path, and the whole path with
+   speckle and the median off, with CUDA events, and the LR check,
+   labelling, size count and median kernels also by CUDA-graph
    replay (the device's time, without the host's per launch), and the
    sweep in each direction and form by both, beside its byte bound; the
    fused launches by both beside theirs; a set's sweeps (the fused
@@ -41,7 +42,8 @@ D = 128, 8 frames, 4 per set of kernel launches):
    bound of one read of C) and `sgm_select` (against the seven launches
    and `sweep_bwd_wta`) by events in turns, each fused one required
    faster; counts
-   the labelling's kernel launches a call (profiler); requires that no
+   the labelling's and the size count's kernel launches a call
+   (profiler); requires that no
    fill of a tensor the size of S7 runs in a batch (profiler, with
    shapes); prints them beside the card's name and power limit.
 
@@ -394,8 +396,8 @@ KERNELS = {
                       "tpustereo/kernels/sgm_pallas.py:1225"),
     "dr_consistency": ("tpustereo_torch/csrc/lr_check.cu",
                        "tpustereo/kernels/lr_pallas.py:83"),
-    "connected_component_labels": ("tpustereo_torch/csrc/cc_labels.cu",
-                                   "tpustereo/kernels/cc_pallas.py:148"),
+    "connected_component_big": ("tpustereo_torch/csrc/cc_labels.cu",
+                                "tpustereo/kernels/cc_pallas.py:148"),
     "median3": ("tpustereo_torch/csrc/median3.cu",
                 "tpustereo/kernels/median_pallas.py:41"),
 }
@@ -490,7 +492,7 @@ PINNED_RECORD = "tests/data/pinned_metrics.json"
 # have launched
 EVAL_KERNELS = ("census_cost_volume", "sgm_sweep", "sgm_sweep_fused",
                 "sweep_bwd_wta", "dr_consistency", "dr_consistency_hits",
-                "connected_component_labels", "median3", "wta_lr", "sad_wta")
+                "connected_component_big", "median3", "wta_lr", "sad_wta")
 # a row's mean EPE against the record's (its rates equal at 5 decimals)
 EPE_MEAN_TOL = 1e-4
 # the killed odometry's frames, the JAX test's 60: a shorter sequence
@@ -1044,7 +1046,7 @@ def volume_path(card: str, kitti: dict) -> list:
     peak_gib = (torch.cuda.max_memory_allocated() - resident) / 2**30
     print(f"middlebury_sgm4 volume route launches: {launches}", flush=True)
     for k in ("census_cost_volume", "sgm_sweep", "transpose_hw", "wta_lr",
-              "connected_component_labels", "median3"):
+              "connected_component_big", "median3"):
         require(launches[k] > 0, f"{k} was not launched on the volume route")
     require(launches["sweep_bwd_wta"] == 0,
             "the volume route ran the fused backward sweep")
@@ -1345,8 +1347,9 @@ def fills_path(card: str, kitti: dict) -> list:
     big_bitonic_ms = cuda_ms(big_bitonic, 10)
     big_torch_ms = cuda_ms(lambda: component_big_sorted(
         lab, cfg.speckle_window_size), 10)
-    print(f"[{card}] component_big per set of {F} frames: default (one "
-          f"sort + searchsorted) {big_ms:.4f} ms; the sort formulation "
+    print(f"[{card}] component_big per set of {F} frames: the labels' "
+          f"route (one sort + searchsorted) {big_ms:.4f} ms; the sort "
+          f"formulation "
           f"with bitonic_sort {big_bitonic_ms:.4f} ms, with torch.sort "
           f"{big_torch_ms:.4f} ms", flush=True)
     print(f"[{card}] the sort formulation with bitonic_sort, profiler: "
@@ -1506,6 +1509,9 @@ def fills_path(card: str, kitti: dict) -> list:
     print(f"kitti_sgm8 BITONIC_SPECKLE launches: {launches}", flush=True)
     require(launches["bitonic_sort"] > 0, "bitonic_sort was not launched "
             "under BITONIC_SPECKLE")
+    require(launches["connected_component_labels"] > 0
+            and launches["connected_component_big"] == 0, "BITONIC_SPECKLE "
+            "did not take the labels and the sort in place of the size count")
     require(np.array_equal(out_b, kitti["out"]), "the BITONIC_SPECKLE "
             "route's output differs from the default route's")
     counts["bitonic_sort"] = launches["bitonic_sort"]
@@ -4174,8 +4180,16 @@ def main() -> None:
     print(f"plain connected_component_labels at (F, H, W) = {(F, H, W)}: "
           f"{cc_plain_s:.3f} s; {torch.unique(lab_off).numel()} components "
           f"in the {F} frames", flush=True)
-    med_in = torch.where(valid_lr & component_big(
-        lab_off, cfg.speckle_window_size), disp, -1.0)
+    # the size count, speckle's mask on the main path, against the labels'
+    # sort route
+    kept = kernels.connected_component_big(conn_h, conn_v, valid_lr,
+                                           cfg.speckle_window_size)
+    kept_p = valid_lr & component_big(lab_off, cfg.speckle_window_size)
+    torch.cuda.synchronize()
+    require(torch.equal(kept, kept_p), "connected_component_big differs "
+            "from the labels' component_big")
+    err["connected_component_big"] = (kept ^ kept_p).sum().item()
+    med_in = torch.where(kept_p, disp, -1.0)
     med = kernels.median3(med_in)
     med_p = median3(med_in)
     torch.cuda.synchronize()
@@ -4265,6 +4279,10 @@ def main() -> None:
             C, S_tmp, -1, VERTICAL_DXS, p1, p2),
     }
     e_add = cuda_ms(lambda: kernels.sgm_sweep(C, S_tmp, 0, 1, p1, p2), 10)
+
+    def big_call():
+        return kernels.connected_component_big(conn_h, conn_v, valid_lr,
+                                               cfg.speckle_window_size)
     ms = {
         "census_cost_volume": cuda_ms(lambda: kernels.census_cost_volume(
             Lf, Rf, D, cfg.max_census_cost, cfg.census_window, d0), 20),
@@ -4276,25 +4294,28 @@ def main() -> None:
                                  10),
         "dr_consistency": cuda_ms(lambda: kernels.dr_consistency(
             d_r, disp, D, cfg.disp12_max_diff, d0), 50),
-        "connected_component_labels": cuda_ms(
-            lambda: kernels.connected_component_labels(conn_h, conn_v), 20),
+        "connected_component_big": cuda_ms(big_call, 20),
         "median3": cuda_ms(lambda: kernels.median3(med_in), 50),
     }
-    # device time of the three short kernels: their event times above are
-    # the host's time per launch through the wrappers where that is longer
+    # device time of the short kernels: their event times above are the
+    # host's time per launch through the wrappers where that is longer
     g_ms = {
         "dr_consistency": graph_ms(lambda: kernels.dr_consistency(
             d_r, disp, D, cfg.disp12_max_diff, d0), 50),
         "connected_component_labels": graph_ms(
             lambda: kernels.connected_component_labels(conn_h, conn_v), 50),
+        "connected_component_big": graph_ms(big_call, 50),
         "median3": graph_ms(lambda: kernels.median3(med_in), 50),
     }
     print(f"[{card}] ms per launch by CUDA-graph replay: {g_ms}; by "
-          f"events: { {n: ms[n] for n in g_ms} }", flush=True)
-    cc_names = device_kernels(
-        lambda: kernels.connected_component_labels(conn_h, conn_v))
-    print(f"connected_component_labels: {len(cc_names)} kernel launches a "
-          f"call (profiler): {[n[:40] for n in cc_names]}", flush=True)
+          f"events: { {n: ms[n] for n in g_ms if n in ms} }", flush=True)
+    for name, fn in (("connected_component_labels",
+                      lambda: kernels.connected_component_labels(
+                          conn_h, conn_v)),
+                     ("connected_component_big", big_call)):
+        cc_names = device_kernels(fn)
+        print(f"{name}: {len(cc_names)} kernel launches a call (profiler): "
+              f"{[n[:40] for n in cc_names]}", flush=True)
     # each direction in each form, by events and by CUDA-graph replay,
     # beside its byte bound (3 bytes a cost written, 5 added)
     for dy, dx in DIRS_8:
@@ -4356,8 +4377,10 @@ def main() -> None:
         "sweep_bwd_wta": cuda_ms(lambda: sweep_bwd_wta_plain(C, S7, cfg), 1),
         "dr_consistency": cuda_ms(lambda: dr_consistency_plain(
             d_r, disp, D, cfg.disp12_max_diff, d0), 10),
-        "connected_component_labels": cuda_ms(
-            lambda: connected_component_labels(conn_h, conn_v), 2),
+        "connected_component_big": cuda_ms(
+            lambda: valid_lr & component_big(
+                connected_component_labels(conn_h, conn_v)
+                + (lab_off - lab), cfg.speckle_window_size), 2),
         "median3": cuda_ms(lambda: median3(med_in), 10),
     }
     del S_tmp
@@ -4374,11 +4397,16 @@ def main() -> None:
             "the library median route differs from median3")
     library_ms = {n: None for n in KERNELS}
     library_ms["median3"] = cuda_ms(median_library, 10)
-    # component_big (sort + two binary searches) runs outside the kernels
+    # component_big (sort + two binary searches), the route the size
+    # count replaced, beside the labels and the count, by events
     big_ms = cuda_ms(lambda: component_big(lab_off, cfg.speckle_window_size),
                      20)
-    print(f"[{card}] component_big (sort + searchsorted, outside "
-          f"the kernels): {big_ms:.4f} ms per set of {F} frames", flush=True)
+    labels_ms = cuda_ms(
+        lambda: kernels.connected_component_labels(conn_h, conn_v), 20)
+    print(f"[{card}] by events, per set of {F} frames: the labels "
+          f"{labels_ms:.4f} ms + component_big (sort + searchsorted) "
+          f"{big_ms:.4f} ms; the size count (labels, sizes and mask) "
+          f"{ms['connected_component_big']:.4f} ms", flush=True)
     bounds = {
         # inputs read once, output written once; ops: xor, popcount,
         # compare, select per cost
@@ -4393,10 +4421,10 @@ def main() -> None:
         "sweep_bwd_wta": bound(3 * n_cost + 9 * n_pix, 17 * n_cost),
         # d_r and disp read, ok written; ~8 ops per pixel
         "dr_consistency": bound(9 * n_pix, 8 * n_pix),
-        # conn_h + conn_v read, labels written; ~16 integer ops per pixel
-        # (init, two unions, flatten)
-        "connected_component_labels": bound(
-            conn_h.numel() + conn_v.numel() + 4 * n_pix, 16 * n_pix),
+        # conn_h + conn_v and valid read, the mask written; ~16 integer
+        # ops per pixel (init, two unions, flatten, count)
+        "connected_component_big": bound(
+            conn_h.numel() + conn_v.numel() + 2 * n_pix, 16 * n_pix),
         # disp read, median written; 38 min/max per pixel
         "median3": bound(8 * n_pix, 38 * n_pix),
     }
@@ -4422,9 +4450,7 @@ def main() -> None:
           f"{dev_ms - off_ms:.3f} ms per batch", flush=True)
     in_kernels = {n: launches[n] * ms[n] for n in KERNELS}
     print(f"[{card}] batch of {BATCH}, ms in each kernel (launches x "
-          f"ms/launch): {in_kernels}; component_big "
-          f"{BATCH // F * big_ms:.3f} ms; outside the seven kernels "
-          f"(component_big included): "
+          f"ms/launch): {in_kernels}; outside the seven kernels: "
           f"{dev_ms - sum(in_kernels.values()):.3f} ms", flush=True)
     busy = device_busy(lambda: sgbm_batched(L, R, cfg))
     print(f"[{card}] profiler, one batch: {busy}", flush=True)

@@ -42,7 +42,7 @@ from tpustereo_torch.kernels.sgm import (bidir_fits_s16x2,
 from tpustereo_torch.kernels.transpose import (transpose_hw_plain,
                                                transpose_sum_hw_plain)
 from tpustereo_torch.kernels.wta import wta_lr_plain
-from tpustereo_torch.ops import aggregate
+from tpustereo_torch.ops import aggregate, component_big
 from tpustereo_torch.ops.postproc import _right_disparity
 from tpustereo_torch.ops.sgm import DIRS_8
 from tpustereo_torch.pipeline import (select_and_refine, sgbm_batched,
@@ -706,6 +706,122 @@ def test_cc_kernel_full_middlebury_frame(cuda):
     assert torch.equal(got, ref)
 
 
+def _big_plain(conn_h, conn_v, valid, threshs):
+    """[valid & `component_big` of the plain labels offset by f*H*W, for
+    each threshold]."""
+    lab = connected_component_labels_plain(conn_h, conn_v)
+    H, W = lab.shape[-2:]
+    F = lab.numel() // (H * W)
+    base = torch.arange(0, F * H * W, H * W, dtype=torch.int32,
+                        device=lab.device)
+    lab = lab.reshape(F, H * W) + base[:, None]
+    return [valid & component_big(lab, t).reshape(valid.shape)
+            for t in threshs]
+
+
+# (F, H, W, mask kind): one component filling each frame (every edge set:
+# the contention case), a checkerboard of singletons (no edge), random
+# masks; frames of 1, 3 and 4, sizes off the 16 x 128 tile and on it, the
+# KITTI and the Middlebury frame
+BIG_CASES = {
+    "one_f1": (1, 33, 130, "one"), "one_f4_kitti": (4, 375, 1242, "one"),
+    "checker_f3": (3, 47, 383, "checker"), "random_f3": (3, 33, 130, 0.6),
+    "random_f4": (4, 17, 257, 0.55), "tile_f1": (1, 16, 128, 0.6),
+    "px1": (1, 1, 1, "one"), "row_f3": (3, 1, 300, 0.7),
+    "col_f3": (3, 300, 1, 0.7), "kitti_f4": (4, 375, 1242, 0.62),
+    "middlebury_f1": (1, 1988, 2964, 0.62)}
+
+
+@pytest.mark.parametrize("name", BIG_CASES)
+def test_cc_big_matches_component_big(cuda, name):
+    F, H, W, kind = BIG_CASES[name]
+    rng = np.random.default_rng(12)
+    if kind == "one":
+        v = np.ones((F, H, W), bool)
+    elif kind == "checker":
+        v = (np.indices((F, H, W)).sum(0) % 2).astype(bool)
+    else:
+        v = rng.random((F, H, W)) < kind
+    conn_h, conn_v = (c.to(cuda) for c in _conn(v))
+    valid = torch.from_numpy(rng.random((F, H, W)) < 0.95).to(cuda)
+    threshs = (1, 2, 100, H * W + 1)
+    for thresh, ref in zip(threshs, _big_plain(conn_h, conn_v, valid,
+                                               threshs)):
+        kernels.reset_launch_counts()
+        got = kernels.connected_component_big(conn_h, conn_v, valid, thresh)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), thresh
+        assert kernels.launch_counts()["connected_component_big"] == 1
+    if F == 1:      # (H, W) inputs alike
+        got = kernels.connected_component_big(conn_h[0], conn_v[0],
+                                              valid[0], 100)
+        assert torch.equal(got, _big_plain(conn_h[0], conn_v[0], valid[0],
+                                           (100,))[0])
+
+
+def _scene_speckle(cuda, preset, **scene_kw):
+    """(disp, valid) of the preset's selection and LR check on 4 pairs of
+    its benchmark scene (`benchmark/scenes.py`, the cell's configuration
+    file), the speckle filter's inputs on the card's route."""
+    from benchmark import scenes
+    from tpustereo_torch import PRESETS
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs",
+                           f"{preset}.json")) as f:
+        spec = json.load(f)
+    cfg = PRESETS[preset]
+    pool = scenes.make_pool(dict(spec["scene"], **scene_kw), 4,
+                            tuple(spec["shape"]), cfg.num_disparities, 2026,
+                            cuda)
+    L, R = pool["left"], pool["right"]
+    D, d0 = cfg.num_disparities, cfg.min_disparity
+    C = kernels.census_cost_volume(L, R, D, cfg.max_census_cost,
+                                   cfg.census_window, d0)
+    disp, valid, d_r = kernels.sgm_select(C, cfg, L)
+    valid &= kernels.dr_consistency(d_r, disp, D, cfg.disp12_max_diff, d0)
+    return cfg, disp, valid
+
+
+def test_cc_big_low_texture_scene(cuda):
+    """A KITTI scene whose low-texture band covers the top 60 % of rows:
+    the many small components that a weak texture leaves."""
+    from tpustereo_torch.ops.postproc import speckle_conn
+    cfg, disp, valid = _scene_speckle(cuda, "kitti_sgm8", sky_rows=0.6)
+    conn_h, conn_v = speckle_conn(disp, valid, cfg)
+    labels = kernels.connected_component_labels(conn_h, conn_v)
+    assert labels[valid].unique().numel() > 300
+    threshs = (1, 2, cfg.speckle_window_size, 375 * 1242 + 1)
+    for thresh, ref in zip(threshs, _big_plain(conn_h, conn_v, valid,
+                                               threshs)):
+        got = kernels.connected_component_big(conn_h, conn_v, valid, thresh)
+        assert torch.equal(got, ref), thresh
+
+
+@pytest.mark.parametrize("preset", ["kitti_sgm8", "middlebury_sgm4"])
+@pytest.mark.parametrize("bitonic", [False, True])
+def test_speckle_frames_of_scenes_unchanged(cuda, monkeypatch, preset,
+                                            bitonic):
+    """`speckle_frames` as the pipeline calls it, with BITONIC_SPECKLE off
+    (the size count) and on (labels and the bitonic sort), equal to the
+    labels and `component_big`, on 4 frames of the preset's scene."""
+    from tpustereo_torch.ops import postproc
+    cfg, disp, valid = _scene_speckle(cuda, preset)
+    ref = postproc.speckle_frames(disp, valid, cfg,
+                                  cc=kernels.connected_component_labels)
+    monkeypatch.setattr(postproc, "BITONIC_SPECKLE", bitonic)
+    kernels.reset_launch_counts()
+    got = postproc.speckle_frames(disp, valid, cfg,
+                                  cc=kernels.connected_component_labels,
+                                  sort=kernels.bitonic_sort,
+                                  big=kernels.connected_component_big)
+    counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert (got != valid).any()         # the filter removed something
+    assert counts["connected_component_big"] == (0 if bitonic else 1)
+    assert counts["connected_component_labels"] == (1 if bitonic else 0)
+
+
 def _median_map(kind: str, shape, rng) -> np.ndarray:
     if kind == "random":  # disparities, 30 % invalid
         d = rng.uniform(0, 60, shape).astype(np.float32)
@@ -927,7 +1043,7 @@ def test_pipeline_past_fused_bound_cuda_matches_cpu(cuda, paths, d0, p2):
     fused = 2 if paths == 8 else 0
     expected.update(census_cost_volume=2, sgm_sweep=2 * (paths - 3 * fused),
                     sgm_sweep_fused=2 * fused, transpose_hw=2 * 3, wta_lr=2,
-                    connected_component_labels=2, median3=2)
+                    connected_component_big=2, median3=2)
     assert counts == expected
     # each set of frames' first sweep writes S: no zero fill
     if paths == 8:
@@ -947,7 +1063,7 @@ def test_pipeline_cuda_matches_cpu(cuda, mode, paths, d0):
                  median_filter=True, frames_per_step=2)
     counts = _run_on_both(cfg)
     expected = dict.fromkeys(counts, 0)
-    expected.update(connected_component_labels=2, median3=2)
+    expected.update(connected_component_big=2, median3=2)
     if mode == "sgm" and paths == 8:
         # a set: the down set fused (write), the up set fused (add), E
         expected.update(census_cost_volume=2, sgm_sweep=2,
@@ -1073,6 +1189,9 @@ def test_bitonic_speckle_cuda_matches_default(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
     assert counts["bitonic_sort"] == 2 * 2     # a pair and a keys sort
+    # the labels alone, a call of their own; no size count
+    assert counts["connected_component_labels"] == 2
+    assert counts["connected_component_big"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -1531,7 +1650,7 @@ def test_kitti_odometry_width_cuda_matches_cpu(cuda):
     expected = dict.fromkeys(counts, 0)
     expected.update(census_cost_volume=1, sgm_sweep=1, sgm_sweep_fused=2,
                     sweep_bwd_wta=1, dr_consistency=1,
-                    connected_component_labels=1, median3=1)
+                    connected_component_big=1, median3=1)
     assert counts == expected
 
 

@@ -79,6 +79,48 @@ def test_cc_wrapper_refuses_bad_inputs():
         kernels.connected_component_labels(h[None], v)
 
 
+@pytest.mark.parametrize("thresh", [1, 2, 5, "above"])
+@pytest.mark.parametrize("name", ["p0.55", "frames3", "h1", "w1"])
+def test_cc_big_wrapper_cpu_is_component_big(name, thresh):
+    v = _cc_masks(name)
+    conn_h, conn_v = _conn(v)
+    valid = torch.from_numpy(np.random.default_rng(2).random(v.shape) < 0.9)
+    H, W = v.shape[-2:]
+    t = H * W + 1 if thresh == "above" else thresh
+    kernels.reset_launch_counts()
+    got = kernels.connected_component_big(conn_h, conn_v, valid, t)
+    F = v.size // (H * W)
+    lab = ops.connected_component_labels(conn_h, conn_v).reshape(F, H, W)
+    lab = lab + torch.arange(F, dtype=torch.int32)[:, None, None] * H * W
+    assert torch.equal(got, valid & ops.component_big(lab, t).reshape(
+        v.shape))
+    assert kernels.connected_component_big.launches == 0
+
+
+def test_cc_big_wrapper_refuses_bad_inputs():
+    h = torch.zeros((2, 4, 7), dtype=torch.bool)
+    v = torch.zeros((2, 3, 8), dtype=torch.bool)
+    valid = torch.ones((2, 4, 8), dtype=torch.bool)
+    big = kernels.connected_component_big
+    # no edge: every pixel its own component, kept only at threshold 1
+    assert not big(h, v, valid, 2).any()
+    assert torch.equal(big(h, v, valid, np.int64(1)), valid)
+    with pytest.raises(TypeError):
+        big(h.int(), v, valid, 2)
+    with pytest.raises(ValueError):
+        big(h, v[:, :2], valid, 2)
+    with pytest.raises(TypeError):
+        big(h, v, valid.int(), 2)
+    with pytest.raises(ValueError):
+        big(h, v, valid[0], 2)
+    with pytest.raises(ValueError):
+        big(h, v, valid[:, :, :7], 2)
+    with pytest.raises(TypeError):
+        big(h, v, valid, 2.0)
+    with pytest.raises(TypeError):
+        big(h, v, valid, True)
+
+
 def _speckle_maps(F=1, H=30, W=44, seed=3):
     """Piecewise-constant disparity on random 3x4 blocks, with half-pixel
     steps inside blocks and invalid holes: components of many sizes."""
@@ -121,9 +163,12 @@ def test_speckle_frames_matches_jax(window, srange):
     d, v = torch.from_numpy(disp), torch.from_numpy(valid)
     got = ops.speckle_frames(d, v, cfg)
     np.testing.assert_array_equal(got.numpy(), ref)
-    # through the kernel wrapper's CPU path, as the pipeline calls it
+    # through the kernel wrappers' CPU paths, as the pipeline calls them
     got_k = ops.speckle_frames(d, v, cfg, cc=kernels.connected_component_labels)
     assert torch.equal(got_k, got)
+    got_b = ops.speckle_frames(d, v, cfg,
+                               big=kernels.connected_component_big)
+    assert torch.equal(got_b, got)
 
 
 @pytest.mark.parametrize("srange", [0, 2])

@@ -21,21 +21,26 @@ def _pairs(B, H=20, W=40, seed=5):
     return L, torch.roll(L, -3, dims=-1)
 
 
-def _spans(fn):
+def _spans(fn, ops=()):
     """fn() under a CPU profiler -> (its result, [(span, innermost tps.*
-    span around it or None)] in order of start)."""
+    span around it or None)] in order of start), and with `ops` a third
+    item: {op: [innermost tps.* span around each call of the op]}."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         out = fn()
-    got = []
+    got, at = [], {op: [] for op in ops}
     for e in prof.events():
-        if not e.name.startswith(trace.PREFIX):
+        if not e.name.startswith(trace.PREFIX) and e.name not in at:
             continue
         p = e.cpu_parent
         while p is not None and not p.name.startswith(trace.PREFIX):
             p = p.cpu_parent
-        got.append((e.name, p.name if p is not None else None))
-    return out, got
+        inner = p.name if p is not None else None
+        if e.name in at:
+            at[e.name].append(inner)
+        else:
+            got.append((e.name, inner))
+    return (out, got, at) if ops else (out, got)
 
 
 def _expected(chunks, volume=False, fill=False):
@@ -52,6 +57,11 @@ def _expected(chunks, volume=False, fill=False):
     per += [("tps.median", "tps.frames")]
     return ([("tps.sgbm_batched", None)] + per * chunks
             + [("tps.cat", "tps.sgbm_batched")])
+
+
+# a speckle call's own ops: the edge masks' |delta d|, then (CPU route)
+# the plain labels' unions and `component_big`'s searches
+SPECKLE_OPS = ("aten::abs", "aten::scatter_reduce_", "aten::searchsorted")
 
 
 def test_off_without_a_profiler(monkeypatch):
@@ -88,9 +98,16 @@ def test_spans_of_a_call(B, kw, chunks, volume, fill):
     L, R = _pairs(B)
     assert volume_route(cfg, L.shape[-1]) == volume
     off = sgbm_batched(L, R, cfg)
-    on, got = _spans(lambda: sgbm_batched(L, R, cfg))
+    on, got, at = _spans(lambda: sgbm_batched(L, R, cfg), SPECKLE_OPS)
     assert got == _expected(chunks, volume, fill)
     assert torch.equal(on, off)
+    # the labels and sizes in one call (`kernels.connected_component_big`;
+    # on the CPU the plain labels and `component_big`'s two binary
+    # searches) under tps.speckle.sizes, the edge masks under .labels
+    assert at["aten::searchsorted"] == ["tps.speckle.sizes"] * 2 * chunks
+    assert set(at["aten::scatter_reduce_"]) == {"tps.speckle.sizes"}
+    assert "tps.speckle.labels" in at["aten::abs"]
+    assert "tps.speckle.sizes" not in at["aten::abs"]
 
 
 @pytest.mark.parametrize("mode, kw, first", [
@@ -115,6 +132,9 @@ def test_spans_under_bitonic_speckle(monkeypatch):
                                         frames_per_step=2)
     L, R = _pairs(2)
     off = sgbm_batched(L, R, cfg)
-    on, got = _spans(lambda: sgbm_batched(L, R, cfg))
+    on, got, at = _spans(lambda: sgbm_batched(L, R, cfg), SPECKLE_OPS)
     assert got == _expected(1)
     assert torch.equal(on, off)
+    # the labels a call of their own, then the bitonic route's sorts
+    assert set(at["aten::scatter_reduce_"]) == {"tps.speckle.labels"}
+    assert at["aten::searchsorted"] == []

@@ -35,7 +35,13 @@ labels of 4 KITTI frames, 4 rows of 465,750 padded to 2^19, as
 `component_big_sorted` makes them (each launch first copies the unsorted
 rows into the buffers it sorts in place: `copy_ms` is that copy alone);
 `cc_labels` on the speckle graph of those 4 frames (the LR-checked WTA
-disparity of the `kitti_sgm8` path); `sgm_bidir` on the census volume of
+disparity of the `kitti_sgm8` path), and of 4 frames of 1988 x 2964
+(`middlebury_sgm4`), the labels (`cc_labels_launch`) and the mask of the
+size count (`cc_big_launch`: the counting local pass, the border
+unions, the sizes and the mask; the shipped and the size builds), each
+mask case beside speckle's bound (9 bytes a pixel, `bound_ms`) and the
+labels' sort route it replaced (`component_big`, by events:
+`beside_ms`); `sgm_bidir` on the census volume of
 those 4 frames, its three launches of column shifts (0, 1, -1) as the
 `BIDIR_VERT` route runs them (s16x2 build); `median3` on the median's
 input of the path, the speckle-filtered disparity of those 4 frames;
@@ -141,6 +147,7 @@ from tpustereo_torch.bench.chain_sass import (CHAIN_FN, DT_NAMES, ISSUE_HZ,
                                              chain_issue, chain_key,
                                              chain_sass, chain_unroll)
 from tpustereo_torch.data import synthetic_pair
+from tpustereo_torch.eval.roofline import bound
 from tpustereo_torch.kernels import _build
 from tpustereo_torch.kernels.bitonic import _SIGS as _BITONIC_SIGS
 from tpustereo_torch.kernels.bitonic import IMAX, padded_log2
@@ -176,8 +183,10 @@ SIGS = {"bwd_wta": _BWD_SIGS, "census_cost": _COST_SIGS,
 # sgm_fused_launch before its carry arguments, roll_micro_launch before the
 # blocked slots (the same types: `slots, pad` in place of `slots, threads`),
 # chain_micro_launch before its plan (x, out, n, dtype, kind, chain, stream:
-# 4 words a thread in blocks of 256)
+# 4 words a thread in blocks of 256), cc_labels before its size count (the
+# labels alone)
 AGAINST_SIGS = {
+    "cc_labels": {"cc_labels_launch": _CC_SIGS["cc_labels_launch"]},
     "width_micro": {"roll_micro_launch": wm._SIGS["roll_micro_launch"],
                     "chain_micro_launch": (
                         [ctypes.c_void_p] * 2 + [ctypes.c_long]
@@ -381,8 +390,8 @@ ABLATIONS = {
         "no_border": ("if (i >= n) return;\n  const long hw",
                       "if (i >= 0) return;\n  const long hw"),
         # the flatten (it starts and leaves at once)
-        "no_flatten": ("if (i >= n) return;\n  const long base",
-                       "if (i >= 0) return;\n  const long base"),
+        "no_flatten": ("if (i >= n) return;\n  const int p",
+                       "if (i >= 0) return;\n  const int p"),
         # the local pass's stores of the labels
         "no_local_store": ("    out[(long)(y0 + i / TILE_COLS)",
                            "    if (r < 0) out[(long)(y0 + i / TILE_COLS)"),
@@ -495,9 +504,11 @@ SWEEP_BUILDS = {b for b in SIZES["width_micro"]
 def _same_interface(name: str, src: str) -> bool:
     """Whether another checkout's source takes the current C interface
     (`sgm_fused` with its carry arguments, `width_micro` with the chain
-    plan); the others take `AGAINST_SIGS`."""
+    plan, `cc_labels` with its size count); the others take
+    `AGAINST_SIGS`."""
     mark = {"sgm_fused": "const int* cin",
-            "width_micro": "int words, int threads"}.get(name)
+            "width_micro": "int words, int threads",
+            "cc_labels": "cc_big_launch"}.get(name)
     if mark is None:
         return False
     with open(src) as f:
@@ -660,6 +671,59 @@ def _kitti_speckle(dev):
                                  device=dev).reshape(F, 1, 1)
     big = component_big(lab_off, cfg.speckle_window_size)
     return conn_h, conn_v, lab, torch.where(valid & ok & big, disp, -1.0)
+
+
+def _speckle_graph(preset: str, shape, disparity: float, dev):
+    """The preset's speckle graph (conn_h, conn_v) and LR-checked valid
+    mask of `frames_per_step` synthetic frames, from its fused route."""
+    cfg = PRESETS[preset]
+    L, R = _frames(shape, cfg.frames_per_step, disparity, dev)
+    D, d0 = cfg.num_disparities, cfg.min_disparity
+    C = kernels.census_cost_volume(L, R, D, cfg.max_census_cost,
+                                   cfg.census_window, d0)
+    disp, valid, d_r = kernels.sgm_select(C, cfg, L)
+    del C
+    valid &= kernels.dr_consistency(d_r, disp, D, cfg.disp12_max_diff, d0)
+    return cfg, *speckle_conn(disp, valid, cfg), valid
+
+
+def _cc_cases(dev, stream) -> list:
+    """The `cc_labels` cases: the labels and the size count's mask of the
+    speckle graphs of 4 KITTI and 4 Middlebury frames."""
+    cases = []
+    for tag, preset, shape, disparity in (
+            ("kitti_F4", "kitti_sgm8", (375, 1242), 40.0),
+            ("middlebury_F4", "middlebury_sgm4", (1988, 2964), 60.0)):
+        cfg, conn_h, conn_v, valid = _speckle_graph(preset, shape,
+                                                    disparity, dev)
+        lab = kernels.connected_component_labels(conn_h, conn_v)
+        F, H, W = lab.shape
+        outs = (torch.empty_like(lab),)
+        cases.append((tag, [F, H, W], (lab,), outs,
+                      lambda lib, conn_h=conn_h, conn_v=conn_v, outs=outs,
+                      F=F, H=H, W=W: lib.cc_labels_launch(
+                          _build.ptr(conn_h), _build.ptr(conn_v),
+                          _build.ptr(outs[0]), F, H, W, stream())))
+        thresh = cfg.speckle_window_size
+        lab_off = lab + torch.arange(0, F * H * W, H * W, dtype=torch.int32,
+                                     device=dev).reshape(F, 1, 1)
+        ref = valid & component_big(lab_off, thresh)
+        scratch = (torch.empty_like(lab), torch.empty_like(lab))
+        outs = (torch.empty_like(valid),)
+
+        def launch(lib, conn_h=conn_h, conn_v=conn_v, valid=valid,
+                   outs=outs, F=F, H=H, W=W, thresh=thresh):
+            return lib.cc_big_launch(
+                _build.ptr(conn_h), _build.ptr(conn_v), _build.ptr(valid),
+                *(_build.ptr(t) for t in scratch), _build.ptr(outs[0]), F,
+                H, W, thresh, stream())
+        cases.append((f"big_{tag}", [F, H, W], (ref,), outs, launch, {
+            "skip_against": True,
+            "bound_ms": bound(9 * F * H * W, 0)[0],
+            "beside": {"component_big": lambda lab_off=lab_off, valid=valid,
+                       thresh=thresh: valid & component_big(lab_off,
+                                                            thresh)}}))
+    return cases
 
 
 def _sweep_cases(dev) -> list:
@@ -1240,11 +1304,12 @@ def _sweep_micro_cases(dev) -> list:
 def _cases(name: str, dev) -> list:
     """[(label, shape, reference outputs, output buffers, launch(lib),
     optional {"copy": fn, "reset": fn, "skip_against": bool, "takes":
-    fn(build, lib)})] at the
+    fn(build, lib), "bound_ms": float, "beside": {name: fn}})] at the
     path's shapes; launch passes the current stream, so that a CUDA graph
     can capture it. `copy` is a part of each launch timed alone, `reset`
     runs before each build's check, `skip_against` leaves the `--against`
-    builds out of the case."""
+    builds out of the case, `beside` are other routes to the same output
+    timed by events."""
     if name == "sgm_sweep":
         return _sweep_cases(dev)
     if name == "sgm_fused":
@@ -1331,12 +1396,7 @@ def _cases(name: str, dev) -> list:
                     o.copy_(s)
             cases.append((label, [F, n], ref, outs, launch, {"copy": copy}))
     elif name == "cc_labels":
-        conn_h, conn_v, lab, _ = _kitti_speckle(dev)
-        F, H, W = lab.shape
-        outs = (torch.empty_like(lab),)
-        cases.append(("kitti_F4", [F, H, W], (lab,), outs, lambda lib: (
-            lib.cc_labels_launch(_build.ptr(conn_h), _build.ptr(conn_v),
-                                 _build.ptr(outs[0]), F, H, W, stream()))))
+        cases += _cc_cases(dev, stream)
     elif name == "median3":
         *_, med_in = _kitti_speckle(dev)
         F, H, W = med_in.shape
@@ -1536,6 +1596,11 @@ def main(name: str, against: tuple = (), only=None, cases=None) -> None:
         if "copy" in extra:
             result[label]["copy_ms"] = _ms(extra["copy"])
             result[label]["copy_graph_ms"] = _graph_ms(extra["copy"])
+        if "bound_ms" in extra:
+            result[label]["bound_ms"] = extra["bound_ms"]
+        if "beside" in extra:
+            result[label]["beside_ms"] = {k: _ms(fn) for k, fn in
+                                          extra["beside"].items()}
         if "phases" in builds:
             result[label]["phase_cycles_per_warp_row"] = _phase_split(
                 builds["phases"], run)

@@ -1,7 +1,11 @@
-// Connected-component labels of a 4-connected pixel graph.
+// Connected-component labels of a 4-connected pixel graph, and speckle's
+// mask from the components' sizes.
 //
 // Replaces: tpustereo/kernels/cc_pallas.py, connected_component_labels_pallas
-// (kernel body `_cc_kernel`, whole-image and banded modes).
+// (kernel body `_cc_kernel`, whole-image and banded modes); with its size
+// count (`cc_big_launch`), also the JAX `component_big`'s sort of every
+// label (tpustereo/ops/postproc.py), which the port ran as a radix sort and
+// two binary searches.
 //
 // conn_h (F, H, W-1) and conn_v (F, H-1, W) are bool edge masks: conn_h
 // joins (y, x) and (y, x+1), conn_v joins (y, x) and (y+1, x). The output
@@ -78,6 +82,28 @@
 // that the store may replace. Every retry of the union loop lowers a root,
 // so the loop ends. Flatten writes lab[p] while other threads walk through
 // p; old and new values are both ancestors of p.
+//
+// Sizes (`cc_big_launch`: valid & (component size >= thresh), what speckle
+// keeps, bit for bit the mask of `component_big` over the labels). A
+// scene's few large components hold most pixels, so a per-pixel atomic on
+// the root would serialise there; instead every count below is at most one
+// atomic a tile-component:
+//   1. local, counting: each warp adds its pixels to their tile-local roots
+//      in shared memory (one atomic a root a warp, `__match_any_sync`),
+//      and the block writes count[p] = its tile-component's pixels at each
+//      tile-local root p and 0 at every other pixel (no fill of its own);
+//   2. border, as above;
+//   3. sizes: each tile-local root (count > 0) that the border unions
+//      linked under another adds its count to its root's with one global
+//      atomic and points straight at it; a component's root is its
+//      minimum, which is its own tile-component's root too, so its counter
+//      started at that tile-component's pixels and ends at the component's;
+//   4. mask: big[p] = valid[p] && count[find(p)] >= thresh, a thread a
+//      pixel; the chain is p -> its tile-local root -> the root. No label
+//      image is written.
+// Bound: bytes, 2 of edges and 1 of valid read and 1 of mask written a
+// pixel against 4 of labels and 4 of counts written, then read, by the
+// passes in between.
 #include "common.cuh"
 
 #ifndef CC_TILE_ROWS
@@ -131,17 +157,21 @@ __device__ __forceinline__ void cc_union(int32_t* L, int a, int b) {
   }
 }
 
-// Phase 1: one block a tile; tile index = (f * ncy + ty) * ncx + tx.
+// Phase 1: one block a tile; tile index = (f * ncy + ty) * ncx + tx. With
+// COUNT, also count[p] = the pixels of p's tile-component at each
+// tile-local root p, 0 at every other pixel.
+template <bool COUNT>
 __global__ void __launch_bounds__(LOCAL_THREADS)
     cc_local_kernel(const uint8_t* __restrict__ conn_h,
                     const uint8_t* __restrict__ conn_v,
-                    int32_t* __restrict__ lab, int H, int W, int ncy,
-                    int ncx) {
+                    int32_t* __restrict__ lab, int32_t* __restrict__ count,
+                    int H, int W, int ncy, int ncx) {
   constexpr int N = TILE_ROWS * TILE_COLS;
   __shared__ int32_t L[N];
   // at tile pixel i = (ly, lx): sh the edge to its left (0 at lx = 0), sv
   // the edge below it (0 on the tile's last row); both 0 outside the frame
   __shared__ uint8_t sh[N], sv[N];
+  __shared__ int32_t C[COUNT ? N : 1];  // pixels of each tile-local root
   const long b = blockIdx.x;
   const int tx = (int)(b % ncx), ty = (int)(b / ncx % ncy);
   const long f = b / ncx / ncy;
@@ -165,6 +195,7 @@ __global__ void __launch_bounds__(LOCAL_THREADS)
     if (i < N) {
       sh[i] = h;
       sv[i] = v;
+      if (COUNT) C[i] = 0;
     }
   }
   __syncthreads();
@@ -199,14 +230,28 @@ __global__ void __launch_bounds__(LOCAL_THREADS)
     if (!sh[i]) L[i] = cc_find(L, i);
   __syncthreads();
 
-  // each pixel's parent: its tile-local root, as a frame-local index
+  // each pixel's parent: its tile-local root, as a frame-local index; a
+  // warp's pixels lie in one tile row, so most warps meet one root
   int32_t* out = lab + f * H * (long)W;
   for (int i = threadIdx.x; i < ht * TILE_COLS; i += LOCAL_THREADS) {
     const int lx = i % TILE_COLS;
-    if (lx >= wt) continue;
     const int r = L[L[i]];
+    if (COUNT) {
+      const int key = lx < wt ? r : -1;
+      const unsigned peers = __match_any_sync(FULL_MASK, key);
+      if (key >= 0 && lane == __ffs(peers) - 1)
+        atomicAdd(&C[r], __popc(peers));
+    }
+    if (lx >= wt) continue;
     out[(long)(y0 + i / TILE_COLS) * W + x0 + lx] =
         (y0 + r / TILE_COLS) * W + x0 + r % TILE_COLS;
+  }
+  if (!COUNT) return;
+  __syncthreads();
+  int32_t* cnt = count + f * H * (long)W;
+  for (int i = threadIdx.x; i < ht * TILE_COLS; i += LOCAL_THREADS) {
+    const int lx = i % TILE_COLS;
+    if (lx < wt) cnt[(long)(y0 + i / TILE_COLS) * W + x0 + lx] = C[i];
   }
 }
 
@@ -250,33 +295,87 @@ __global__ void cc_border_kernel(const uint8_t* __restrict__ conn_h,
   cc_union(lab + f * hw, (y - 1) * W + x, y * W + x);
 }
 
-// Phase 3.
-__global__ void cc_flatten_kernel(int32_t* lab, long n, int hw) {
+// Phase 3, each pixel to its root, as OUT says: LABELS writes the root
+// (lab[i] = find(i)); SIZES and MASK are the size count's passes 3 and 4
+// (above): a tile-local root linked under another adds its count to its
+// root's and points at it; big[i] = valid[i] && count[root] >= thresh.
+constexpr int LABELS = 0, SIZES = 1, MASK = 2;
+
+template <int OUT>
+__global__ void cc_flatten_kernel(int32_t* lab, int32_t* count,
+                                  const uint8_t* __restrict__ valid,
+                                  uint8_t* __restrict__ big, long n, int hw,
+                                  int thresh) {
   const long i = (long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
-  const long base = i - i % hw;
-  lab[i] = cc_find(lab + base, (int)(i - base));
+  const int p = (int)i % hw;  // n < 2^31: a 32-bit division
+  const long base = i - p;
+  if (OUT == LABELS) {
+    lab[i] = cc_find(lab + base, p);
+  } else if (OUT == SIZES) {
+    // a root's own counter may grow while it reads it: it only tests it;
+    // no thread adds to a counter that is not a root's
+    const int c = count[i];
+    if (c == 0) return;
+    const int r = cc_find(lab + base, p);
+    if (r == p) return;
+    lab[i] = r;
+    atomicAdd(&count[base + r], c);
+  } else {
+    big[i] = valid[i] && count[base + cc_find(lab + base, p)] >= thresh;
+  }
+}
+
+static unsigned blocks(long n) {
+  return (unsigned)((n + THREADS - 1) / THREADS);
+}
+
+// Phases 1 and 2: the tile forests (with COUNT, and their counts) and the
+// unions across tile borders.
+template <bool COUNT>
+static void forest(const uint8_t* conn_h, const uint8_t* conn_v, int32_t* lab,
+                   int32_t* count, int F, int H, int W, cudaStream_t s) {
+  const int ncy = (H + TILE_ROWS - 1) / TILE_ROWS;
+  const int ncx = (W + TILE_COLS - 1) / TILE_COLS;
+  const long n_h = (long)F * H * (ncx - 1);
+  const long n_border = n_h + (long)F * (ncy - 1) * W;
+  const unsigned tiles = (unsigned)((long)F * ncy * ncx);
+  cc_local_kernel<COUNT><<<tiles, LOCAL_THREADS, 0, s>>>(
+      conn_h, conn_v, lab, count, H, W, ncy, ncx);
+  if (n_border > 0)
+    cc_border_kernel<<<blocks(n_border), THREADS, 0, s>>>(
+        conn_h, conn_v, lab, H, W, ncy, ncx, n_h, n_border);
+}
+
+static bool bad_shape(int F, int H, int W) {
+  return F < 1 || H < 1 || W < 1 || (long)F * H * W >= (1L << 31);
 }
 
 TPS_EXPORT int cc_labels_launch(const uint8_t* conn_h, const uint8_t* conn_v,
                                 int32_t* lab, int F, int H, int W,
                                 void* stream) {
-  if (F < 1 || H < 1 || W < 1 || (long)F * H * W >= (1L << 31))
-    return (int)cudaErrorInvalidValue;
-  const int ncy = (H + TILE_ROWS - 1) / TILE_ROWS;
-  const int ncx = (W + TILE_COLS - 1) / TILE_COLS;
-  const long n_h = (long)F * H * (ncx - 1);
-  const long n_border = n_h + (long)F * (ncy - 1) * W;
+  if (bad_shape(F, H, W)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned tiles = (unsigned)((long)F * ncy * ncx);
-  cc_local_kernel<<<tiles, LOCAL_THREADS, 0, s>>>(conn_h, conn_v, lab, H, W,
-                                                   ncy, ncx);
-  if (n_border > 0)
-    cc_border_kernel<<<(unsigned)((n_border + THREADS - 1) / THREADS),
-                       THREADS, 0, s>>>(conn_h, conn_v, lab, H, W, ncy, ncx,
-                                        n_h, n_border);
+  forest<false>(conn_h, conn_v, lab, nullptr, F, H, W, s);
   const long n = (long)F * H * W;
-  cc_flatten_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0,
-                      s>>>(lab, n, H * W);
+  cc_flatten_kernel<LABELS><<<blocks(n), THREADS, 0, s>>>(
+      lab, nullptr, nullptr, nullptr, n, H * W, 0);
+  return (int)cudaGetLastError();
+}
+
+// big = valid & (the pixel's component has >= thresh pixels), all (F, H,
+// W); lab and count are scratch of F * H * W int32 each, left unspecified.
+TPS_EXPORT int cc_big_launch(const uint8_t* conn_h, const uint8_t* conn_v,
+                             const uint8_t* valid, int32_t* lab,
+                             int32_t* count, uint8_t* big, int F, int H,
+                             int W, int thresh, void* stream) {
+  if (bad_shape(F, H, W)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  forest<true>(conn_h, conn_v, lab, count, F, H, W, s);
+  const long n = (long)F * H * W;
+  cc_flatten_kernel<SIZES><<<blocks(n), THREADS, 0, s>>>(
+      lab, count, nullptr, nullptr, n, H * W, 0);
+  cc_flatten_kernel<MASK><<<blocks(n), THREADS, 0, s>>>(
+      lab, count, valid, big, n, H * W, thresh);
   return (int)cudaGetLastError();
 }

@@ -228,7 +228,8 @@ def stage_times(left, right, cfg: Config, iters: int = 5,
     if cfg.speckle_window_size > 0:
         t("speckle", lambda d: speckle_frames(
             d, valid, cfg, cc=kernels.connected_component_labels,
-            sort=kernels.bitonic_sort), disp)
+            sort=kernels.bitonic_sort,
+            big=kernels.connected_component_big), disp)
     if cfg.median_filter:
         t("median3", kernels.median3, disp)
     return {k: round(v, 3) for k, v in ms.items()}

@@ -9,7 +9,8 @@ that it went through the kernels. Importing this package builds nothing:
 """
 
 from tpustereo_torch.kernels.bitonic import bitonic_sort  # noqa: F401
-from tpustereo_torch.kernels.cc import connected_component_labels  # noqa: F401
+from tpustereo_torch.kernels.cc import (  # noqa: F401
+    connected_component_big, connected_component_labels)
 from tpustereo_torch.kernels.cost import census_cost_volume  # noqa: F401
 from tpustereo_torch.kernels.lr import (  # noqa: F401
     dr_consistency, dr_consistency_hits)
@@ -30,7 +31,7 @@ WRAPPERS = (census_cost_volume, sgm_sweep, sweep_bwd_wta, dr_consistency,
             transpose_hw, transpose_sum_hw, sgm_sweep_bidir,
             dr_consistency_hits, bitonic_sort, sweep_micro, elem_chain_micro,
             roll_chain_micro, reg_chain_micro, bf16_roll_chain_micro,
-            sgm_sweep_fused)
+            sgm_sweep_fused, connected_component_big)
 
 
 def launch_counts() -> dict:

@@ -14,10 +14,11 @@ Counterparts of the JAX package's `ops/postproc.py`:
   float32), labelled by their minimum linear index; pixels of components
   smaller than `speckle_window_size` are invalidated. The speckle functions
   take the labelling function as `cc`, and `speckle_frames` the sort of
-  `BITONIC_SPECKLE` as `sort`, so the pipeline can hand them the CUDA
-  kernels' wrappers (`kernels.connected_component_labels`,
-  `kernels.bitonic_sort`); they default to the plain
-  `connected_component_labels` and `torch.sort`.
+  `BITONIC_SPECKLE` as `sort` and the labels' and sizes' route in one
+  call as `big`, so the pipeline can hand them the CUDA kernels' wrappers
+  (`kernels.connected_component_labels`, `kernels.bitonic_sort`,
+  `kernels.connected_component_big`); they default to the plain
+  `connected_component_labels`, `torch.sort` and `component_big`.
 - `fill_background` and `fill_hirschmuller` (Hirschmueller 2008, section
   V): each invalid (-1) pixel takes a value picked from the nearest valid
   pixels along rays. The JAX package holds the last valid value along a
@@ -154,10 +155,11 @@ def component_big(lab: torch.Tensor, thresh: int) -> torch.Tensor:
     """Per-pixel 'my component has >= thresh pixels' for labels that are
     distinct across components: each pixel's count is the width of its
     label's run in the sorted labels, found by two binary searches. Same
-    mask as the JAX `component_big`, which also sorts. (A histogram is the
-    other exact route: `torch.bincount` reads its largest label back to
-    the host, and an `index_add_` histogram serialises on the atomics of
-    the large components.)"""
+    mask as the JAX `component_big`, which also sorts. On the card the
+    pipeline takes `kernels.connected_component_big` instead: the
+    labelling kernel counts each tile-component in shared memory and adds
+    it to its root's counter with one atomic, so the large components
+    serialise nothing, and no label is sorted."""
     flat = lab.reshape(-1)
     keys = flat.sort().values
     count = (torch.searchsorted(keys, flat, right=True)
@@ -205,8 +207,8 @@ def component_big_sorted(lab: torch.Tensor, thresh: int,
 
 
 # Speckle sizes through `sort` (the bitonic kernel on the pipeline's path)
-# in place of `component_big`'s sort + searchsorted, as the JAX toggle of
-# the same name; off by default. The outputs are the same.
+# in place of `big` or `component_big`'s sort + searchsorted, as the JAX
+# toggle of the same name; off by default. The outputs are the same.
 BITONIC_SPECKLE = False
 
 
@@ -241,17 +243,26 @@ def speckle(disp: torch.Tensor, valid: torch.Tensor, cfg: Config,
 
 
 def speckle_frames(disp: torch.Tensor, valid: torch.Tensor, cfg: Config,
-                   cc=connected_component_labels,
-                   sort=torch_sort) -> torch.Tensor:
+                   cc=connected_component_labels, sort=torch_sort,
+                   big=None) -> torch.Tensor:
     """`speckle` over (F, H, W) stacked frames: one labelling call for all
     frames, then labels offset by f*H*W and one `component_big` over the
     stack or, under `BITONIC_SPECKLE`, `component_big_sorted` with one sort
-    per frame (the frames a batch axis of each `sort` call, no offsets)."""
+    per frame (the frames a batch axis of each `sort` call, no offsets).
+    Given `big(conn_h, conn_v, valid, thresh)` (`kernels.
+    connected_component_big`) and off `BITONIC_SPECKLE`, that one call
+    takes the edge masks to the mask in place of the labels, the offsets
+    and `component_big`."""
     if cfg.speckle_window_size <= 0:
         return valid
     F, H, W = disp.shape
     if F * H * W >= 1 << 31:
         raise ValueError("speckle_frames needs F*H*W < 2**31")
+    if big is not None and not BITONIC_SPECKLE:
+        with span("speckle.labels"):
+            conn_h, conn_v = speckle_conn(disp, valid, cfg)
+        with span("speckle.sizes"):
+            return big(conn_h, conn_v, valid, cfg.speckle_window_size)
     with span("speckle.labels"):
         lab = speckle_labels(disp, valid, cfg, cc)
     with span("speckle.sizes"):

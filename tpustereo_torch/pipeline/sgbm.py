@@ -15,8 +15,9 @@ Mirrors the JAX fused branches of `sgbm` and `sgbm_frames`, then
   (`sad_wta`, no volume in memory), then `valid &= dr_consistency`;
 
 then, for every mode, speckle over the stacked frames (`ops.speckle_frames`
-with the CUDA labelling kernel, and the bitonic sort under
-`ops.postproc.BITONIC_SPECKLE`), `where(valid, disp, -1.0)`, the fill
+with the CUDA labelling kernel and its size count, and the labels and the
+bitonic sort under `ops.postproc.BITONIC_SPECKLE`), `where(valid, disp,
+-1.0)`, the fill
 (`ops.fill_background` or `ops.fill_hirschmuller`) and the median over the
 stack. Frames are a batch dimension written out, so `frames_per_step`
 changes nothing numerically. Everything runs on the device of the input
@@ -63,6 +64,7 @@ import torch
 from tpustereo_torch.config import Config
 from tpustereo_torch.kernels import (aggregate_volume, bitonic_sort,
                                      census_cost_volume,
+                                     connected_component_big,
                                      connected_component_labels,
                                      dr_consistency, dr_consistency_hits,
                                      median3, sad_wta, sgm_select, wta_lr)
@@ -162,7 +164,7 @@ def _postproc(disp: torch.Tensor, valid: torch.Tensor,
     with span("speckle"):
         valid = speckle_frames(disp, valid, cfg,
                                cc=connected_component_labels,
-                               sort=bitonic_sort)
+                               sort=bitonic_sort, big=connected_component_big)
     out = torch.where(valid, disp, INVALID)
     if cfg.fill_mode == "background":
         with span("fill"):

@@ -22,7 +22,11 @@ The spans sit at the layer boundaries of the pipeline (`pipeline/sgbm.py`,
         tps.select        the volume route's `wta_lr` (and hits kernel)
         tps.lr_check      the fused routes' LR check
         tps.speckle       speckle over the set
-          tps.speckle.labels, tps.speckle.sizes
+          tps.speckle.labels  the edge masks, and the labels where they
+                              are a call of their own (the plain route,
+                              `BITONIC_SPECKLE`)
+          tps.speckle.sizes   the sizes: on the pipeline's route one call
+                              of the labelling kernel with its size count
         tps.fill, tps.median
       tps.cat             the concatenation of the sets' outputs
 """
