@@ -7,9 +7,10 @@ size, on the card, several seeds in one process:
 `program` runs the cell's entry as the benchmark does (a short window,
 then the check); `control` puts the reference computed in bfloat16, the
 nearest precision below the configuration's float32 subpixel stage, in
-the program's place. Each seed prints one JSON line: its readings and
-whether the run came out correct. The benchmark's own runs never run the
-control.
+the program's place (`harness.control_entry`: numpy in and out where the
+cell's traffic passes host arrays). Each seed prints one JSON line: its
+readings and whether the run came out correct. The benchmark's own runs
+never run the control.
 """
 
 import json
@@ -26,7 +27,6 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 from benchmark import harness  # noqa: E402
-from benchmark.reference import sgbm_ref  # noqa: E402
 
 
 def main() -> int:
@@ -42,12 +42,8 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 2
     cell = harness.load_cell(a.workload)
-    pinned = cell.config["pinned"]
-
-    def control(left, right, cfg):
-        return sgbm_ref.sgbm_frames(left, right, pinned,
-                                    harness.REF_MAX_CELLS, torch.bfloat16)
-    entry = control if a.entry == "control" else None
+    entry = (harness.control_entry(cell, "cuda") if a.entry == "control"
+             else None)
     for seed in (int(s) for s in a.seeds.split(",")):
         t0 = time.perf_counter()
         r = harness.run(cell, seed, a.seconds, False, "cuda", t0,

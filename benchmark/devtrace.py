@@ -1,7 +1,8 @@
 """What the traced run reads: the device operations and the benchmark's host
-spans of a `torch.profiler` Chrome trace, the union of device intervals
-(the busy time), the idle gaps labelled by the host span they fell in, and
-the shares of a roofline that the per-layer readers take.
+spans of a `torch.profiler` Chrome trace, the host-device copies with their
+bytes, the union of device intervals (the busy time), the idle gaps labelled
+by the host span they fell in, and the shares of a roofline that the
+per-layer readers take.
 
 The interval arithmetic is a copy of the port's `eval/roofline.py`
 `busy_share`: the union of kernel, copy and fill intervals, so that
@@ -13,7 +14,7 @@ from __future__ import annotations
 import bisect
 import json
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from benchmark import workmodel
@@ -22,9 +23,14 @@ from benchmark import workmodel
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the benchmark's own host spans around each traced call
 SPANS = ("issue", "wait", "loop")
+# the directions of a copy between the host and the card, as kineto names
+# them ("Memcpy HtoD (Pageable -> Device)")
+HOST_COPY = re.compile(r"\b(HtoD|DtoH)\b")
 
 Op = Tuple[str, str, float, float]        # name, category, start us, dur us
 Span = Tuple[str, float, float]           # label, start us, end us
+# direction, start us, dur us, bytes (None where the trace gives none)
+Copy = Tuple[str, float, float, Optional[float]]
 
 
 @dataclass
@@ -37,6 +43,7 @@ class TraceView:
     frames: int                            # frames those calls made
     host_issue_s: List[float]              # untraced calls' issue times
     stages: Optional[Dict[str, Dict[str, float]]]   # work of one frame
+    copies: List[Copy] = field(default_factory=list)  # HtoD and DtoH
 
     @property
     def window_us(self) -> float:
@@ -52,26 +59,35 @@ class TraceView:
                 - min(s for _, _, s, _ in self.ops))
 
 
-def read_chrome_trace(path: str) -> Tuple[List[Op], List[Span]]:
-    """(device operations, host spans) of a Chrome trace file."""
+def read_chrome_trace(path: str) -> Tuple[List[Op], List[Span],
+                                         List[Copy]]:
+    """(device operations, host spans, copies between the host and the
+    card) of a Chrome trace file; a copy's bytes are kineto's `bytes`
+    argument of its `gpu_memcpy` event."""
     with open(path) as f:
         trace = json.load(f)
     events = trace.get("traceEvents", []) if isinstance(trace, dict) \
         else trace
-    ops, spans = [], []
+    ops, spans, copies = [], [], []
     for e in events:
         if e.get("ph") != "X" or "dur" not in e:
             continue
-        cat = e.get("cat", "")
+        cat, name = e.get("cat", ""), e.get("name", "")
         if cat in DEVICE_CATS:
-            ops.append((e.get("name", ""), cat, float(e["ts"]),
-                        float(e["dur"])))
-        elif cat == "user_annotation" and e.get("name") in SPANS:
-            spans.append((e["name"], float(e["ts"]),
+            ops.append((name, cat, float(e["ts"]), float(e["dur"])))
+            way = HOST_COPY.search(name) if cat == "gpu_memcpy" else None
+            if way:
+                n = (e.get("args") or {}).get("bytes")
+                copies.append((way.group(1), float(e["ts"]),
+                               float(e["dur"]),
+                               None if n is None else float(n)))
+        elif cat == "user_annotation" and name in SPANS:
+            spans.append((name, float(e["ts"]),
                           float(e["ts"]) + float(e["dur"])))
     ops.sort(key=lambda o: o[2])
     spans.sort(key=lambda s: s[1])
-    return ops, spans
+    copies.sort(key=lambda c: c[1])
+    return ops, spans, copies
 
 
 def union_us(intervals: Sequence[Tuple[float, float]]) -> float:
@@ -208,3 +224,28 @@ def frame_roofline_pct(view: TraceView) -> Optional[float]:
         return None
     least = workmodel.least_seconds(view.stages, view.stages) * view.frames
     return 100.0 * least / (view.window_us / 1e6)
+
+
+def copy_ms(view: TraceView) -> Optional[float]:
+    """Device ms of the copies between the host and the card, per traced
+    call."""
+    if not view.copies or view.calls <= 0:
+        return None
+    return 1e-3 * sum(d for _, _, d, _ in view.copies) / view.calls
+
+
+def copy_link_pct(view: TraceView) -> Optional[float]:
+    """100 x the copies' bytes over their device time, as a share of one
+    direction of the host link (`workmodel.PEAKS`); None where a copy's
+    bytes are not in the trace. For copies from or into pageable memory
+    the driver stages the bytes through a pinned buffer on the host, so
+    the device time is set by the host's staging and this reads the staged
+    copy rate, not how much of the link the copies use; only pinned copies
+    read the link itself."""
+    if not view.copies or any(n is None for *_, n in view.copies):
+        return None
+    us = sum(d for _, _, d, _ in view.copies)
+    if us <= 0:
+        return None
+    rate = sum(n for *_, n in view.copies) / (us / 1e6)
+    return 100.0 * rate / workmodel.PEAKS["host_link_bytes_per_s"]

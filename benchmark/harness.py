@@ -8,8 +8,10 @@ mix; each is a file of its own, found by name:
   fix the output (`pinned`), the frame shape, the scene layout of the
   dataset, and the limits of the comparison (`check`);
 * `benchmark/traffic/<traffic>.json`: the entry, the frames a call, the
-  loop, the pool of distinct pairs, the frames the traced run traces and
-  the megapixels the check compares;
+  loop, the pool of distinct pairs, the frames the traced run traces, the
+  megapixels the check compares, and the arrays the entry takes and
+  returns (`arrays`: "device", tensors on the card, by default; "host",
+  numpy arrays, as an API caller passes them);
 * `benchmark/metrics/<metric>.py`: each per-layer metric's reader,
   `read(view) -> float | None` over the traced calls (`devtrace.TraceView`).
 
@@ -21,9 +23,15 @@ runs the same loop and profiles `trace_frames` frames of calls from a
 quarter of the way in, with the spans `issue`, `wait` and `loop` around
 each traced call's parts; the per-layer readers then read the trace.
 
+The pool is made on the card from the seed whatever the arrays. With
+host arrays the set-up copies its left and right images once, untimed,
+into ordinary (not pinned) numpy arrays, and the calls take slices of
+those: each call's copies to the card and back are the entry's own work.
+
 After the window a sample of the calls, drawn from the seed (a reservoir
 over every call of the window), is compared with the reference
-(`benchmark/reference/`), which works from the same pool pairs alone.
+(`benchmark/reference/`), which works from the same pool pairs alone, on
+the card.
 """
 
 from __future__ import annotations
@@ -40,8 +48,9 @@ import sys
 import tempfile
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from benchmark import devtrace, scenes, workmodel
@@ -61,6 +70,9 @@ END_TO_END = ("frames_per_s", "call_latency_p95_ms", "peak_mem_gib",
 NO_ANSWER = 1e9
 # where the reference runs: blocks of at most this many volume cells
 REF_MAX_CELLS = 1 << 31
+# what a traffic's entry takes and returns: tensors on the card, or numpy
+# arrays on the host
+ARRAYS = ("device", "host")
 
 
 class CellError(Exception):
@@ -138,6 +150,56 @@ def resolve_entry(dotted: str) -> Callable:
     return getattr(importlib.import_module(mod), fn)
 
 
+def arrays(traffic: dict) -> str:
+    """The kind of arrays the traffic's entry takes and returns."""
+    kind = traffic.get("arrays", "device")
+    if kind not in ARRAYS:
+        raise CellError(f"arrays {kind!r} is none of {ARRAYS}")
+    return kind
+
+
+def make_inputs(cell: Cell, seed: int, device) -> Tuple[dict, dict]:
+    """(pool, inputs): the traffic's pool of pairs, made on `device` from
+    the seed, and what the entry's calls take slices of: the pool itself,
+    or with host arrays one numpy copy of its left and right images, not
+    pinned, since a caller's frames are not."""
+    config = cell.config
+    pool = scenes.make_pool(config["scene"], cell.traffic["pool"],
+                            tuple(config["shape"]),
+                            config["pinned"]["num_disparities"], seed,
+                            device)
+    if arrays(cell.traffic) == "device":
+        return pool, pool
+    return pool, {k: pool[k].cpu().numpy() for k in ("left", "right")}
+
+
+def warm_up(entry, cfg, inputs, B: int, calls: int, device) -> None:
+    """`calls` calls of the entry over the inputs' groups of B pairs, in
+    the window's order, then a synchronize."""
+    groups = inputs["left"].shape[0] // B
+    for i in range(calls):
+        g = i % groups
+        entry(inputs["left"][g * B:(g + 1) * B],
+              inputs["right"][g * B:(g + 1) * B], cfg)
+    _sync(device)()
+
+
+def control_entry(cell: Cell, device) -> Callable:
+    """The control: the reference with its float stage in bfloat16, the
+    nearest precision below the configuration's float32, in the program's
+    place, taking and returning the traffic's kind of arrays."""
+    pinned, host = cell.config["pinned"], arrays(cell.traffic) == "host"
+
+    def control(left, right, cfg):
+        if host:
+            left, right = (torch.from_numpy(x).to(device)
+                           for x in (left, right))
+        out = sgbm_ref.sgbm_frames(left, right, pinned, REF_MAX_CELLS,
+                                   torch.bfloat16)
+        return out.cpu().numpy() if host else out
+    return control
+
+
 def forbidden_modules() -> List[str]:
     """Loaded modules whose top-level name is JAX's or the JAX
     package's, compared whole."""
@@ -188,13 +250,14 @@ def _sync(device: torch.device) -> Callable[[], None]:
     return lambda: None
 
 
-def run_window(entry, cfg, pool, B: int, seconds: float, device,
+def run_window(entry, cfg, inputs, B: int, seconds: float, device,
                sampler: Reservoir, trace_frames: int = 0,
                trace_dir: Optional[str] = None) -> dict:
-    """The closed loop: calls until `seconds` have passed since the first
-    one's issue. With trace_frames, profiles that many frames of calls
-    from a quarter of the way in, into a Chrome trace under trace_dir."""
-    left, right = pool["left"], pool["right"]
+    """The closed loop over the inputs (`make_inputs`): calls until
+    `seconds` have passed since the first one's issue. With trace_frames,
+    profiles that many frames of calls from a quarter of the way in, into
+    a Chrome trace under trace_dir."""
+    left, right = inputs["left"], inputs["right"]
     groups = left.shape[0] // B
     sync = _sync(device)
     lat, issue, untraced_issue = [], [], []
@@ -254,11 +317,26 @@ def run_window(entry, cfg, pool, B: int, seconds: float, device,
             "untraced_issue": untraced_issue, "traced": traced}
 
 
-def compare(out: torch.Tensor, ref: torch.Tensor) -> Dict[str, float]:
+def as_tensor(out, kind: str, device) -> Optional[torch.Tensor]:
+    """A kept output as a tensor on `device`; None where it is not of the
+    traffic's kind of array (`arrays`)."""
+    if kind == "device":
+        return out if isinstance(out, torch.Tensor) else None
+    if not isinstance(out, np.ndarray):
+        return None
+    try:
+        return torch.from_numpy(out).to(device)
+    except (TypeError, ValueError):     # a dtype or strides torch refuses
+        return None
+
+
+def compare(out: Optional[torch.Tensor],
+            ref: torch.Tensor) -> Dict[str, float]:
     """The numbers compared: pixels whose invalid marking (-1) differs,
     and the widest disparity gap over the pixels valid in both (NO_ANSWER
-    where the program's output holds a NaN or has another shape)."""
-    if out.shape != ref.shape or out.dtype != ref.dtype:
+    where the program's output holds a NaN, has another shape or type, or
+    is no tensor)."""
+    if out is None or out.shape != ref.shape or out.dtype != ref.dtype:
         return {"invalid_mismatch_px": ref.numel(), "disp_gap_px": NO_ANSWER}
     inv_o, inv_r = out == -1.0, ref == -1.0
     both = ~inv_o & ~inv_r
@@ -274,10 +352,10 @@ def compare(out: torch.Tensor, ref: torch.Tensor) -> Dict[str, float]:
 
 def check(cell: Cell, pool, B: int, sampler: Reservoir,
           subpixel_dtype=torch.float32) -> dict:
-    """Each kept call's output against the reference of its pairs, the
-    reference run once over the distinct pool pairs that the kept calls
-    took: {"readings": worst of each number, "frames": frames compared,
-    "pairs": distinct pairs}."""
+    """Each kept call's output, as a tensor on the pool's device, against
+    the reference of its pairs, the reference run once over the distinct
+    pool pairs that the kept calls took: {"readings": worst of each
+    number, "frames": frames compared, "pairs": distinct pairs}."""
     groups = sorted({g for _, g, _ in sampler.kept})
     idx = torch.cat([torch.arange(g * B, (g + 1) * B) for g in groups])
     ref = sgbm_ref.sgbm_frames(pool["left"][idx], pool["right"][idx],
@@ -286,11 +364,13 @@ def check(cell: Cell, pool, B: int, sampler: Reservoir,
     at = {g: k * B for k, g in enumerate(groups)}
     worst = {"invalid_mismatch_px": 0, "disp_gap_px": 0.0}
     frames = 0
+    kind = arrays(cell.traffic)
     for _, g, out in sampler.kept:
+        out = as_tensor(out, kind, ref.device)
         got = compare(out, ref[at[g]:at[g] + B])
         for k in worst:
             worst[k] = max(worst[k], got[k])
-        frames += out.shape[0]
+        frames += B if out is None else out.shape[0]
     return {"readings": worst, "frames": frames, "pairs": len(idx)}
 
 
@@ -313,18 +393,12 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     H, W = config["shape"]
     cfg = port_config(config)
     entry = entry or resolve_entry(traffic["entry"])
-    D = config["pinned"]["num_disparities"]
 
     t_run = time.perf_counter()
-    pool = scenes.make_pool(config["scene"], n_pool, (H, W), D, seed,
-                            device)
+    pool, inputs = make_inputs(cell, seed, device)
     _sync(device)()
     t_pool = time.perf_counter()
-    for i in range(traffic["warmup_calls"]):
-        g = i % (n_pool // B)
-        entry(pool["left"][g * B:(g + 1) * B],
-              pool["right"][g * B:(g + 1) * B], cfg)
-    _sync(device)()
+    warm_up(entry, cfg, inputs, B, traffic["warmup_calls"], device)
     setup_peak = 0
     if device.type == "cuda":
         setup_peak = torch.cuda.max_memory_allocated(device)
@@ -337,10 +411,10 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
           f"warm-up {time.perf_counter() - t_pool:.6f} s", file=log)
 
     with tempfile.TemporaryDirectory() as tmp:
-        win = run_window(entry, cfg, pool, B, seconds, device, sampler,
+        win = run_window(entry, cfg, inputs, B, seconds, device, sampler,
                          traffic["trace_frames"] if trace else 0, tmp)
         if trace:
-            ops, spans = devtrace.read_chrome_trace(
+            ops, spans, copies = devtrace.read_chrome_trace(
                 os.path.join(tmp, "trace.json"))
     window_peak = (torch.cuda.max_memory_allocated(device)
                    if device.type == "cuda" else 0)
@@ -367,7 +441,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
                   if config["pinned"]["mode"] == "sgm" else None)
         t0, n = win["traced"]
         view = devtrace.TraceView(ops, spans, n, n * B,
-                                  win["untraced_issue"], stages)
+                                  win["untraced_issue"], stages, copies)
         metrics = {}
         for m in cell.spec["per_layer"]:
             if m["name"] in cell.metrics:

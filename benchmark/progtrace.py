@@ -312,29 +312,24 @@ def report(prog: Program, frames: int) -> dict:
 def run_cell(cell, seed: int, seconds: float, keep: str,
              device="cuda") -> dict:
     """One traced run of the cell (`harness.Cell`), as `benchmark/run.py
-    --trace 1` runs its window (the same set-up and `harness.run_window`),
-    with the trace kept under `keep`; no check of the outputs."""
+    --trace 1` runs its window (the same set-up, `harness.make_inputs`,
+    `harness.warm_up` and `harness.run_window`), with the trace kept under
+    `keep`; no check of the outputs."""
     import torch
 
-    from benchmark import harness, scenes, workmodel
+    from benchmark import harness, workmodel
     t_process = time.perf_counter()
     traffic, config = cell.traffic, cell.config
-    B, n_pool = traffic["batch"], traffic["pool"]
+    B = traffic["batch"]
     H, W = config["shape"]
     cfg = harness.port_config(config)
     entry = harness.resolve_entry(traffic["entry"])
     device = torch.device(device)
-    pool = scenes.make_pool(config["scene"], n_pool, (H, W),
-                            config["pinned"]["num_disparities"], seed,
-                            device)
-    for i in range(traffic["warmup_calls"]):
-        g = i % (n_pool // B)
-        entry(pool["left"][g * B:(g + 1) * B],
-              pool["right"][g * B:(g + 1) * B], cfg)
-    harness._sync(device)()
+    _, inputs = harness.make_inputs(cell, seed, device)
+    harness.warm_up(entry, cfg, inputs, B, traffic["warmup_calls"], device)
     setup_s = time.perf_counter() - t_process
     os.makedirs(keep, exist_ok=True)
-    win = harness.run_window(entry, cfg, pool, B, seconds, device,
+    win = harness.run_window(entry, cfg, inputs, B, seconds, device,
                              harness.Reservoir(1, seed),
                              traffic["trace_frames"], keep)
     path = os.path.join(keep, "trace.json")
@@ -342,11 +337,11 @@ def run_cell(cell, seed: int, seconds: float, keep: str,
     lat = [1e3 * x for x in win["latency"]]
     traced = lat[t0:t0 + n]
     untraced = lat[:t0] + lat[t0 + n:]
-    ops, spans = devtrace.read_chrome_trace(path)
+    ops, spans, copies = devtrace.read_chrome_trace(path)
     stage = (workmodel.sgm_frame(config["pinned"], (H, W))
              if config["pinned"]["mode"] == "sgm" else None)
     view = devtrace.TraceView(ops, spans, n, n * B, win["untraced_issue"],
-                              stage)
+                              stage, copies)
     out = report(read_program(path), n * B)
     out["benchmark"] = {m: cell.metrics[m](view) for m in cell.metrics}
     out["run"] = {

@@ -8,11 +8,11 @@ bfloat16 in the program's place) does not. They skip without a card:
 
 import time
 
+import numpy as np
 import pytest
 import torch
 
 from benchmark import harness
-from benchmark.reference import sgbm_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -27,17 +27,27 @@ def _cell(name):
 
 @pytest.mark.parametrize("name", ["kitti_sgm8.stream-b8",
                                   "middlebury_sgm4.stream-b8",
-                                  "kitti_sgm8.live-b1"])
+                                  "kitti_sgm8.live-b1",
+                                  "kitti_sgm8.api-b8"])
 def test_card_run_correct_and_control_not(cuda, name):
     cell = _cell(name)
     r = harness.run(cell, 2 ** 31 + 7, 1.0, True, cuda, time.perf_counter())
     assert r["correct"], r["checks"]
     assert r["device"]["busy_s"] > 0 and set(r["metrics"]) == set(
         cell.metrics)
-
-    def control(left, right, cfg):
-        return sgbm_ref.sgbm_frames(left, right, cell.config["pinned"],
-                                    subpixel_dtype=torch.bfloat16)
+    if "api.copy_link_pct" in cell.metrics:
+        assert 0 < r["metrics"]["api.copy_link_pct"]["value"] <= 100
     r = harness.run(cell, 2 ** 31 + 8, 0.5, False, cuda,
-                    time.perf_counter(), entry=control)
+                    time.perf_counter(),
+                    entry=harness.control_entry(cell, cuda))
     assert not r["correct"], r["checks"]
+
+
+def test_host_inputs_unpinned_and_equal_to_the_card_pool(cuda):
+    pool, inputs = harness.make_inputs(_cell("kitti_sgm8.api-b8"),
+                                       2 ** 31 + 9, cuda)
+    assert pool["left"].is_cuda
+    for k in ("left", "right"):
+        assert isinstance(inputs[k], np.ndarray)
+        assert not torch.from_numpy(inputs[k]).is_pinned()
+        assert np.array_equal(inputs[k], pool[k].cpu().numpy())

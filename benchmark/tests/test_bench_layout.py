@@ -40,19 +40,35 @@ def test_pinned_fields_are_the_presets(config):
                                   if c["name"] == config)
 
 
-@pytest.mark.parametrize("missing", [
-    "benchmark/traffic/stream-b8.json",
-    "benchmark/configs/kitti_sgm8.json",
-    "benchmark/metrics/sweeps_roofline.py"])
-def test_a_missing_file_fails(tmp_path, missing):
+@pytest.mark.parametrize("cell,missing", [
+    ("kitti_sgm8.stream-b8", "benchmark/traffic/stream-b8.json"),
+    ("kitti_sgm8.stream-b8", "benchmark/configs/kitti_sgm8.json"),
+    ("kitti_sgm8.stream-b8", "benchmark/metrics/sweeps_roofline.py"),
+    ("kitti_sgm8.api-b8", "benchmark/traffic/api-b8.json"),
+    ("kitti_sgm8.api-b8", "benchmark/metrics/api.copy_link_pct.py")])
+def test_a_missing_file_fails(tmp_path, cell, missing):
     shutil.copy(os.path.join(harness.ROOT, "BENCHMARK.json"), tmp_path)
     shutil.copytree(os.path.join(harness.ROOT, "benchmark"),
                     tmp_path / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    harness.load_cell("kitti_sgm8.stream-b8", str(tmp_path))
+    harness.load_cell(cell, str(tmp_path))
     os.remove(tmp_path / missing)
     with pytest.raises(harness.CellError, match="missing file"):
-        harness.load_cell("kitti_sgm8.stream-b8", str(tmp_path))
+        harness.load_cell(cell, str(tmp_path))
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
+def test_traffic_keys(cell):
+    """A traffic file holds the harness's keys, `arrays` optional."""
+    t = harness.load_cell(cell).traffic
+    keys = {"entry", "batch", "loop", "clients", "pool", "warmup_calls",
+            "trace_frames", "check_megapixels"}
+    assert keys <= set(t) <= keys | {"arrays"}
+    assert harness.arrays(t) in harness.ARRAYS
+    assert harness.arrays(t) == ("host" if cell == "kitti_sgm8.api-b8"
+                                 else "device")
+    assert harness.resolve_entry(t["entry"]).__module__.startswith(
+        "tpustereo_torch.")
 
 
 def test_every_cell_reports_what_its_metrics_move():

@@ -54,6 +54,22 @@ ORPHAN = ("void at::native::vectorized_elementwise_kernel<4>()", "kernel",
           170, 10, 10)
 
 
+# the copies between the host and the card of one API call, as kineto
+# writes them: (name, start, dur, bytes)
+HOST_COPIES = [("Memcpy HtoD (Pageable -> Device)", 1, 2, 7451000),
+               ("Memcpy DtoH (Device -> Pageable)", 201, 4, 14904000)]
+# what each reader of benchmark/metrics/ read from the trace below before
+# copies were read
+READ_BEFORE = {
+    "census_roofline": 361.47761194029846,
+    "device.idle_pct": 15.151515151515149,
+    "frame_roofline": 135.77869115958669,
+    "pipeline.device_ops_per_frame": 5.5,
+    "pipeline.host_issue_ms": 2.5,
+    "postproc_roofline": 14.459104477611941,
+    "sweeps_roofline": 276.73891791044775}
+
+
 def _trace(with_program=True):
     ev = [{"ph": "X", "cat": "user_annotation", "name": n, "pid": 1,
            "tid": MAIN, "ts": s, "dur": e - s}
@@ -74,6 +90,20 @@ def _trace(with_program=True):
                "ts": start, "dur": dur, "args": {"correlation": corr}})
     ev.append({"ph": "s", "cat": "ac2g", "name": "ac2g", "id": 1, "ts": 15})
     return {"traceEvents": ev}
+
+
+def _readers(view):
+    out = {}
+    for path in sorted(glob.glob(os.path.join(
+            harness.ROOT, "benchmark", "metrics", "*.py"))):
+        if os.path.basename(path) != "__init__.py":
+            out[os.path.basename(path)[:-3]] = harness.load_reader(path)(view)
+    return out
+
+
+def _stages():
+    config = harness.load_cell("kitti_sgm8.stream-b8").config
+    return workmodel.sgm_frame(config["pinned"], tuple(config["shape"]))
 
 
 @pytest.fixture
@@ -181,22 +211,58 @@ def test_timeline_nesting_and_split():
 def test_existing_readers_unchanged_by_program_spans(trace_path):
     """Each reader of benchmark/metrics/ reads the same value from the
     trace with the program's spans as from the trace without them."""
-    config = harness.load_cell("kitti_sgm8.stream-b8").config
-    stages = workmodel.sgm_frame(config["pinned"], tuple(config["shape"]))
+    stages = _stages()
     values = []
     for with_program in (False, True):
-        ops, spans = devtrace.read_chrome_trace(trace_path(with_program))
+        ops, spans, _ = devtrace.read_chrome_trace(
+            trace_path(with_program))
         view = devtrace.TraceView(ops, spans, 1, 2, [0.002, 0.003], stages)
-        got = {}
-        for path in sorted(glob.glob(os.path.join(
-                harness.ROOT, "benchmark", "metrics", "*.py"))):
-            if os.path.basename(path) != "__init__.py":
-                got[os.path.basename(path)] = harness.load_reader(path)(view)
-        values.append(got)
+        values.append(_readers(view))
         assert devtrace.breakdown(ops, spans) == devtrace.breakdown(
-            *devtrace.read_chrome_trace(trace_path(False)))
+            *devtrace.read_chrome_trace(trace_path(False))[:2])
     assert values[0] == values[1]
-    assert len(values[0]) == 14 and None not in values[0].values()
+    # the trace has no copy between the host and the card: the API's
+    # readers find nothing to read
+    assert len(values[0]) == 16
+    assert {k for k, v in values[0].items() if v is None} == {
+        "api.copy_ms", "api.copy_link_pct"}
+
+
+def test_copies_read_with_their_bytes(tmp_path):
+    """HtoD and DtoH copies are read with kineto's `bytes`, the DtoD copy
+    is not one; as operations the copies are what they were, and each
+    earlier reader reads from the trace without them what it read before
+    copies were read."""
+    trace = _trace()
+    path = tmp_path / "plain.json"
+    path.write_text(json.dumps(trace))
+    ops, spans, copies = devtrace.read_chrome_trace(str(path))
+    assert copies == []
+    got = _readers(devtrace.TraceView(ops, spans, 1, 2, [0.002, 0.003],
+                                      _stages(), copies))
+    for name, value in READ_BEFORE.items():
+        assert got[name] == pytest.approx(value, rel=1e-12)
+        assert got[name + ".live"] == pytest.approx(value, rel=1e-12)
+
+    for name, start, dur, n in HOST_COPIES:
+        trace["traceEvents"].append({
+            "ph": "X", "cat": "gpu_memcpy", "name": name, "pid": 0,
+            "tid": 7, "ts": start, "dur": dur,
+            "args": {"correlation": 99, "bytes": n,
+                     "memory bandwidth (GB/s)": n / dur / 1e3}})
+    path = tmp_path / "copies.json"
+    path.write_text(json.dumps(trace))
+    ops2, spans2, copies = devtrace.read_chrome_trace(str(path))
+    assert copies == [("HtoD", 1.0, 2.0, 7451000.0),
+                      ("DtoH", 201.0, 4.0, 14904000.0)]
+    assert spans2 == spans
+    assert sorted(ops2) == sorted(ops + [(n, "gpu_memcpy", float(s),
+                                          float(d))
+                                         for n, s, d, _ in HOST_COPIES])
+    view = devtrace.TraceView(ops2, spans2, 1, 8, [], None, copies)
+    assert devtrace.copy_ms(view) == pytest.approx(6e-3)
+    assert devtrace.copy_link_pct(view) == pytest.approx(
+        100 * (7451000 + 14904000) / 6e-6 / 64e9)
 
 
 def test_cpu_trace_of_the_port(tmp_path):

@@ -82,6 +82,29 @@ def test_readers_on_a_hand_made_trace():
         assert load_reader(os.path.join(d, name + ".py"))(empty) is None
 
 
+def test_copy_readers_on_a_hand_made_trace():
+    """api.copy_ms and api.copy_link_pct read the HtoD and DtoH copies of
+    the view alone; nothing to read gives None, never 0."""
+    from benchmark.harness import load_reader
+    import os
+    d = os.path.join(harness.ROOT, "benchmark", "metrics")
+
+    def r(name, view):
+        return load_reader(os.path.join(d, name + ".py"))(view)
+    v = _view()
+    assert r("api.copy_ms", v) is None and r("api.copy_link_pct", v) is None
+    # two calls: 2 x 0.75 MB up in 50 us each, 1.5 MB down in 150 us
+    v = devtrace.TraceView(v.ops, v.spans, 2, 16, [], None, copies=[
+        ("HtoD", 0.0, 50.0, 0.75e6), ("HtoD", 60.0, 50.0, 0.75e6),
+        ("DtoH", 200.0, 150.0, 1.5e6)])
+    assert r("api.copy_ms", v) == pytest.approx(250e-3 / 2)
+    assert r("api.copy_link_pct", v) == pytest.approx(
+        100 * 3e6 / 250e-6 / 64e9)
+    v.copies.append(("DtoH", 400.0, 10.0, None))
+    assert r("api.copy_link_pct", v) is None
+    assert r("api.copy_ms", v) == pytest.approx(260e-3 / 2)
+
+
 def test_work_model_by_stage():
     pinned = {"mode": "sgm", "num_disparities": 128, "paths": 8,
               "disp12_max_diff": 1, "fill_mode": "off",

@@ -27,9 +27,10 @@ from typing import Dict
 # H100 SXM (NVIDIA's data sheet, dense, at the 700 W power limit): HBM3 at
 # 3.35 TB/s; 67e12 operations/s outside the tensor cores, the float32 FMA
 # rate, which no integer add, min or select path exceeds (a ceiling: the
-# 16-bit SIMD path issues about half of it)
+# 16-bit SIMD path issues about half of it); the host link, PCIe Gen 5 x16,
+# at 64e9 B/s each way, half of the data sheet's 128 GB/s for both
 PEAKS = {"name": "H100 SXM", "hbm_bytes_per_s": 3.35e12,
-         "int_ops_per_s": 67e12}
+         "int_ops_per_s": 67e12, "host_link_bytes_per_s": 64e9}
 
 SGM_OPS_PER_UPDATE = 9
 COST_OPS_PER_CELL = 4
