@@ -4,8 +4,9 @@ size, on the card, several seeds in one process:
     python3 benchmark/control.py --workload <name> --seeds 1,2,3 \
         --entry program|control --seconds <s>
 
-`program` runs the cell's entry as the benchmark does (a short window,
-then the check); `control` puts the reference computed in bfloat16, the
+`program` runs the cell's bound entry (`harness.bind_entry`, its mesh
+built once for every seed) as the benchmark does (a short window, then
+the check); `control` puts the reference computed in bfloat16, the
 nearest precision below the configuration's float32 subpixel stage, in
 the program's place (`harness.control_entry`: numpy in and out where the
 cell's traffic passes host arrays). Each seed prints one JSON line: its
@@ -43,7 +44,8 @@ def main() -> int:
         return 2
     cell = harness.load_cell(a.workload)
     entry = (harness.control_entry(cell, "cuda") if a.entry == "control"
-             else None)
+             else harness.bind_entry(cell, harness.port_config(cell.config),
+                                     "cuda"))
     for seed in (int(s) for s in a.seeds.split(",")):
         t0 = time.perf_counter()
         r = harness.run(cell, seed, a.seconds, False, "cuda", t0,

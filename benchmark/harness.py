@@ -11,7 +11,9 @@ mix; each is a file of its own, found by name:
   loop, the pool of distinct pairs, the frames the traced run traces, the
   megapixels the check compares, and the arrays the entry takes and
   returns (`arrays`: "device", tensors on the card, by default; "host",
-  numpy arrays, as an API caller passes them);
+  numpy arrays, as an API caller passes them), and the mesh the entry
+  takes after the configuration (`mesh`: "strips", the one-process
+  (1, cfg.strips) mesh of the strip-tiled matcher; none by default);
 * `benchmark/metrics/<metric>.py`: each per-layer metric's reader,
   `read(view) -> float | None` over the traced calls (`devtrace.TraceView`).
 
@@ -73,6 +75,10 @@ REF_MAX_CELLS = 1 << 31
 # what a traffic's entry takes and returns: tensors on the card, or numpy
 # arrays on the host
 ARRAYS = ("device", "host")
+# the meshes a traffic's entry may take: "strips" is the (1, cfg.strips)
+# mesh of one process on the card, which `StereoOdometry` builds when it is
+# given none
+MESHES = ("strips",)
 
 
 class CellError(Exception):
@@ -148,6 +154,25 @@ def resolve_entry(dotted: str) -> Callable:
     if mod.split(".")[0] in FORBIDDEN:
         raise CellError(f"entry {dotted} is not the port")
     return getattr(importlib.import_module(mod), fn)
+
+
+def bind_entry(cell: Cell, cfg, device) -> Callable:
+    """The callable (left, right, cfg) that the warm-up, the window and
+    `progtrace` call: the traffic's entry itself, or, where the traffic
+    names a `mesh`, the entry with that mesh, built here once, in set-up,
+    as the odometry builds it at construction."""
+    entry = resolve_entry(cell.traffic["entry"])
+    if "mesh" not in cell.traffic:
+        return entry
+    if cell.traffic["mesh"] not in MESHES:
+        raise CellError(f"mesh {cell.traffic['mesh']!r} is none of "
+                        f"{MESHES}")
+    from tpustereo_torch.dist import make_mesh
+    mesh = make_mesh(1, cfg.strips, device=device)
+
+    def on_mesh(left, right, cfg):
+        return entry(left, right, cfg, mesh)
+    return on_mesh
 
 
 def arrays(traffic: dict) -> str:
@@ -382,7 +407,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         t_process: float, entry: Optional[Callable] = None,
         log=sys.stderr) -> dict:
     """One run of the cell; returns the result line's object. `entry`
-    replaces the traffic's entry (the control and the fault tests)."""
+    replaces the traffic's bound entry (the control and the fault
+    tests)."""
     device = torch.device(device)
     traffic, config = cell.traffic, cell.config
     B, n_pool = traffic["batch"], traffic["pool"]
@@ -392,7 +418,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         raise CellError("the harness runs a closed loop of one client")
     H, W = config["shape"]
     cfg = port_config(config)
-    entry = entry or resolve_entry(traffic["entry"])
+    entry = entry or bind_entry(cell, cfg, device)
 
     t_run = time.perf_counter()
     pool, inputs = make_inputs(cell, seed, device)

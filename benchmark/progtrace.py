@@ -312,9 +312,9 @@ def report(prog: Program, frames: int) -> dict:
 def run_cell(cell, seed: int, seconds: float, keep: str,
              device="cuda") -> dict:
     """One traced run of the cell (`harness.Cell`), as `benchmark/run.py
-    --trace 1` runs its window (the same set-up, `harness.make_inputs`,
-    `harness.warm_up` and `harness.run_window`), with the trace kept under
-    `keep`; no check of the outputs."""
+    --trace 1` runs its window (the same set-up, `harness.bind_entry`,
+    `harness.make_inputs`, `harness.warm_up` and `harness.run_window`),
+    with the trace kept under `keep`; no check of the outputs."""
     import torch
 
     from benchmark import harness, workmodel
@@ -323,8 +323,8 @@ def run_cell(cell, seed: int, seconds: float, keep: str,
     B = traffic["batch"]
     H, W = config["shape"]
     cfg = harness.port_config(config)
-    entry = harness.resolve_entry(traffic["entry"])
     device = torch.device(device)
+    entry = harness.bind_entry(cell, cfg, device)
     _, inputs = harness.make_inputs(cell, seed, device)
     harness.warm_up(entry, cfg, inputs, B, traffic["warmup_calls"], device)
     setup_s = time.perf_counter() - t_process

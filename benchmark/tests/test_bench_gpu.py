@@ -28,7 +28,8 @@ def _cell(name):
 @pytest.mark.parametrize("name", ["kitti_sgm8.stream-b8",
                                   "middlebury_sgm4.stream-b8",
                                   "kitti_sgm8.live-b1",
-                                  "kitti_sgm8.api-b8"])
+                                  "kitti_sgm8.api-b8",
+                                  "kitti_odometry.exact-b1"])
 def test_card_run_correct_and_control_not(cuda, name):
     cell = _cell(name)
     r = harness.run(cell, 2 ** 31 + 7, 1.0, True, cuda, time.perf_counter())

@@ -30,14 +30,56 @@ def test_cell_finds_its_files(cell):
     assert callable(c.metrics[next(iter(c.metrics))])
 
 
+def _against_preset(data: dict) -> list:
+    """What keeps a configuration file from its preset's rule: a pinned
+    field that differs from the preset and is not listed in `departs`, a
+    listed field that is not pinned or equals the preset's, a departure
+    without its reason."""
+    from tpustereo_torch.config import PRESETS
+    preset = PRESETS[data["preset"]]
+    cfg = harness.port_config(data)
+    departs = data.get("departs", {})
+    faults = [f"{k} differs unlisted" for k in data["pinned"]
+              if k not in departs and getattr(cfg, k) != getattr(preset, k)]
+    for k, why in departs.items():
+        if k not in data["pinned"]:
+            faults.append(f"{k} listed, not pinned")
+        elif getattr(cfg, k) == getattr(preset, k):
+            faults.append(f"{k} listed, equal to the preset")
+        if not (isinstance(why, str) and why.strip()):
+            faults.append(f"{k} without a reason")
+    return faults
+
+
 @pytest.mark.parametrize("config", [c["name"] for c in SPEC["configs"]])
 def test_pinned_fields_are_the_presets(config):
-    from tpustereo_torch.config import PRESETS
+    """Every pinned field is the preset's, but those that the file lists
+    under `departs`, each with its reason, which are pinned and differ."""
     f = next(c["file"] for c in SPEC["configs"] if c["name"] == config)
     data = json.load(open(os.path.join(harness.ROOT, f)))
-    assert harness.port_config(data) == PRESETS[data["preset"]]
+    assert _against_preset(data) == []
     assert data["source"] == next(c["source"] for c in SPEC["configs"]
                                   if c["name"] == config)
+
+
+@pytest.mark.parametrize("change,fault", [
+    ({"departs": {}}, "exact_tiling differs unlisted"),
+    ({"pinned_halo": 16}, "halo differs unlisted"),
+    ({"departs": {"exact_tiling": "", "halo": "wider"}},
+     "exact_tiling without a reason"),
+    ({"departs": {"exact_tiling": "exact", "halo": "wider"}},
+     "halo listed, equal to the preset"),
+    ({"departs": {"exact_tiling": "exact", "frames_per_step": "one"}},
+     "frames_per_step listed, not pinned")])
+def test_a_departure_must_be_stated(change, fault):
+    data = json.load(open(os.path.join(
+        harness.ROOT, "benchmark", "configs", "kitti_odometry.json")))
+    for k, v in change.items():
+        if k.startswith("pinned_"):
+            data["pinned"][k[len("pinned_"):]] = v
+        else:
+            data[k] = v
+    assert fault in _against_preset(data)
 
 
 @pytest.mark.parametrize("cell,missing", [
@@ -45,7 +87,10 @@ def test_pinned_fields_are_the_presets(config):
     ("kitti_sgm8.stream-b8", "benchmark/configs/kitti_sgm8.json"),
     ("kitti_sgm8.stream-b8", "benchmark/metrics/sweeps_roofline.py"),
     ("kitti_sgm8.api-b8", "benchmark/traffic/api-b8.json"),
-    ("kitti_sgm8.api-b8", "benchmark/metrics/api.copy_link_pct.py")])
+    ("kitti_sgm8.api-b8", "benchmark/metrics/api.copy_link_pct.py"),
+    ("kitti_odometry.exact-b1", "benchmark/configs/kitti_odometry.json"),
+    ("kitti_odometry.exact-b1", "benchmark/traffic/exact-b1.json"),
+    ("kitti_odometry.exact-b1", "benchmark/metrics/tiling.ring_roofline.py")])
 def test_a_missing_file_fails(tmp_path, cell, missing):
     shutil.copy(os.path.join(harness.ROOT, "BENCHMARK.json"), tmp_path)
     shutil.copytree(os.path.join(harness.ROOT, "benchmark"),
@@ -59,14 +104,16 @@ def test_a_missing_file_fails(tmp_path, cell, missing):
 
 @pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
 def test_traffic_keys(cell):
-    """A traffic file holds the harness's keys, `arrays` optional."""
+    """A traffic file holds the harness's keys, `arrays` and `mesh`
+    optional."""
     t = harness.load_cell(cell).traffic
     keys = {"entry", "batch", "loop", "clients", "pool", "warmup_calls",
             "trace_frames", "check_megapixels"}
-    assert keys <= set(t) <= keys | {"arrays"}
+    assert keys <= set(t) <= keys | {"arrays", "mesh"}
     assert harness.arrays(t) in harness.ARRAYS
     assert harness.arrays(t) == ("host" if cell == "kitti_sgm8.api-b8"
                                  else "device")
+    assert t.get("mesh", harness.MESHES[0]) in harness.MESHES
     assert harness.resolve_entry(t["entry"]).__module__.startswith(
         "tpustereo_torch.")
 

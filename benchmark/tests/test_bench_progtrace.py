@@ -221,9 +221,10 @@ def test_existing_readers_unchanged_by_program_spans(trace_path):
         assert devtrace.breakdown(ops, spans) == devtrace.breakdown(
             *devtrace.read_chrome_trace(trace_path(False))[:2])
     assert values[0] == values[1]
-    # the trace has no copy between the host and the card: the API's
-    # readers find nothing to read
-    assert len(values[0]) == 16
+    # every per-layer metric's reader read it; the trace has no copy
+    # between the host and the card: the API's readers find nothing
+    spec = json.load(open(os.path.join(harness.ROOT, "BENCHMARK.json")))
+    assert set(values[0]) == {m["name"] for m in spec["per_layer"]}
     assert {k for k, v in values[0].items() if v is None} == {
         "api.copy_ms", "api.copy_link_pct"}
 
@@ -308,3 +309,19 @@ def test_a_traced_run_on_the_cpu(tmp_path):
     assert all(out["readings"][f"{k}.host_ms"] > 0 for k in progtrace.LAYERS)
     assert set(out["benchmark"]) == set(cell.metrics)
     assert os.path.isfile(tmp_path / "trace.json")
+
+
+def test_a_traced_run_of_the_tiled_cell_on_the_cpu(tmp_path):
+    """`run_cell` drives the strip-tiled cell through the harness's bound
+    entry, its mesh built in set-up; the tiled matcher records no `tps.*`
+    spans, so the lead-in and the layers' host times read none."""
+    cell = harness.load_cell("kitti_odometry.exact-b1")
+    cell.config = dict(cell.config, shape=[40, 64])
+    cell.config["pinned"] = dict(cell.config["pinned"], num_disparities=16)
+    cell.traffic = dict(cell.traffic, pool=2, warmup_calls=1,
+                        trace_frames=2)
+    out = progtrace.run_cell(cell, 2 ** 31 + 6, 2.0, str(tmp_path), "cpu")
+    assert out["run"]["traced"][1] == 2
+    assert all(v is None for v in out["readings"].values())
+    assert set(out["benchmark"]) == set(cell.metrics)
+    assert "tiling.ring_roofline" in cell.metrics

@@ -123,6 +123,35 @@ def test_work_model_by_stage():
     assert t == pytest.approx(7 * cells * 9 / 67e12)
 
 
+def test_ring_work_and_reader():
+    """The exact ring's work comes from the sweeps stage alone: its 3
+    bytes a cell and 9 operations a cell for each of the paths - 2
+    directions that scan y; 53.5 us a frame at 376 x 1241 x 128, bound by
+    the bytes. The reader takes it over the fused sweep's device time."""
+    from benchmark.harness import load_reader
+    import os
+    cells = 376 * 1241 * 128
+    for paths in (4, 8):
+        pinned = {"mode": "sgm", "num_disparities": 128, "paths": paths,
+                  "disp12_max_diff": 1, "fill_mode": "off",
+                  "median_filter": True}
+        w = workmodel.ring(workmodel.sgm_frame(pinned, (376, 1241)))
+        assert w == {"bytes": 3 * cells, "ops": 9 * (paths - 2) * cells}
+    assert workmodel.bound(w["bytes"], w["ops"]) == pytest.approx(
+        53.4867e-6, rel=1e-5)
+    read = load_reader(os.path.join(harness.ROOT, "benchmark", "metrics",
+                                    "tiling.ring_roofline.py"))
+    # a million cells of 8 paths: 3e6 bytes (0.896 us) and 6 x 9e6
+    # operations (0.806 us) a frame; two frames over 40 us of fused sweep
+    stages = {"sweeps": {"bytes": 3e6, "ops": 7 * 9e6}}
+    assert read(_view(stages)) == pytest.approx(100 * 2 * (3e6 / 3.35e12)
+                                                / 40e-6)
+    assert read(_view(None)) is None
+    no_fused = _view(stages)
+    no_fused.ops = [o for o in no_fused.ops if "sgm_fused" not in o[0]]
+    assert read(no_fused) is None
+
+
 def test_compare_readings():
     import torch
     ref = torch.tensor([[[1.0, -1.0, 2.5, 3.0]]])

@@ -78,6 +78,17 @@ def sgm_frame(pinned: dict, shape) -> Dict[str, Dict[str, float]]:
     return stages
 
 
+def ring(stages: Dict[str, Dict[str, float]]) -> Dict[str, float]:
+    """The y-scanning directions' work of one frame, from the `sweeps`
+    stage alone: its bytes, C read once and S written once (3 a cell),
+    and its operations less one direction's, the E sweep's: 9 a cell for
+    each of the paths - 2 directions that scan y, which strip tiling's
+    exact ring runs strip after strip."""
+    s = stages["sweeps"]
+    cells = s["bytes"] / 3
+    return {"bytes": s["bytes"], "ops": s["ops"] - SGM_OPS_PER_UPDATE * cells}
+
+
 def bound(nbytes: float, ops: float, peaks: dict = PEAKS) -> float:
     """The least seconds the card needs for nbytes moved and ops integer
     operations: the larger of the two times."""
